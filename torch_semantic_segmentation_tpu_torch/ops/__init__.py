@@ -1,0 +1,30 @@
+"""Ops layer of the PyTorch port: NHWC building blocks with the JAX
+package's numerics, plus the Hopper kernels that replace its Pallas ones."""
+
+from torch_semantic_segmentation_tpu_torch.ops.conv import (
+    ConvBNAct,
+    SeparableConv,
+    activation,
+    make_conv,
+    make_norm,
+)
+from torch_semantic_segmentation_tpu_torch.ops.pool import (
+    adaptive_avg_pool2d,
+    global_avg_pool,
+)
+from torch_semantic_segmentation_tpu_torch.ops.upsample import (
+    resize_argmax,
+    resize_bilinear,
+    resize_bilinear_nhcw,
+)
+from torch_semantic_segmentation_tpu_torch.ops.blocks import (
+    InvertedResidual,
+    PyramidPooling,
+    SegHead,
+)
+
+__all__ = [
+    "ConvBNAct", "InvertedResidual", "PyramidPooling", "SegHead", "SeparableConv",
+    "activation", "adaptive_avg_pool2d", "global_avg_pool", "make_conv",
+    "make_norm", "resize_argmax", "resize_bilinear", "resize_bilinear_nhcw",
+]

@@ -1,0 +1,94 @@
+"""Bilinear resize on NHWC tensors as two matrix products, with torch's
+`F.interpolate(mode='bilinear')` weights for both `align_corners`
+conventions.
+
+The matrix form and the accumulation types are the JAX package's, so that
+class ids after `resize_argmax` match it: float32 inputs accumulate in
+float32; bfloat16 inputs round to bfloat16 after each pass (the matrices are
+2-hot, so at most two terms meet in a sum).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
+    """Dense 1-D linear-interpolation matrix W (out_size, in_size), float32.
+
+      align_corners=True : src = i * (in-1) / (out-1)
+      align_corners=False: src = (i + 0.5) * in/out - 0.5, clamped to [0, in-1]
+    """
+    if in_size == out_size:
+        return np.eye(in_size, dtype=np.float32)
+    i = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        src = i * (in_size - 1) / max(out_size - 1, 1)
+    else:
+        src = (i + 0.5) * (in_size / out_size) - 0.5
+        src = np.clip(src, 0.0, in_size - 1)
+    lo = np.floor(src).astype(np.int64)
+    lo = np.clip(lo, 0, in_size - 1)
+    hi = np.minimum(lo + 1, in_size - 1)
+    frac = (src - lo).astype(np.float64)
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    rows = np.arange(out_size)
+    np.add.at(w, (rows, lo), 1.0 - frac)
+    np.add.at(w, (rows, hi), frac)
+    return w.astype(np.float32)
+
+
+def _matrix(in_size: int, out_size: int, align_corners: bool,
+            like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    m = _interp_matrix(in_size, out_size, align_corners)
+    return torch.from_numpy(m).to(device=like.device, dtype=dtype)
+
+
+def resize_bilinear(x: torch.Tensor, size: tuple[int, int], *,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear-resize NHWC `x` to `size` = (H_out, W_out); accumulates in
+    float32 and casts back to x's dtype."""
+    n, h, w, c = x.shape
+    oh, ow = size
+    if (oh, ow) == (h, w):
+        return x
+    wh = _matrix(h, oh, align_corners, x, torch.float32)
+    ww = _matrix(w, ow, align_corners, x, torch.float32)
+    y = torch.einsum("nhwc,oh->nowc", x.float(), wh)
+    y = torch.einsum("nhwc,ow->nhoc", y, ww)
+    return y.to(x.dtype)
+
+
+def resize_bilinear_nhcw(x: torch.Tensor, size: tuple[int, int], *,
+                         align_corners: bool = False,
+                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Bilinear-resize NHWC `x` to `size`, returned as (N, OH, C, OW), in
+    float32 unless `out_dtype` says otherwise. The products run in x's
+    dtype; the intermediate between the W and H passes is kept in x's
+    dtype."""
+    n, h, w, c = x.shape
+    oh, ow = size
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if (oh, ow) == (h, w):
+        return x.permute(0, 1, 3, 2).to(out_dtype)
+    ww = _matrix(w, ow, align_corners, x, x.dtype)
+    wh = _matrix(h, oh, align_corners, x, x.dtype)
+    y = torch.einsum("nhwc,kw->nhck", x, ww)
+    return torch.einsum("nhck,oh->nock", y, wh).to(out_dtype)
+
+
+def resize_argmax(logits: torch.Tensor, size: tuple[int, int], *,
+                  align_corners: bool = False,
+                  out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """argmax over classes of the bilinearly upsampled NHWC logits, in the
+    (N, H, C, W) layout: the serving tail for models built with
+    `upsample_logits=False`."""
+    oh, ow = size
+    if (oh, ow) == (logits.shape[1], logits.shape[2]):
+        return torch.argmax(logits, dim=-1).to(out_dtype)
+    x = resize_bilinear_nhcw(logits, size, align_corners=align_corners)
+    return torch.argmax(x, dim=2).to(out_dtype)
