@@ -1,7 +1,8 @@
-"""PyTorch port, kernels on the card: each Hopper kernel against its plain
-PyTorch version. These tests need a CUDA card and skip without one. This
-file imports neither JAX nor the JAX package, so it also runs where JAX is
-not installed:
+"""PyTorch port, kernels on the card: each Hopper kernel, forward and
+backward where it has one, against its plain PyTorch version, the
+wrappers' checks and their launch counters. These tests need a CUDA card
+and skip without one. This file imports neither JAX nor the JAX package,
+so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_semantic_segmentation_tpu_torch.ops import sepconv
+from torch_semantic_segmentation_tpu_torch.ops import mbconv, resize_ce, sepconv
 
 torch.set_num_threads(2)
 
@@ -75,3 +76,131 @@ def test_sepconv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         sepconv.fused_separable_conv(x.bfloat16(), dwk, dwb, pwk, pwb)
     with pytest.raises(ValueError, match="must be on"):
         sepconv.fused_separable_conv(x, dwk.cpu(), dwb, pwk, pwb)
+
+
+def _bf16_close(got, want, scale_of=None):
+    """Within two bf16 steps of the largest |want| (sums in another order
+    may round one step apart)."""
+    want = want.float()
+    scale = float((want if scale_of is None else scale_of).abs().max())
+    err = float((got.float() - want).abs().max())
+    assert err <= 2.0 ** -6 * scale + 1e-6, (err, scale)
+
+
+# (n, h, w, cin, ce, stride): odd W at stride 1, Ce off the 64-channel chunk,
+# ragged Cin, odd H and W at stride 2, the widest Cin the kernel takes
+MBCONV_CASES = [(2, 9, 19, 16, 96, 1), (1, 8, 12, 24, 72, 2),
+                (2, 7, 13, 12, 40, 2), (1, 5, 33, 128, 136, 1)]
+
+
+def _mbconv_inputs(seed, n, h, w, cin, ce, device):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(n, h, w, cin)), rng.normal(size=(cin, ce)) * 0.3,
+              rng.normal(size=(ce,)) * 0.5, rng.normal(size=(3, 3, ce)) * 0.5)
+    x, wt, b, k = [torch.from_numpy(a.astype(np.float32)).to(device)
+                   for a in arrays]
+    return x.to(torch.bfloat16), wt, b, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,ce,stride", MBCONV_CASES)
+def test_mbconv_kernels_match_plain_version(cuda, n, h, w, cin, ce, stride):
+    x, wt, b, k = _mbconv_inputs(3, n, h, w, cin, ce, cuda)
+    f0, b0 = mbconv.expand_dw_forward.launches, mbconv.expand_dw_backward.launches
+    y = mbconv.expand_dw_forward(x, wt, b, k, stride)
+    assert mbconv.expand_dw_forward.launches == f0 + 1
+    want = mbconv.expand_dw_reference(x, wt, b, k, stride)
+    assert y.shape == want.shape and y.dtype == torch.bfloat16
+    _bf16_close(y, want)
+    g = torch.randn(y.shape, generator=torch.Generator(cuda).manual_seed(0),
+                    device=cuda).to(torch.bfloat16)
+    got = mbconv.expand_dw_backward(x, wt, b, k, g, stride)
+    assert mbconv.expand_dw_backward.launches == b0 + 1
+    ref = mbconv.expand_dw_reference_backward(x, wt, b, k, g, stride)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        _bf16_close(a, r)
+
+
+@pytest.mark.cuda
+def test_mbconv_autograd_and_wrapper_checks(cuda):
+    x, wt, b, k = _mbconv_inputs(4, 1, 6, 10, 16, 64, cuda)
+    xr = x.clone().requires_grad_(True)
+    ts = [t.clone().requires_grad_(True) for t in (wt, b, k)]
+    mbconv.fused_expand_dw(xr, *ts, 1).float().sum().backward()
+    assert xr.grad.dtype == torch.bfloat16 and ts[0].grad.dtype == torch.float32
+    with pytest.raises(TypeError):
+        mbconv.expand_dw_forward(x.float(), wt, b, k, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        mbconv.expand_dw_forward(x.permute(0, 2, 1, 3), wt, b, k, 1)
+    with pytest.raises(ValueError, match="stride"):
+        mbconv.expand_dw_forward(x, wt, b, k, 3)
+    with pytest.raises(ValueError, match="shape"):
+        mbconv.expand_dw_forward(x, wt[:, :8], b, k, 1)
+    with pytest.raises(ValueError, match="must be on"):
+        mbconv.expand_dw_forward(x, wt.cpu(), b, k, 1)
+    wide = torch.zeros(1, 4, 4, 136, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="Cin"):
+        mbconv.expand_dw_forward(wide, torch.zeros(136, 8, device=cuda),
+                                 b[:8], k[..., :8], 1)
+
+
+# (n, h, w, c, oh, ow, align_corners): OW off 128, C of 3, 19 and 66
+RESIZE_CE_CASES = [(2, 8, 12, 19, 64, 96, False), (1, 5, 7, 3, 40, 56, True),
+                   (2, 6, 20, 66, 48, 160, False), (1, 16, 16, 19, 128, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,oh,ow,ac", RESIZE_CE_CASES)
+@pytest.mark.parametrize("label_dtype", ["uint8", "int64"])
+@pytest.mark.parametrize("weights", [False, True])
+def test_resize_ce_kernels_match_plain_version(cuda, n, h, w, c, oh, ow, ac,
+                                               label_dtype, weights):
+    rng = np.random.default_rng(5)
+    logits = torch.from_numpy((rng.normal(size=(n, h, w, c)) * 2).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    lab = rng.integers(0, c, (n, oh, ow))
+    lab[:, :3, :7] = 255
+    labels = torch.from_numpy(lab.astype(label_dtype)).to(cuda)
+    cw = torch.from_numpy(rng.uniform(0.5, 2.0, c).astype(np.float32)).to(cuda) \
+        if weights else torch.ones(c, device=cuda)
+    f0 = resize_ce.resize_ce_forward.launches
+    b0 = resize_ce.resize_ce_backward.launches
+    loss, s2, logz = resize_ce.resize_ce_forward(logits, labels, cw, ac)
+    assert resize_ce.resize_ce_forward.launches == f0 + 1
+    want = resize_ce.resize_ce_reference(logits, labels, cw, ac)
+    np.testing.assert_allclose(float(loss), float(want[0]), rtol=1e-5)
+    np.testing.assert_allclose(float(s2), float(want[1]), rtol=1e-6)
+    # logz rounds to bf16: the last bit may differ
+    _bf16_close(logz, want[2])
+    scale = torch.tensor([0.7], device=cuda) / s2
+    dx = resize_ce.resize_ce_backward(logits, labels, cw, logz, scale, ac)
+    assert resize_ce.resize_ce_backward.launches == b0 + 1
+    ref = resize_ce.resize_ce_reference_backward(logits, labels, cw, logz,
+                                                 scale, ac)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16 and dx.shape == logits.shape
+    _bf16_close(dx, ref)
+
+
+@pytest.mark.cuda
+def test_resize_ce_all_ignored_and_wrapper_checks(cuda):
+    logits = torch.randn(1, 4, 8, 5, device=cuda).to(torch.bfloat16)
+    labels = torch.full((1, 32, 64), 255, dtype=torch.uint8, device=cuda)
+    lg = logits.clone().requires_grad_(True)
+    loss = resize_ce.resize_cross_entropy(lg, labels)
+    loss.backward()
+    assert float(loss.detach()) == 0.0 and not bool(lg.grad.float().any())
+    cw = torch.ones(5, device=cuda)
+    with pytest.raises(TypeError):
+        resize_ce.resize_ce_forward(logits.float(), labels, cw)
+    with pytest.raises(TypeError):
+        resize_ce.resize_ce_forward(logits, labels.float(), cw)
+    with pytest.raises(ValueError, match="contiguous"):
+        resize_ce.resize_ce_forward(logits.transpose(1, 2), labels, cw)
+    with pytest.raises(ValueError, match="class weights"):
+        resize_ce.resize_ce_forward(logits, labels, cw[:3])
+    with pytest.raises(ValueError, match="must be on"):
+        resize_ce.resize_ce_forward(logits, labels.cpu(), cw)

@@ -109,16 +109,18 @@ class FeatureFusion(nn.Module):
 
 
 class Classifier(nn.Module):
-    """dsconv ×2 → dropout → 1×1 conv logits (at 1/8 resolution)."""
+    """dsconv ×2 → dropout → 1×1 conv logits (at 1/8 resolution). The
+    train-mode dropout mask comes from `dropout_generator`."""
 
     def __init__(self, in_ch: int, num_classes: int, *, dropout: float = 0.1,
                  compute_dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dropout_generator: torch.Generator | None = None):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype, generator=generator)
         self.ds1 = SeparableConv(in_ch, in_ch, 3, **kw)
         self.ds2 = SeparableConv(in_ch, in_ch, 3, **kw)
-        self.dropout = Dropout(dropout)
+        self.dropout = Dropout(dropout, generator=dropout_generator)
         self.conv = make_conv(in_ch, num_classes, 1, use_bias=True, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -130,15 +132,19 @@ class FastSCNN(nn.Module):
 
     Returns logits (N, H, W, num_classes), or at 1/8 resolution with
     `upsample_logits=False`; with `aux=True`, (main, aux_lds, aux_gfe).
+    `generator` draws the initial weights; `dropout_generator`, on the
+    device the model runs on, draws every train-mode dropout mask.
     """
 
     def __init__(self, num_classes: int = 19, in_ch: int = 3, *,
                  aux: bool = False, align_corners: bool = False,
                  upsample_logits: bool = True,
                  compute_dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dropout_generator: torch.Generator | None = None):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype, generator=generator)
+        self.dropout_generator = dropout_generator
         self.aux = aux
         self.align_corners = align_corners
         self.upsample_logits = upsample_logits
@@ -146,10 +152,13 @@ class FastSCNN(nn.Module):
         self.gfe = GlobalFeatureExtractor(64, (64, 96, 128), 128, **kw)
         self.ffm = FeatureFusion(64, 128, 128, align_corners=align_corners,
                                  **kw)
-        self.classifier = Classifier(128, num_classes, **kw)
+        self.classifier = Classifier(128, num_classes,
+                                     dropout_generator=dropout_generator, **kw)
         if aux:
-            self.aux_lds = SegHead(64, 32, num_classes, **kw)
-            self.aux_gfe = SegHead(128, 32, num_classes, **kw)
+            self.aux_lds = SegHead(64, 32, num_classes,
+                                   dropout_generator=dropout_generator, **kw)
+            self.aux_gfe = SegHead(128, 32, num_classes,
+                                   dropout_generator=dropout_generator, **kw)
 
     def forward(self, x: torch.Tensor):
         h, w = x.shape[1], x.shape[2]
@@ -174,9 +183,12 @@ def fastscnn(num_classes: int = 19, *, aux: bool = False,
              device: str | torch.device | None = None) -> FastSCNN:
     """Build FastSCNN with float32 parameters drawn from
     `torch.Generator().manual_seed(seed)`, on `device` (the card unless
-    the caller passes "cpu")."""
+    the caller passes "cpu"). Its dropout masks come from a generator on
+    that device, seeded with `seed` (`model.dropout_generator`)."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
+    drop_gen = torch.Generator(device=dev).manual_seed(seed)
     model = FastSCNN(num_classes, aux=aux, upsample_logits=upsample_logits,
-                     compute_dtype=compute_dtype, generator=gen)
+                     compute_dtype=compute_dtype, generator=gen,
+                     dropout_generator=drop_gen)
     return model.to(dev)

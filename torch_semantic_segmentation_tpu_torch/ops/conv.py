@@ -72,21 +72,47 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """`nn.BatchNorm2d` on NHWC tensors with a call-time compute dtype.
+    """`nn.BatchNorm2d` on NHWC tensors with a call-time compute dtype and
+    flax's `nnx.BatchNorm` numerics.
 
-    Training mode updates the running variance with torch's unbiased batch
-    variance; the JAX package stores the biased one. Only eval mode is on
-    the serving path."""
+    Training mode (flax's `_compute_stats` and `_normalize`): the batch
+    mean and the biased variance E[x²]−E[x]² (clipped at 0) in float32 over
+    N, H and W; the running stats move in place as
+    `(1−m)·running + m·batch`; the output is
+    `(x − mean)·(rsqrt(var+eps)·scale) + bias` in float32, cast to the
+    compute dtype. Gradients flow through the batch statistics."""
 
     def __init__(self, *args, compute_dtype: torch.dtype | None = None,
                  **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
+    def update_running_stats(self, mean: torch.Tensor,
+                             var: torch.Tensor) -> None:
+        """Move the running stats toward a batch's float32 mean and biased
+        variance, as flax does with momentum 1−m. `momentum=None` keeps
+        torch's cumulative average (m = 1 / batches seen)."""
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            m = self.momentum
+            if m is None:
+                m = 1.0 / float(self.num_batches_tracked)
+            self.running_mean.copy_((1 - m) * self.running_mean
+                                    + m * mean.detach())
+            self.running_var.copy_((1 - m) * self.running_var
+                                   + m * var.detach())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         dt = _compute_types(x, self.weight, self.compute_dtype)
+        if self.training:
+            xf = x.to(dt).float()
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean,
+                              min=0.0)
+            self.update_running_stats(mean, var)
+            # flax promotes scale and bias to the compute dtype first
+            mul = torch.rsqrt(var + self.eps) * self.weight.to(dt).float()
+            return ((xf - mean) * mul + self.bias.to(dt).float()).to(dt)
         # flax's _normalize: (x - mean) * (rsqrt(var + eps) * scale) + bias
         mul = torch.rsqrt(self.running_var.to(dt) + self.eps) * self.weight.to(dt)
         return (x.to(dt) - self.running_mean.to(dt)) * mul + self.bias.to(dt)

@@ -1,8 +1,12 @@
 """Dropout: the identity in eval mode; in training mode an inverted-dropout
-mask drawn from an explicit `torch.Generator`.
+mask drawn from an explicit `torch.Generator`, never from torch's global
+RNG.
 
-The JAX package draws its mask with threefry or the TPU's hardware RNG, so
-the two never give the same mask; tests compare eval mode."""
+The rate is exact (torch's semantics, as the JAX package has off the TPU):
+a unit is kept where a float32 uniform is below 1 − rate, and scaled by
+1 / (1 − rate). The JAX package draws its mask with threefry or the TPU's
+hardware RNG, so the two never give the same mask; tests compare eval mode
+or rate 0."""
 
 from __future__ import annotations
 
@@ -21,6 +25,14 @@ class Dropout(nn.Module):
             return x
         if self.rate == 1.0:
             return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError("train-mode dropout needs an explicit "
+                               "torch.Generator (the model's constructor "
+                               "makes one)")
+        gd, xd = self.generator.device, x.device
+        if gd.type != xd.type or (gd.index or 0) != (xd.index or 0):
+            raise ValueError(f"dropout generator is on {self.generator.device}"
+                             f", the input on {x.device}")
         keep = 1.0 - self.rate
         u = torch.rand(x.shape, generator=self.generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))

@@ -1,0 +1,404 @@
+"""Fused ×k bilinear upsample + class-weighted cross-entropy, forward and
+backward, with its Hopper kernels.
+
+`resize_cross_entropy(logits, labels, class_weights)` is the loss of the
+bf16 low-res logits (N,h,w,C) bilinearly upsampled to the label grid
+(N,OH,OW), at the rounding points of the JAX package's Pallas kernel
+(`ops/pallas_resize_ce.py`):
+
+- the interpolation weights are `_interp_matrix`'s, rounded to bf16;
+- the H pass in float32, rounded to bf16; the W pass in float32, clipped to
+  ±80 (a direct-sum logsumexp needs no max pass below that);
+- `logz = log Σ_c exp(y)`; a pixel weighs `cw[label]` for a label in
+  [0, C) and 0 otherwise, so `ignore_index` (any value outside [0, C))
+  needs no branch; loss = Σ w·(logz − y_label) / max(Σ w, 1e−12);
+- logz is kept in bf16 as the backward's residual;
+- backward: `d = bf16(w·g/S₂·(exp(y − logz) − onehot))`, the transposed W
+  pass rounded to bf16, the transposed H pass accumulated in float32,
+  d(logits) in the logits' dtype. Class weights get no gradient.
+
+`resize_ce_forward` and `resize_ce_backward` launch the CUDA kernels
+(`csrc/resize_ce.cu`) for tensors on the card and run the plain PyTorch
+versions for tensors on the CPU. On the card the full-resolution logits
+never reach device memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import typing as tp
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from torch_semantic_segmentation_tpu_torch.ops.upsample import _interp_matrix
+
+_CLIP = 80.0
+_LABEL_KINDS = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
+_MAX_SPAN = 32   # low-res columns a backward block owns, at most
+
+
+class _Taps(tp.NamedTuple):
+    lo: np.ndarray    # (out,) int32: first source index
+    hi: np.ndarray    # (out,) int32: second source index (= lo for one tap)
+    wlo: np.ndarray   # (out,) float32, a bf16 value
+    whi: np.ndarray   # (out,) float32, a bf16 value (0 for one tap)
+
+
+@functools.lru_cache(maxsize=None)
+def _taps(in_size: int, out_size: int, align_corners: bool) -> _Taps:
+    """The nonzero entries of each row of the bf16-rounded interpolation
+    matrix: at most two, which the bilinear rule guarantees."""
+    m = torch.from_numpy(_interp_matrix(in_size, out_size, align_corners))
+    m = m.to(torch.bfloat16).float().numpy()
+    nz = m != 0
+    if int(nz.sum(axis=1).max()) > 2:
+        raise ValueError("a bilinear interpolation row has more than two taps")
+    lo = nz.argmax(axis=1)
+    hi = in_size - 1 - nz[:, ::-1].argmax(axis=1)
+    rows = np.arange(out_size)
+    whi = np.where(hi != lo, m[rows, hi], 0.0)
+    return _Taps(lo.astype(np.int32), hi.astype(np.int32),
+                 m[rows, lo].astype(np.float32), whi.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(in_size: int, out_size: int, align_corners: bool,
+                 device: str):
+    t = _taps(in_size, out_size, align_corners)
+    return tuple(torch.from_numpy(a).to(device) for a in t)
+
+
+def _resize(x: torch.Tensor, dim: int, taps) -> torch.Tensor:
+    """One bilinear pass along `dim` in float32: two taps an output, so the
+    sum of two exact bf16 products rounds once, as the matrix product does."""
+    lo, hi, wlo, whi = taps
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    return (x.index_select(dim, lo.long()) * wlo.reshape(shape)
+            + x.index_select(dim, hi.long()) * whi.reshape(shape))
+
+
+def _resize_transposed(g: torch.Tensor, dim: int, taps, size: int
+                       ) -> torch.Tensor:
+    """The transpose of `_resize`: scatter-add along `dim`, in float32."""
+    lo, hi, wlo, whi = taps
+    shape = [1] * g.dim()
+    shape[dim] = -1
+    out_shape = list(g.shape)
+    out_shape[dim] = size
+    out = torch.zeros(out_shape, dtype=torch.float32, device=g.device)
+    out.index_add_(dim, lo.long(), g * wlo.reshape(shape))
+    return out.index_add_(dim, hi.long(), g * whi.reshape(shape))
+
+
+def _upsampled(logits: torch.Tensor, oh: int, ow: int, align_corners: bool
+               ) -> torch.Tensor:
+    """The clipped full-resolution logits (N,OH,OW,C), float32."""
+    n, h, w, c = logits.shape
+    dev = str(logits.device)
+    rows = _device_taps(h, oh, align_corners, dev)
+    cols = _device_taps(w, ow, align_corners, dev)
+    t = _resize(logits.float(), 1, rows).to(torch.bfloat16).float()
+    return _resize(t, 2, cols).clamp(-_CLIP, _CLIP)
+
+
+def _label_weights(labels: torch.Tensor, cw: torch.Tensor):
+    """(valid mask, class index with 0 where invalid, pixel weight)."""
+    c = cw.shape[0]
+    lab = labels.long()
+    valid = (lab >= 0) & (lab < c)
+    safe = torch.where(valid, lab, 0)
+    return valid, safe, torch.where(valid, cw.float()[safe], 0.0)
+
+
+def resize_ce_reference(logits, labels, cw, align_corners: bool = False):
+    """Plain PyTorch forward: (loss, S₂ = max(Σ w, 1e−12), logz in bf16)."""
+    oh, ow = labels.shape[1], labels.shape[2]
+    y = _upsampled(logits, oh, ow, align_corners)
+    logz = torch.log(torch.exp(y).sum(dim=-1))
+    _, safe, wv = _label_weights(labels, cw)
+    tl = y.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    s2 = torch.clamp(wv.sum(), min=1e-12)
+    return (wv * (logz - tl)).sum() / s2, s2, logz.to(torch.bfloat16)
+
+
+def resize_ce_reference_backward(logits, labels, cw, logz, scale,
+                                 align_corners: bool = False):
+    """Plain PyTorch backward: d(logits) in the logits' dtype, for
+    `scale` = g / S₂ (a float32 tensor)."""
+    n, h, w, c = logits.shape
+    oh, ow = labels.shape[1], labels.shape[2]
+    y = _upsampled(logits, oh, ow, align_corners)
+    p = torch.exp(y - logz.float().unsqueeze(-1))
+    valid, safe, wv = _label_weights(labels, cw)
+    onehot = F.one_hot(safe, c).float() * valid.unsqueeze(-1)
+    gw = (wv * scale.float().reshape(())).unsqueeze(-1)
+    d = (gw * (p - onehot)).to(torch.bfloat16).float()
+    dev = str(logits.device)
+    dw = _resize_transposed(d, 2, _device_taps(w, ow, align_corners, dev), w)
+    dw = dw.to(torch.bfloat16).float()
+    dx = _resize_transposed(dw, 1, _device_taps(h, oh, align_corners, dev), h)
+    return dx.to(logits.dtype)
+
+
+def _library() -> ctypes.CDLL:
+    from torch_semantic_segmentation_tpu_torch import kernels
+
+    lib = kernels.load("resize_ce")
+    if not getattr(lib, "_typed", False):
+        p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+        for name in ("resize_ce_fwd_rows", "resize_ce_fwd_span",
+                     "resize_ce_bwd_rows", "resize_ce_threads"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        lib.resize_ce_bwd_smem.argtypes = [i, i, i, i]
+        lib.resize_ce_bwd_smem.restype = z
+        lib.resize_ce_fwd_smem.argtypes = [i, i]
+        lib.resize_ce_fwd_smem.restype = z
+        lib.resize_ce_smem_limit.argtypes = []
+        lib.resize_ce_smem_limit.restype = z
+        lib.resize_ce_forward.argtypes = [p, p, i, p, p, p, p, p] + [i] * 9 + [p]
+        lib.resize_ce_forward.restype = i
+        lib.resize_ce_backward.argtypes = [p, p, i, p, p, p, p, p, p] + [i] * 10 + [p]
+        lib.resize_ce_backward.restype = i
+        lib.resize_ce_error_string.argtypes = [i]
+        lib.resize_ce_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _touching(taps: _Taps, in_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """For each source index, the range [first, last + 1) of the outputs
+    whose taps read it ([0, 0) for none)."""
+    first = np.full(in_size, np.iinfo(np.int32).max, np.int64)
+    last = np.full(in_size, -1, np.int64)
+    out = np.arange(len(taps.lo))
+    for idx in (taps.lo, taps.hi):
+        np.minimum.at(first, idx, out)
+        np.maximum.at(last, idx, out)
+    none = last < 0
+    first[none], last[none] = 0, -1
+    return first, last + 1
+
+
+def _ranges(first, last, size: int, block: int):
+    """Per block of `block` consecutive indices: the union [lo, hi) of their
+    ranges ([0, 0) for none)."""
+    lo, hi = [], []
+    for s in range(0, size, block):
+        f, e = first[s:s + block], last[s:s + block]
+        used = e > f
+        lo.append(int(f[used].min()) if used.any() else 0)
+        hi.append(int(e[used].max()) if used.any() else 0)
+    return np.array(lo, np.int64), np.array(hi, np.int64)
+
+
+def _source_span(taps: _Taps, lo: np.ndarray, hi: np.ndarray):
+    """Per output range [lo, hi): the source indices it reads, [tlo, thi]."""
+    tlo = [int(taps.lo[a:b].min()) if b > a else 0 for a, b in zip(lo, hi)]
+    thi = [int(taps.hi[a:b].max()) if b > a else -1 for a, b in zip(lo, hi)]
+    return np.array(tlo, np.int64), np.array(thi, np.int64)
+
+
+class _Plan(tp.NamedTuple):
+    itab: np.ndarray   # int32 tables, in the order of csrc/resize_ce.cu::tables
+    ftab: np.ndarray   # float32 tables
+    js: int            # low-res columns a backward block owns
+    tmax_fwd: int
+    tmax_bwd: int
+    ocmax: int
+    fwd_blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(h: int, w: int, oh: int, ow: int, c: int,
+          align_corners: bool) -> _Plan:
+    """The launch geometry and the interpolation tables of both kernels."""
+    lib = _library()
+    fwd_rows, fwd_span = lib.resize_ce_fwd_rows(), lib.resize_ce_fwd_span()
+    bwd_rows, threads = lib.resize_ce_bwd_rows(), lib.resize_ce_threads()
+    limit = lib.resize_ce_smem_limit()
+    rows, cols = _taps(h, oh, align_corners), _taps(w, ow, align_corners)
+    # forward: the low-res columns each span of output columns reads
+    f_lo = np.arange(0, ow, fwd_span)
+    f_tlo, f_thi = _source_span(cols, f_lo, np.minimum(f_lo + fwd_span, ow))
+    tmax_fwd = int((f_thi - f_tlo).max()) + 1
+    if lib.resize_ce_fwd_smem(c, tmax_fwd) > limit:
+        raise ValueError(f"resize_ce kernel: C={c} with {tmax_fwd} source "
+                         "columns a block exceeds the shared memory")
+    # backward: the output rows that touch each band of low-res rows, the
+    # output columns that touch each low-res column and each span of them
+    r_first, r_last = _touching(rows, h)
+    band_o0, band_o1 = _ranges(r_first, r_last, h, bwd_rows)
+    c_first, c_last = _touching(cols, w)
+    best = None
+    for js in range(min(_MAX_SPAN, w), 0, -1):
+        oc0, oc1 = _ranges(c_first, c_last, w, js)
+        tlo, thi = _source_span(cols, oc0, oc1)
+        ocmax = max(int((oc1 - oc0).max()), 1)
+        tmax = max(int((thi - tlo).max()) + 1, 1)
+        if lib.resize_ce_bwd_smem(c, js, tmax, ocmax) > limit:
+            continue
+        cand = (js, oc0, oc1, tlo, thi, tmax, ocmax)
+        if best is None:
+            best = cand
+        if ocmax <= threads:   # every output column of a span in one pass
+            best = cand
+            break
+    if best is None:
+        raise ValueError(f"resize_ce kernel: C={c} exceeds the backward "
+                         "block's shared memory")
+    js, oc0, oc1, tlo, thi, tmax_bwd, ocmax = best
+    itab = np.concatenate([rows.lo, rows.hi, cols.lo, cols.hi, f_tlo, f_thi,
+                           band_o0, band_o1, oc0, oc1, tlo, thi, c_first,
+                           c_last]).astype(np.int32)
+    ftab = np.concatenate([rows.wlo, rows.whi, cols.wlo, cols.whi]
+                          ).astype(np.float32)
+    fwd_blocks = len(f_lo) * -(-oh // fwd_rows)
+    return _Plan(itab, ftab, js, tmax_fwd, tmax_bwd, ocmax, fwd_blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(h: int, w: int, oh: int, ow: int, c: int,
+                   align_corners: bool, device: str):
+    plan = _plan(h, w, oh, ow, c, align_corners)
+    return (torch.from_numpy(plan.itab).to(device),
+            torch.from_numpy(plan.ftab).to(device))
+
+
+def _check_cuda_inputs(logits, labels, cw):
+    if logits.dtype != torch.bfloat16:
+        raise TypeError(f"resize_ce kernel takes bfloat16 logits, got "
+                        f"{logits.dtype}")
+    if labels.dtype not in _LABEL_KINDS:
+        raise TypeError(f"resize_ce kernel takes uint8, int32 or int64 "
+                        f"labels, got {labels.dtype}")
+    if logits.dim() != 4 or labels.dim() != 3:
+        raise ValueError("resize_ce kernel takes (N,h,w,C) logits and "
+                         "(N,OH,OW) labels")
+    if not (logits.is_contiguous() and labels.is_contiguous()):
+        raise ValueError("resize_ce kernel takes contiguous tensors")
+    if labels.shape[0] != logits.shape[0]:
+        raise ValueError(f"resize_ce kernel: {labels.shape[0]} label maps "
+                         f"for {logits.shape[0]} logit maps")
+    if tuple(cw.shape) != (logits.shape[-1],) or cw.dtype != torch.float32:
+        raise ValueError(f"resize_ce kernel: class weights {tuple(cw.shape)} "
+                         f"{cw.dtype}, expected ({logits.shape[-1]},) float32")
+    for t in (labels, cw):
+        if t.device != logits.device:
+            raise ValueError("resize_ce kernel: all tensors must be on "
+                             f"{logits.device}, got one on {t.device}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"resize_ce {what} kernel launch failed: "
+                           + lib.resize_ce_error_string(err).decode())
+
+
+def resize_ce_forward(logits: torch.Tensor, labels: torch.Tensor,
+                      cw: torch.Tensor, align_corners: bool = False):
+    """(loss, S₂, logz): the kernel on the card, `resize_ce_reference` on
+    the CPU."""
+    if logits.device.type == "cpu":
+        return resize_ce_reference(logits, labels, cw, align_corners)
+    if logits.device.type != "cuda":
+        raise ValueError(f"resize_ce: no kernel for device {logits.device}")
+    _check_cuda_inputs(logits, labels, cw)
+    n, h, w, c = logits.shape
+    oh, ow = labels.shape[1], labels.shape[2]
+    key = (h, w, oh, ow, c, bool(align_corners))
+    plan = _plan(*key)
+    itab, ftab = _device_tables(*key, str(logits.device))
+    partial = torch.empty((n * plan.fwd_blocks, 2), dtype=torch.float32,
+                          device=logits.device)
+    logz = torch.empty((n, oh, ow), dtype=torch.bfloat16, device=logits.device)
+    lib = _library()
+    _check(lib, lib.resize_ce_forward(
+        logits.data_ptr(), labels.data_ptr(), _LABEL_KINDS[labels.dtype],
+        cw.data_ptr(), itab.data_ptr(), ftab.data_ptr(), partial.data_ptr(),
+        logz.data_ptr(), n, h, w, c, oh, ow, plan.js, plan.tmax_fwd,
+        logits.device.index or 0, _stream(logits)), "forward")
+    resize_ce_forward.launches += 1
+    sums = partial.sum(dim=0)
+    s2 = torch.clamp(sums[1], min=1e-12)
+    return sums[0] / s2, s2, logz
+
+
+resize_ce_forward.launches = 0
+
+
+def resize_ce_backward(logits: torch.Tensor, labels: torch.Tensor,
+                       cw: torch.Tensor, logz: torch.Tensor,
+                       scale: torch.Tensor, align_corners: bool = False
+                       ) -> torch.Tensor:
+    """d(logits) for `scale` = g / S₂: the kernel on the card,
+    `resize_ce_reference_backward` on the CPU."""
+    if logits.device.type == "cpu":
+        return resize_ce_reference_backward(logits, labels, cw, logz, scale,
+                                            align_corners)
+    if logits.device.type != "cuda":
+        raise ValueError(f"resize_ce: no kernel for device {logits.device}")
+    _check_cuda_inputs(logits, labels, cw)
+    n, h, w, c = logits.shape
+    oh, ow = labels.shape[1], labels.shape[2]
+    if (tuple(logz.shape) != (n, oh, ow) or logz.dtype != torch.bfloat16
+            or not logz.is_contiguous() or logz.device != logits.device):
+        raise ValueError("resize_ce backward: logz must be a contiguous "
+                         f"bfloat16 ({n}, {oh}, {ow}) tensor on the card")
+    key = (h, w, oh, ow, c, bool(align_corners))
+    plan = _plan(*key)
+    itab, ftab = _device_tables(*key, str(logits.device))
+    scale = scale.to(device=logits.device, dtype=torch.float32).reshape(1)
+    dx = torch.empty_like(logits)
+    lib = _library()
+    _check(lib, lib.resize_ce_backward(
+        logits.data_ptr(), labels.data_ptr(), _LABEL_KINDS[labels.dtype],
+        cw.data_ptr(), logz.data_ptr(), scale.data_ptr(), itab.data_ptr(),
+        ftab.data_ptr(), dx.data_ptr(), n, h, w, c, oh, ow, plan.js,
+        plan.tmax_bwd, plan.ocmax, logits.device.index or 0,
+        _stream(logits)), "backward")
+    resize_ce_backward.launches += 1
+    return dx
+
+
+resize_ce_backward.launches = 0
+
+
+class _ResizeCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, cw, align_corners):
+        loss, s2, logz = resize_ce_forward(logits, labels, cw, align_corners)
+        ctx.align_corners = align_corners
+        ctx.save_for_backward(logits, labels, cw, s2, logz)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, cw, s2, logz = ctx.saved_tensors
+        dx = resize_ce_backward(logits, labels, cw, logz, g.float() / s2,
+                                ctx.align_corners)
+        return dx, None, None, None
+
+
+def resize_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         class_weights: torch.Tensor | None = None, *,
+                         align_corners: bool = False) -> torch.Tensor:
+    """The fused resize + CE loss, a float32 scalar. logits (N,h,w,C);
+    labels (N,OH,OW) uint8, int32 or int64, read as they come; labels
+    outside [0, C) weigh 0. Class weights are constants here (no
+    gradient)."""
+    c = logits.shape[-1]
+    cw = (torch.ones(c, dtype=torch.float32, device=logits.device)
+          if class_weights is None
+          else torch.as_tensor(class_weights, dtype=torch.float32,
+                               device=logits.device).detach().contiguous())
+    return _ResizeCE.apply(logits.contiguous(), labels.contiguous(), cw,
+                           bool(align_corners))
