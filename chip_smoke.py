@@ -16,12 +16,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    fused float32 predictor against the unfolded eval model on the card;
 5. train FastSCNN at full width (bf16 compute, float32 parameters, SGD
    with momentum and poly LR, the x8 resize inside the loss) on batches of
-   8 uint8 frames of 1024x2048 with learnable labels: one warm-up step and 8
-   timed steps, with the kernel launch counts read around them; 4 steps
-   with K2 unrouted as a yardstick; then hold the routed bf16 gradient
-   against the float32 one, which routes no kernel, and against the plain
+   8 normalised frames of 1024x2048 with learnable labels: one warm-up step
+   and 8 timed steps, with the kernel launch counts read around them; 4
+   steps with K2 unrouted and 4 with K6 unrouted as yardsticks; then hold
+   the routed bf16 gradient against the float32 one and against the plain
    versions' (`grad_check`);
-6. print the kernels line, the nvidia-smi line and the final JSON line.
+6. the whole training loop as `bench.py`'s fullres tier runs it: resident
+   uint8 frames, a fresh `augment_batch` draw at crop 1024x2048 before each
+   step, one warm-up and 8 timed steps, with the launch counts read around
+   them (the launches of the kernels line); one step with `remat=True`
+   against the same step without it; then the eval step over 4 batches of
+   8 frames, and the multi-scale + flip eval step over one batch of 2,
+   each with its matrix checked;
+7. print the kernels line, the nvidia-smi line and the final JSON line.
 
 It imports nothing of JAX, and exits non-zero without a CUDA card or
 without the port package beside it.
@@ -79,6 +86,24 @@ K2_PATH = ((8, 128, 256, 64, 384, 2, 1), (8, 64, 128, 64, 384, 1, 2),
 # chunk, odd H and W at stride 2
 K2_RAGGED = ((2, 9, 19, 16, 96, 1), (1, 8, 12, 24, 72, 2),
              (2, 7, 13, 12, 40, 2))
+# K6 on the training path, the LDS's stride-2 depthwise convs at b8:
+# (name, n, h, w, c, stride)
+K6_PATH = (("ds1", 8, 512, 1024, 32, 2), ("ds2", 8, 256, 512, 48, 2))
+K6_PER_STEP = len(K6_PATH)
+# GFE stage1[0]'s depthwise conv, which routes to K6 in the eval step and
+# in the remat step (where no block takes K2), and off every path stride 1
+# at the GFE's width; ragged: odd H and W, C of 3, 20 and 384 (off the
+# 8-channel groups; GFE stage1[0]'s width)
+K6_OFF_STEP = (("stage1[0]", 8, 128, 256, 384, 2),
+               ("stride 1", 8, 128, 256, 128, 1))
+K6_RAGGED = ((2, 9, 13, 3, 2), (1, 7, 11, 20, 2), (2, 9, 13, 20, 1),
+             (2, 6, 10, 384, 2), (1, 5, 9, 384, 1))
+EVAL_BATCHES = 4
+# the eval step's K6 launches a batch: in eval mode no block routes to K2,
+# so GFE stage1[0]'s depthwise conv, at (8,128,256,384) on the floor of
+# 2^18 pixels, routes to K6 beside the LDS's two
+K6_PER_EVAL_BATCH = 3
+MULTISCALE_BATCH = 2
 
 
 def fail(msg: str):
@@ -460,6 +485,134 @@ def check_mbconv() -> dict:
                     library_ms=tot["lib_bwd"], bound_ms=bb[0], bound_by=bb[1])}
 
 
+def depthwise_inputs(n, h, w, c, stride, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, h, w, c), generator=g, device="cuda").to(dtype)
+    k = torch.randn((3, 3, c), generator=g, device="cuda") * 0.5
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    dy = torch.randn((n, ho, wo, c), generator=g, device="cuda").to(dtype)
+    return x, k, dy
+
+
+def check_depthwise() -> dict:
+    """K6 forward and backward against the plain version at the LDS's two
+    convs, GFE stage1[0]'s, a stride-1 case and ragged shapes, float32 and
+    bf16; per-step times at the path's dtype, bf16: each LDS conv's time,
+    summed over the two."""
+    import torch
+    import torch.nn.functional as F
+    from torch_semantic_segmentation_tpu_torch.ops import depthwise as dwm
+
+    def compare(n, h, w, c, s, dtype, seed, name):
+        x, k, dy = depthwise_inputs(n, h, w, c, s, dtype, seed)
+        y = dwm.depthwise3x3_forward(x, k, s)
+        want = dwm.depthwise3x3_reference(x, k, s)
+        dx, dk = dwm.depthwise3x3_backward(x, k, dy, s)
+        _, dk2 = dwm.depthwise3x3_backward(x, k, dy, s)
+        rdx, rdk = dwm.depthwise3x3_reference_backward(x, k, dy, s)
+        torch.cuda.synchronize()
+        errs, ok = [], True
+        for nm, a, r in (("y", y, want), ("dx", dx, rdx)):
+            e = (a.float() - r.float()).abs()
+            sc = float(r.float().abs().max())
+            if dtype == torch.float32:
+                ok = ok and bool((e <= 1e-4 + 1e-4 * r.abs()).all())
+            else:
+                ok = ok and float(e.max()) <= BF16_TOL * sc
+            ok = ok and a.shape == r.shape and a.dtype == dtype
+            errs.append(float(e.max()))
+        dk_rel = rel_l2(dk, rdk)
+        same = bool(torch.equal(dk, dk2))
+        tol = "rtol=atol=1e-4" if dtype == torch.float32 else \
+            f"{BF16_TOL:g}*scale"
+        print(f"depthwise {name} ({n},{h},{w},{c}) s{s} {dtype}: y err "
+              f"{errs[0]:.3g}, dx err {errs[1]:.3g} (tol {tol}); dk rel L2 "
+              f"{dk_rel:.3g} (tol 1e-5), same bits in two launches {same}",
+              flush=True)
+        if not ok or not dk_rel <= 1e-5 or not same:
+            fail(f"depthwise {name} {dtype} disagrees with its plain version "
+                 "or dk is not deterministic")
+        return errs, (x, k, dy)
+
+    for i, (n, h, w, c, s) in enumerate(K6_RAGGED):
+        for dtype in (torch.float32, torch.bfloat16):
+            compare(n, h, w, c, s, dtype, 500 + i, "ragged")
+    tot = {key: 0.0 for key in ("fwd_ms", "bwd_ms", "plain_fwd", "plain_bwd",
+                                "lib_fwd", "lib_bwd")}
+    fbytes = bbytes = fops = bops = 0.0
+    ferr = berr = 0.0
+    for i, (name, n, h, w, c, s) in enumerate(K6_PATH + K6_OFF_STEP):
+        for dtype in (torch.float32, torch.bfloat16):
+            errs, (x, k, dy) = compare(n, h, w, c, s, dtype, 600 + i, name)
+        t = dict(
+            fwd_ms=cuda_ms(lambda: dwm.depthwise3x3_forward(x, k, s)),
+            bwd_ms=cuda_ms(lambda: dwm.depthwise3x3_backward(x, k, dy, s)),
+            plain_fwd=cuda_ms(lambda: dwm.depthwise3x3_reference(x, k, s),
+                              iters=3, warmup=1),
+            plain_bwd=cuda_ms(lambda: dwm.depthwise3x3_reference_backward(
+                x, k, dy, s), iters=3, warmup=1))
+        # yardstick only: the depthwise conv of ATen / cuDNN in bf16,
+        # channels_last, and its autograd backward to x and the kernel
+        xc = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        kc = k.permute(2, 0, 1).unsqueeze(1).to(x.dtype).requires_grad_(True)
+
+        def library():
+            return F.conv2d(xc, kc, None, stride=s, padding=1, groups=c)
+
+        with torch.no_grad():
+            t["lib_fwd"] = library_ms(library)
+        out, gl = library(), dy.permute(0, 3, 1, 2)
+        t["lib_bwd"] = library_ms(lambda: torch.autograd.grad(
+            out, (xc, kc), gl, retain_graph=True))
+        pin, pout = n * h * w * c, dy.numel()
+        fb = bound(2 * (pin + pout) + 9 * c * 4,
+                   {"flop": 2 * 9 * pout / FP32_FLOPS})
+        bb = bound(2 * (2 * pin + pout) + 2 * 9 * c * 4,
+                   {"flop": 4 * 9 * pout / FP32_FLOPS})
+        print(f"depthwise {name} ({n},{h},{w},{c}) s{s} bf16: " + " ".join(
+            f"{key} {v:.4f}" for key, v in t.items())
+            + f" bound_fwd {fb[0]:.4f} bound_bwd {bb[0]:.4f}", flush=True)
+        if (name, n, h, w, c, s) not in K6_PATH:
+            continue
+        ferr, berr = max(ferr, errs[0]), max(berr, errs[1])
+        for key in tot:
+            tot[key] += t[key]
+        fbytes += 2 * (pin + pout) + 9 * c * 4
+        bbytes += 2 * (2 * pin + pout) + 2 * 9 * c * 4
+        fops += 2 * 9 * pout / FP32_FLOPS
+        bops += 4 * 9 * pout / FP32_FLOPS
+    fb, bb = bound(fbytes, {"flop": fops}), bound(bbytes, {"flop": bops})
+    for d, k_ms, p_ms, l_ms, bd in (
+            ("fwd", tot["fwd_ms"], tot["plain_fwd"], tot["lib_fwd"], fb),
+            ("bwd", tot["bwd_ms"], tot["plain_bwd"], tot["lib_bwd"], bb)):
+        print(f"depthwise {d} LDS ds1 + ds2 a step: kernel_ms {k_ms:.4f} "
+              f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
+              f"{bd[0]:.4f} (bound by {bd[2]})", flush=True)
+    return {
+        "fwd": dict(err=ferr, kernel_ms=tot["fwd_ms"], plain_ms=tot["plain_fwd"],
+                    library_ms=tot["lib_fwd"], bound_ms=fb[0], bound_by=fb[1]),
+        "bwd": dict(err=berr, kernel_ms=tot["bwd_ms"], plain_ms=tot["plain_bwd"],
+                    library_ms=tot["lib_bwd"], bound_ms=bb[0], bound_by=bb[1])}
+
+
+def reestimate_bn(model, images):
+    """Set every BN's running statistics to the batch statistics of one
+    train-mode forward pass over `images` (torch's cumulative average over
+    one batch), the rest of the state unchanged."""
+    import torch
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [m.momentum for m in bns]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None
+    model.train()
+    with torch.no_grad():
+        model(images)
+    for m, momentum in zip(bns, momenta):
+        m.momentum = momentum
+
+
 def calibrated_state(frames) -> dict:
     """FastSCNN's state from a seed, with BN running stats set by one
     forward pass over two of the frames (as a trained model's statistics
@@ -595,7 +748,11 @@ TRAIN_WRAPPERS = (
      "resize_ce_reference_backward"),
     ("mbconv_fwd", "mbconv", "expand_dw_forward", "expand_dw_reference"),
     ("mbconv_bwd", "mbconv", "expand_dw_backward",
-     "expand_dw_reference_backward"))
+     "expand_dw_reference_backward"),
+    ("depthwise_fwd", "depthwise", "depthwise3x3_forward",
+     "depthwise3x3_reference"),
+    ("depthwise_bwd", "depthwise", "depthwise3x3_backward",
+     "depthwise3x3_reference_backward"))
 
 
 def train_wrappers() -> list:
@@ -621,7 +778,7 @@ def reset_launch_counts():
 
 @contextlib.contextmanager
 def swapped(replace):
-    """Within the block the autograd functions of K1 and K2 call
+    """Within the block the autograd functions of K1, K2 and K6 call
     `replace(key, wrapper, plain)` in place of each kernel wrapper: a
     yardstick of this script only (the port's wrappers launch the kernels
     for every CUDA tensor). A wrapper counts its launches on the name it
@@ -674,18 +831,64 @@ def recording(calls: list):
 
 
 @contextlib.contextmanager
-def k2_unrouted():
-    """Within the block no inverted residual routes to K2: its expand and
-    depthwise run as the plain conv layers (a yardstick of this script
-    only)."""
-    from torch_semantic_segmentation_tpu_torch.ops.blocks import (
-        InvertedResidual)
-    saved = InvertedResidual._maybe_fused_expand_dw
-    InvertedResidual._maybe_fused_expand_dw = lambda self, x: None
+def k6_unrouted():
+    """Within the block no depthwise conv routes to K6: the pixel floor is
+    out of reach (a yardstick of this script only)."""
+    from torch_semantic_segmentation_tpu_torch.ops import conv
+    saved = conv.DEPTHWISE_MIN_PX
+    conv.DEPTHWISE_MIN_PX = 1 << 62
     try:
         yield
     finally:
-        InvertedResidual._maybe_fused_expand_dw = saved
+        conv.DEPTHWISE_MIN_PX = saved
+
+
+def per_step(steps: int) -> dict:
+    """The launch counts of the training path's kernels in `steps` steps."""
+    return {"resize_ce_fwd": steps, "resize_ce_bwd": steps,
+            "mbconv_fwd": K2_PER_STEP * steps,
+            "mbconv_bwd": K2_PER_STEP * steps,
+            "depthwise_fwd": K6_PER_STEP * steps,
+            "depthwise_bwd": K6_PER_STEP * steps}
+
+
+def timed_steps(step, batches) -> tuple[list, list, int, dict, dict]:
+    """Run `step(*batch)` over the batches, each synchronised on the host
+    clock, with the launch counts set to 0 just before and read just
+    after: (ms a step, losses, peak bytes, launches, {"device_ms": the
+    span from a CUDA event before the step to one after it, "enqueue_ms":
+    host ms until the step returned, before the synchronisation}). Where
+    the enqueue time is close to the step's, the host's launch rate, not
+    the card, sets the step's time."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    lat, losses, enq, events = [], [], [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        m = step(*batch)
+        end.record()
+        enq.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t0))
+        events.append((start, end))
+        losses.append(float(m["loss"]))
+    detail = {"device_ms": [a.elapsed_time(b) for a, b in events],
+              "enqueue_ms": enq}
+    return (lat, losses, torch.cuda.max_memory_allocated(), launch_counts(),
+            detail)
+
+
+def timing_line(lat_ms: list, detail: dict) -> str:
+    """Medians of the host clock, the CUDA events' span and the host's
+    enqueue time of a run of steps."""
+    return (f"median host {np.median(lat_ms):.3f} ms, CUDA events "
+            f"{np.median(detail['device_ms']):.3f} ms, enqueue "
+            f"{np.median(detail['enqueue_ms']):.3f} ms")
 
 
 def rel_l2(a, b) -> float:
@@ -735,6 +938,7 @@ def train() -> dict:
     from torch_semantic_segmentation_tpu_torch.losses import (
         resize_cross_entropy_loss)
     from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.ops import mbconv
     from torch_semantic_segmentation_tpu_torch.train import (
         OptimizerConfig, create_train_state, make_train_step)
 
@@ -749,77 +953,55 @@ def train() -> dict:
                                                       max_steps=1000))
     step = make_train_step(model, state, resize_cross_entropy_loss)
     step(*batches[0])                          # warm-up
-    torch.cuda.synchronize()
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    lat, losses = [], []
-    for images, labels in batches[1:]:
-        t0 = time.perf_counter()
-        m = step(images, labels)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    lat_ms = [1e3 * t for t in lat]
+    lat_ms, losses, peak, launches, detail = timed_steps(step, batches[1:])
     print(f"train bf16 {SERVE_BATCH}x{SERVE_H}x{SERVE_W}: losses "
           f"{[round(v, 4) for v in losses]}; step latency_ms "
-          f"{[round(t, 3) for t in lat_ms]} median {np.median(lat_ms):.3f}; "
-          f"images/s {SERVE_BATCH * TRAIN_STEPS / sum(lat):.2f}; "
+          f"{[round(t, 3) for t in lat_ms]} {timing_line(lat_ms, detail)}; "
+          f"images/s {1e3 * SERVE_BATCH * TRAIN_STEPS / sum(lat_ms):.2f}; "
           f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; launches "
           f"{launches}", flush=True)
     if not all(np.isfinite(losses)):
         fail(f"non-finite training loss: {losses}")
     if not np.mean(losses[-3:]) < losses[0]:
         fail(f"the training loss did not fall: {losses}")
-    want = {"resize_ce_fwd": TRAIN_STEPS, "resize_ce_bwd": TRAIN_STEPS,
-            "mbconv_fwd": K2_PER_STEP * TRAIN_STEPS,
-            "mbconv_bwd": K2_PER_STEP * TRAIN_STEPS}
-    if launches != want:
+    if launches != per_step(TRAIN_STEPS):
         fail(f"kernel launches in {TRAIN_STEPS} steps: {launches}, expected "
-             f"{want}")
+             f"{per_step(TRAIN_STEPS)}")
 
-    # K2 off the path (a yardstick): the same steps with the nine blocks on
-    # the plain conv layers, which store the 6x-wide expanded tensor
-    with k2_unrouted():
-        step(*batches[0])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = launch_counts()
-        lat_u = []
-        for images, labels in batches[1:1 + UNROUTED_STEPS]:
-            t0 = time.perf_counter()
-            step(images, labels)
-            torch.cuda.synchronize()
-            lat_u.append(time.perf_counter() - t0)
-        peak_u = torch.cuda.max_memory_allocated()
-    used_u = {k: v - before[k] for k, v in launch_counts().items()}
-    lat_u_ms = [1e3 * t for t in lat_u]
-    print(f"train bf16 without K2 (blocks on the plain conv layers): step "
-          f"latency_ms {[round(t, 3) for t in lat_u_ms]} median "
-          f"{np.median(lat_u_ms):.3f} (with K2 {np.median(lat_ms):.3f}); "
-          f"max_memory_allocated {peak_u / 2 ** 30:.3f} GiB (with K2 "
-          f"{peak / 2 ** 30:.3f}); launches {used_u}", flush=True)
-    if used_u["mbconv_fwd"] or used_u["mbconv_bwd"]:
-        fail("K2 launched with the blocks unrouted")
+    # K2 and K6 off the path (yardsticks): the same steps with the nine
+    # blocks, or the two LDS depthwise convs, on the plain conv layers
+    yard = {}
+    for kname, ctx in (("K2", mbconv.suppress_routing), ("K6", k6_unrouted)):
+        with ctx():
+            step(*batches[0])
+            lat_u, _, peak_u, used_u, detail_u = timed_steps(
+                step, batches[1:1 + UNROUTED_STEPS])
+        print(f"train bf16 without {kname} (on the plain conv layers): step "
+              f"latency_ms {[round(t, 3) for t in lat_u]} "
+              f"{timing_line(lat_u, detail_u)} (with it "
+              f"{timing_line(lat_ms, detail)}); "
+              f"max_memory_allocated {peak_u / 2 ** 30:.3f} GiB (with it "
+              f"{peak / 2 ** 30:.3f}); launches {used_u}", flush=True)
+        key = "mbconv" if kname == "K2" else "depthwise"
+        if used_u[f"{key}_fwd"] or used_u[f"{key}_bwd"]:
+            fail(f"{kname} launched while unrouted")
+        yard[kname] = dict(latency_ms=lat_u, peak_bytes=peak_u)
 
     grad = grad_check(model, *batches[-1])
     return dict(launches=launches, latency_ms=lat_ms, losses=losses,
-                peak_bytes=peak, unrouted_latency_ms=lat_u_ms,
-                unrouted_peak_bytes=peak_u, **grad)
+                peak_bytes=peak, unrouted=yard, **grad)
 
 
 def grad_check(model, images, labels) -> dict:
     """The routed bf16 gradient of one step against the float32 step's
-    (which routes neither kernel), and against the same bf16 step through
-    the kernels' plain versions, from the same weights, batch and dropout
-    masks.
+    (which runs every kernel's plain version: K1 and K2 take bf16 only, and
+    K6 is swapped out), and against the same bf16 step through the kernels'
+    plain versions, from the same weights, batch and dropout masks.
 
     Asserted:
     - the loss within 2e-2 relative of float32's; d(logits) (K1's
       backward) and the head's gradient at cosine 0.99 against float32's;
-    - every K1 and K2 launch of the routed step, run again on its own
+    - every K1, K2 and K6 launch of the routed step, run again on its own
       inputs, against its plain version (`check_recorded`);
     - every parameter's gradient at cosine 0.99 against the plain
       versions', except a parameter whose plain-version gradient itself
@@ -869,12 +1051,10 @@ def grad_check(model, images, labels) -> dict:
         _, _, gp, _ = gradient(model)
     with swapped(nudged_plain_versions):
         _, _, gn, _ = gradient(model)
-    l32, d32, g32, used32 = gradient(f32)
-    if any(used32.values()) or used16 != {"resize_ce_fwd": 1,
-                                          "resize_ce_bwd": 1,
-                                          "mbconv_fwd": K2_PER_STEP,
-                                          "mbconv_bwd": K2_PER_STEP}:
-        fail("the bf16 step must route every kernel and the f32 step none")
+    with swapped(plain_versions):
+        l32, d32, g32, used32 = gradient(f32)
+    if any(used32.values()) or used16 != per_step(1):
+        fail("the bf16 step must launch every kernel and the f32 step none")
     print("train grad check, each launch of the routed step against its "
           "plain version on the same inputs: worst relative L2 error "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
@@ -916,6 +1096,262 @@ def grad_check(model, images, labels) -> dict:
                 recorded_rel_l2=worst, leaves_below=below)
 
 
+def train_augmented() -> dict:
+    """The main path of the training loop, `bench.py`'s fullres tier at
+    batch 8: uint8 frames and labels resident on the card, a fresh
+    `augment_batch` draw at crop 1024x2048 with bf16 out before each step,
+    then the step (FastSCNN bf16 from a seed, SGD as in `train`)."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig, augment_batch)
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        resize_cross_entropy_loss)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+
+    frames, labels = make_batch(200)
+    frames = torch.from_numpy(frames).cuda()
+    labels = torch.from_numpy(labels).cuda()
+    cfg = AugmentConfig(crop=(SERVE_H, SERVE_W), out_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = get_model("fastscnn", NUM_CLASSES, upsample_logits=False,
+                      compute_dtype=torch.bfloat16, seed=0, device="cuda")
+    state = create_train_state(model, OptimizerConfig(lr=0.045,
+                                                      max_steps=1000))
+    inner = make_train_step(model, state, resize_cross_entropy_loss)
+
+    def step(raw_images, raw_labels):
+        return inner(*augment_batch(raw_images, raw_labels, gen, cfg))
+
+    step(frames, labels)                       # warm-up
+    lat_ms, losses, peak, launches, detail = timed_steps(
+        step, [(frames, labels)] * TRAIN_STEPS)
+    aug_ms = cuda_ms(lambda: augment_batch(frames, labels, gen, cfg),
+                     iters=5, warmup=1, reps=3)
+    images, lab = augment_batch(frames, labels, gen, cfg)
+    torch.cuda.synchronize()
+    print(f"train bf16 with augmentation {SERVE_BATCH}x{SERVE_H}x{SERVE_W} "
+          f"(main path): losses {[round(v, 4) for v in losses]}; step "
+          f"latency_ms {[round(t, 3) for t in lat_ms]} "
+          f"{timing_line(lat_ms, detail)}; images/s "
+          f"{1e3 * SERVE_BATCH * TRAIN_STEPS / sum(lat_ms):.2f}; "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; augment_batch "
+          f"{aug_ms:.3f} ms a batch; launches {launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss with augmentation: {losses}")
+    if launches != per_step(TRAIN_STEPS):
+        fail(f"kernel launches in {TRAIN_STEPS} augmented steps: {launches}, "
+             f"expected {per_step(TRAIN_STEPS)}")
+    if (tuple(images.shape) != (SERVE_BATCH, SERVE_H, SERVE_W, 3)
+            or images.dtype != torch.bfloat16 or lab.dtype != torch.int32
+            or not bool(torch.isfinite(images.float()).all())):
+        fail(f"augment_batch gave {tuple(images.shape)} {images.dtype}, "
+             f"labels {lab.dtype}")
+    return dict(model=model, batch=(images, lab), launches=launches,
+                latency_ms=lat_ms, losses=losses, peak_bytes=peak,
+                augment_ms=aug_ms)
+
+
+def remat_check(model, images, labels) -> dict:
+    """One step with `remat=True` against the same step without remat and
+    with K2 suppressed (what the remat step runs inside its checkpoint),
+    each from the model's state with a fresh optimizer and the same
+    dropout seed, cuDNN restricted to deterministic algorithms in both:
+    loss, parameters and running statistics within a relative 1e-6; every
+    K6 launch of both steps (GFE stage1[0]'s too, and the recompute's)
+    again on its own inputs against the plain version (`check_recorded`).
+    Then each step's time and peak memory over 3 steps after a warm-up,
+    with cuDNN as the training path runs it."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        resize_cross_entropy_loss)
+    from torch_semantic_segmentation_tpu_torch.ops import mbconv
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    runs, calls = {}, []
+    for remat in (False, True):
+        model.load_state_dict(start)
+        model.dropout_generator.manual_seed(99)
+        step = make_train_step(model, create_train_state(
+            model, OptimizerConfig(lr=0.045, max_steps=1000)),
+            resize_cross_entropy_loss, remat=remat)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            with (contextlib.nullcontext() if remat
+                  else mbconv.suppress_routing()), swapped(recording(calls)):
+                _, losses, _, used, _ = timed_steps(step, [(images, labels)])
+        runs[remat] = dict(loss=losses[0], used=used,
+                           state={k: v.clone()
+                                  for k, v in model.state_dict().items()})
+    worst_launch = check_recorded(calls)
+    del calls
+    for remat in (False, True):
+        model.load_state_dict(start)
+        step = make_train_step(model, create_train_state(
+            model, OptimizerConfig(lr=0.045, max_steps=1000)),
+            resize_cross_entropy_loss, remat=remat)
+        with (contextlib.nullcontext() if remat
+              else mbconv.suppress_routing()):
+            step(images, labels)
+            lat, _, peak, _, detail = timed_steps(step, [(images, labels)] * 3)
+        runs[remat].update(timed_ms=lat, timed_peak=peak, detail=detail)
+    model.load_state_dict(start)
+    worst = max((float((runs[True]["state"][k].double()
+                        - runs[False]["state"][k].double()).abs().max())
+                 / max(float(runs[False]["state"][k].double().abs().max()),
+                       1e-30), k)
+                for k in start if not k.endswith("num_batches_tracked"))
+    loss_rel = abs(runs[True]["loss"] - runs[False]["loss"]) / abs(
+        runs[False]["loss"])
+    for remat in (False, True):
+        r = runs[remat]
+        print(f"remat {remat}: loss {r['loss']:.6f}; launches {r['used']}; "
+              f"3 steps latency_ms {[round(t, 3) for t in r['timed_ms']]} "
+              f"{timing_line(r['timed_ms'], r['detail'])}, "
+              f"max_memory_allocated {r['timed_peak'] / 2 ** 30:.3f} GiB",
+              flush=True)
+    print(f"remat vs K2-suppressed step: loss rel {loss_rel:.3g}; worst "
+          f"state tensor {worst[1]} at rel {worst[0]:.3g} (tol 1e-6); each "
+          f"kernel launch of both against its plain version on the same inputs: "
+          f"worst relative L2 error " + ", ".join(
+              f"{k} {v:.3g}" for k, v in worst_launch.items()) + " (tol 2^-9)",
+          flush=True)
+    plain, rem = runs[False]["used"], runs[True]["used"]
+    if plain["mbconv_fwd"] or rem["mbconv_fwd"]:
+        fail("K2 launched inside the remat step or under suppress_routing")
+    if (rem["depthwise_fwd"] != 2 * plain["depthwise_fwd"]
+            or rem["depthwise_bwd"] != plain["depthwise_bwd"]
+            or plain["depthwise_fwd"] != K6_PER_STEP + 1):
+        fail(f"remat launches {rem}, without remat {plain}: the recompute "
+             "should run the forwards again, GFE stage1[0] on K6 too")
+    if not loss_rel <= 1e-6 or not worst[0] <= 1e-6:
+        fail("the remat step disagrees with the step without remat")
+    if not {"depthwise_fwd", "depthwise_bwd"} <= set(worst_launch):
+        fail(f"no K6 launch recorded in the remat steps: {worst_launch}")
+    return dict(loss_rel=loss_rel, worst_rel=worst[0],
+                peak_bytes={str(k): v["timed_peak"] for k, v in runs.items()},
+                latency_ms={str(k): v["timed_ms"] for k, v in runs.items()},
+                launches={str(k): v["used"] for k, v in runs.items()})
+
+
+def eval_check(model) -> dict:
+    """`make_eval_step` over 4 batches of 8 normalised 1024x2048 frames
+    with the trained model (BN unfolded, eval mode), then the multi-scale
+    + flip step over one batch of 2: each matrix's total equals the count
+    of valid pixels, mIoU lies in [0, 1], each K6 launch of one eval batch
+    (the LDS's two and GFE stage1[0]'s) agrees with its plain version on
+    its own inputs (`check_recorded`), and the eval step's ids agree with
+    the same step through K6's plain version on all but 1e-3 of the
+    pixels. Times on CUDA events beside the host clock. After a few steps
+    from a seed the running statistics are still far from the
+    activations' and every pixel gets one class, so they are first
+    re-estimated from two of the frames (`reestimate_bn`)."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch import metrics
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        normalize_batch)
+    from torch_semantic_segmentation_tpu_torch.eval import (
+        evaluate, make_multiscale_eval_step)
+    from torch_semantic_segmentation_tpu_torch.train import make_eval_step
+
+    batches = []
+    for seed in range(EVAL_BATCHES):
+        f, lab = make_batch(300 + seed)
+        batches.append((normalize_batch(torch.from_numpy(f).cuda(),
+                                        out_dtype=torch.bfloat16),
+                        torch.from_numpy(lab).cuda()))
+    valid = sum(int((lab != 255).sum()) for _, lab in batches)
+    reestimate_bn(model, batches[0][0][:2])
+    step = make_eval_step(model, num_classes=NUM_CLASSES)
+    step(metrics.new_confusion_matrix(NUM_CLASSES), *batches[0])   # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    iou, miou, cm = evaluate(step, batches, num_classes=NUM_CLASSES)
+    end.record()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / EVAL_BATCHES
+    ev_ms = start.elapsed_time(end) / EVAL_BATCHES
+    used = launch_counts()
+
+    # the ids of one batch, through K6 and through its plain version
+    ids, calls = {}, []
+    real = metrics.update_confusion_matrix
+    for name, ctx in (("kernel", lambda: swapped(recording(calls))),
+                      ("plain", lambda: swapped(plain_versions))):
+        def record(cm_, preds, labels, _name=name, **kw):
+            ids[_name] = preds.clone()
+            return real(cm_, preds, labels, **kw)
+        metrics.update_confusion_matrix = record
+        try:
+            with ctx():
+                step(metrics.new_confusion_matrix(NUM_CLASSES), *batches[0])
+        finally:
+            metrics.update_confusion_matrix = real
+    worst = check_recorded(calls)
+    recorded = [args[0].shape for _, _, _, args in calls]
+    del calls
+    mismatch = float((ids["kernel"] != ids["plain"]).float().mean())
+    present = int((torch.bincount(ids["kernel"].flatten().long()) > 0).sum())
+    print(f"eval bf16 {EVAL_BATCHES}x{SERVE_BATCH}x{SERVE_H}x{SERVE_W}: "
+          f"{ms:.3f} ms a batch on the host clock, {ev_ms:.3f} on CUDA "
+          f"events (the matrix read at the end); mIoU {miou:.4f}; matrix "
+          f"total {int(cm.sum())} of {valid} valid pixels; launches {used}; "
+          f"each K6 launch of one batch against its plain version on the "
+          f"same inputs ({[tuple(x) for x in recorded]}): worst relative L2 "
+          f"error {worst.get('depthwise_fwd', float('nan')):.3g} (tol 2^-9); "
+          f"ids vs K6's plain version: mismatch {mismatch:.3g} (tol 1e-3), "
+          f"{present} classes present", flush=True)
+    if len(recorded) != K6_PER_EVAL_BATCH or set(worst) != {"depthwise_fwd"}:
+        fail(f"one eval batch launched {len(recorded)} K6 forwards and "
+             f"{sorted(worst)}, expected {K6_PER_EVAL_BATCH} K6 forwards")
+    if int(cm.sum()) != valid or cm.dtype != torch.int64:
+        fail("the eval matrix does not hold every valid pixel once")
+    if not 0.0 <= miou <= 1.0:
+        fail(f"mIoU {miou} out of [0, 1]")
+    if used["depthwise_fwd"] != K6_PER_EVAL_BATCH * EVAL_BATCHES or any(
+            v for k, v in used.items() if k != "depthwise_fwd"):
+        fail(f"eval launches {used}, expected {K6_PER_EVAL_BATCH} K6 "
+             "forwards a batch and nothing else")
+    if mismatch > 1e-3:
+        fail("the eval ids through K6 disagree with its plain version")
+
+    images, labels = batches[0][0][:MULTISCALE_BATCH], \
+        batches[0][1][:MULTISCALE_BATCH]
+    ms_step = make_multiscale_eval_step(model, num_classes=NUM_CLASSES)
+    ms_ms, ms_ev = [], []
+    for _ in range(2):                  # the first call picks algorithms
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        start.record()
+        t0 = time.perf_counter()
+        cm_ms = ms_step(metrics.new_confusion_matrix(NUM_CLASSES), images,
+                        labels)
+        end.record()
+        torch.cuda.synchronize()
+        ms_ms.append(1e3 * (time.perf_counter() - t0))
+        ms_ev.append(start.elapsed_time(end))
+    used_ms = launch_counts()
+    _, miou_ms = metrics.iou_from_confusion_matrix(cm_ms)
+    want = int((labels != 255).sum())
+    print(f"multi-scale + flip eval bf16 {MULTISCALE_BATCH}x{SERVE_H}x"
+          f"{SERVE_W}, scales (0.5 .. 1.75): first call {ms_ms[0]:.3f} ms, "
+          f"second {ms_ms[1]:.3f} ms on the host clock ({ms_ev[1]:.3f} on "
+          f"CUDA events); mIoU {miou_ms:.4f}; matrix total "
+          f"{int(cm_ms.sum())} of {want}; launches {used_ms}", flush=True)
+    if int(cm_ms.sum()) != want:
+        fail("the multi-scale matrix does not hold every valid pixel once")
+    return dict(eval_ms=ms, eval_event_ms=ev_ms, miou=miou, launches=used,
+                mismatch=mismatch, multiscale_ms=ms_ms,
+                multiscale_launches=used_ms)
+
+
 def main() -> int:
     try:
         import torch
@@ -936,7 +1372,7 @@ def main() -> int:
 
     # one nvcc for each source, all started together
     t0 = time.perf_counter()
-    names = ("sepconv", "resize_ce", "mbconv")
+    names = ("sepconv", "resize_ce", "mbconv", "depthwise")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = dict(zip(names, pool.map(kernels.build, names)))
     print(f"build: {time.perf_counter() - t0:.1f} s for all", flush=True)
@@ -949,8 +1385,13 @@ def main() -> int:
     k5 = check_sepconv()
     k1 = check_resize_ce()
     k2 = check_mbconv()
+    k6 = check_depthwise()
     served = serve()
-    trained = train()
+    train()
+    main_path = train_augmented()
+    model = main_path.pop("model")
+    remat_check(model, *main_path.pop("batch"))
+    eval_check(model)
 
     def row(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",
@@ -961,7 +1402,7 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
 
-    tl = trained["launches"]
+    tl = main_path["launches"]
     print(json.dumps({"kernels": [
         row("sepconv", "sepconv.cu", "pallas_sepconv.py:239",
             served["launches"], k5),
@@ -973,6 +1414,10 @@ def main() -> int:
             tl["mbconv_fwd"], k2["fwd"]),
         row("mbconv_bwd", "mbconv.cu", "pallas_mbconv.py:394",
             tl["mbconv_bwd"], k2["bwd"]),
+        row("depthwise_fwd", "depthwise.cu", "pallas_dw.py:405",
+            tl["depthwise_fwd"], k6["fwd"]),
+        row("depthwise_bwd", "depthwise.cu", "pallas_dw.py:452",
+            tl["depthwise_bwd"], k6["bwd"]),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

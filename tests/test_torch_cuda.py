@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_semantic_segmentation_tpu_torch.ops import mbconv, resize_ce, sepconv
+from torch_semantic_segmentation_tpu_torch.ops import (
+    depthwise, mbconv, resize_ce, sepconv)
 
 torch.set_num_threads(2)
 
@@ -204,3 +205,86 @@ def test_resize_ce_all_ignored_and_wrapper_checks(cuda):
         resize_ce.resize_ce_forward(logits, labels, cw[:3])
     with pytest.raises(ValueError, match="must be on"):
         resize_ce.resize_ce_forward(logits, labels.cpu(), cw)
+
+
+# (n, h, w, c, stride): the LDS convs ds1 and ds2 at batch 8 full
+# resolution, the stride-1 case at the GFE's width; odd H and W, C of 3, 20
+# and 384 (off the 8-channel groups, and GFE stage1[0]'s width)
+DEPTHWISE_CASES = [(8, 512, 1024, 32, 2), (8, 256, 512, 48, 2),
+                   (8, 128, 256, 128, 1), (2, 9, 13, 3, 2), (1, 7, 11, 20, 2),
+                   (2, 9, 13, 20, 1), (2, 6, 10, 384, 2), (1, 5, 9, 384, 1)]
+
+
+def _depthwise_inputs(seed, n, h, w, c, stride, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, h, w, c), generator=g, device=device)
+    k = torch.randn((3, 3, c), generator=g, device=device) * 0.5
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    dy = torch.randn((n, ho, wo, c), generator=g, device=device)
+    return x, k, dy
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,stride", DEPTHWISE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_depthwise_kernels_match_plain_version(cuda, n, h, w, c, stride,
+                                               dtype):
+    """Forward and dx within 1e-4 (float32) or two bf16 steps of their
+    scale; dk at a relative L2 error of 1e-5 and the same bit for bit from
+    launch to launch."""
+    dtype = getattr(torch, dtype)
+    x, k, dy = _depthwise_inputs(8, n, h, w, c, stride, cuda)
+    x, dy = x.to(dtype), dy.to(dtype)
+    f0 = depthwise.depthwise3x3_forward.launches
+    b0 = depthwise.depthwise3x3_backward.launches
+    y = depthwise.depthwise3x3_forward(x, k, stride)
+    assert depthwise.depthwise3x3_forward.launches == f0 + 1
+    want = depthwise.depthwise3x3_reference(x, k, stride)
+    dx, dk = depthwise.depthwise3x3_backward(x, k, dy, stride)
+    _, dk2 = depthwise.depthwise3x3_backward(x, k, dy, stride)
+    assert depthwise.depthwise3x3_backward.launches == b0 + 2
+    rdx, rdk = depthwise.depthwise3x3_reference_backward(x, k, dy, stride)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and dx.dtype == dtype and dk.dtype == torch.float32
+    for got, ref in ((y, want), (dx, rdx)):
+        assert got.shape == ref.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        else:
+            _bf16_close(got, ref)
+    assert _rel_l2(dk, rdk) <= 1e-5
+    assert torch.equal(dk, dk2)
+
+
+@pytest.mark.cuda
+def test_depthwise_autograd_routing_and_wrapper_checks(cuda):
+    from torch_semantic_segmentation_tpu_torch.ops.conv import ConvBNAct
+    x, k, _ = _depthwise_inputs(9, 1, 8, 16, 16, 2, cuda)
+    xb = x.to(torch.bfloat16).requires_grad_(True)
+    kr = k.clone().requires_grad_(True)
+    depthwise.depthwise_conv3x3(xb, kr, 2).float().sum().backward()
+    assert xb.grad.dtype == torch.bfloat16 and kr.grad.dtype == torch.float32
+    # a stride-2 depthwise ConvBNAct at 2^18 input pixels routes to K6
+    block = ConvBNAct(8, 8, 3, stride=2, groups=8,
+                      compute_dtype=torch.bfloat16).to(cuda)
+    f0 = depthwise.depthwise3x3_forward.launches
+    block(torch.zeros((1, 512, 512, 8), dtype=torch.bfloat16, device=cuda))
+    assert depthwise.depthwise3x3_forward.launches == f0 + 1
+    with pytest.raises(TypeError):
+        depthwise.depthwise3x3_forward(x.half(), k, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        depthwise.depthwise3x3_forward(x.permute(0, 2, 1, 3), k, 2)
+    with pytest.raises(ValueError, match="stride"):
+        depthwise.depthwise3x3_forward(x, k, 3)
+    with pytest.raises(ValueError, match="shape"):
+        depthwise.depthwise3x3_forward(x, k[..., :8], 2)
+    with pytest.raises(ValueError, match="must be on"):
+        depthwise.depthwise3x3_forward(x, k.cpu(), 2)
+    wide = torch.zeros((1, 2, 2, 2056), device=cuda)
+    with pytest.raises(ValueError, match="C <="):
+        depthwise.depthwise3x3_forward(wide, torch.zeros((3, 3, 2056),
+                                                         device=cuda), 1)

@@ -160,6 +160,16 @@ class FastSCNN(nn.Module):
             self.aux_gfe = SegHead(128, 32, num_classes,
                                    dropout_generator=dropout_generator, **kw)
 
+    def remat_segments(self) -> list[nn.Module]:
+        """The modules a rematerialised train step checkpoints one by one
+        (`train.make_train_step(remat=True)`): the LDS's three convs, each
+        GFE block, the PPM, the FFM, the classifier and the aux heads."""
+        g = self.gfe
+        heads = [self.aux_lds, self.aux_gfe] if self.aux else []
+        return [self.lds.conv, self.lds.ds1, self.lds.ds2, *g.stage1,
+                *g.stage2, *g.stage3, g.ppm, self.ffm, self.classifier,
+                *heads]
+
     def forward(self, x: torch.Tensor):
         h, w = x.shape[1], x.shape[2]
         if h % 32 or w % 32:

@@ -7,6 +7,7 @@ from torch import nn
 
 from torch_semantic_segmentation_tpu_torch.ops.conv import (
     ConvBNAct, activation, make_conv)
+from torch_semantic_segmentation_tpu_torch.ops import mbconv
 from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
 from torch_semantic_segmentation_tpu_torch.ops.folded_bn import (
     folded_1x1_weights)
@@ -45,10 +46,11 @@ class InvertedResidual(nn.Module):
         (`ops.mbconv`, the Hopper kernel K2): the expanded tensor, the
         largest activation of the network, never reaches device memory.
         Returns the dw output after the dw BN and ReLU, or None where the
-        block does not qualify: eval mode, another conv shape, or a
-        compute dtype other than bf16."""
+        block does not qualify: eval mode, another conv shape, a compute
+        dtype other than bf16, or inside `mbconv.suppress_routing()`."""
         exp, dw = self.expand, self.dw
-        if (not self.training or exp.bn is None or dw.bn is None
+        if (mbconv.routing_suppressed() or not self.training
+                or exp.bn is None or dw.bn is None
                 or not exp.bn.training or not dw.bn.training):
             return None
         if exp.act_name != "relu":

@@ -18,9 +18,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch_semantic_segmentation_tpu_torch.ops import depthwise
 from torch_semantic_segmentation_tpu_torch.ops.sepconv import fuse_conv_pair
 
 Act = tp.Optional[str]
+
+# Depthwise convs over fewer pixels (N·H·W of the input) stay on the plain
+# conv, as in the JAX package (`TPU_SEG_PALLAS_DW_MIN_PX`'s default). Tests
+# may monkeypatch it.
+DEPTHWISE_MIN_PX = 1 << 18
 
 _ACTIVATIONS: dict[str, tp.Callable[[torch.Tensor], torch.Tensor]] = {
     "relu": F.relu,
@@ -145,7 +151,8 @@ def make_norm(num_features: int, *, momentum: float = 0.1, eps: float = 1e-5,
 
 class ConvBNAct(nn.Module):
     """conv → BN → activation. `ops.fold.fold_batchnorm` folds the eval-mode
-    BN into the conv, after which `bn` is None."""
+    BN into the conv, after which `bn` is None. A bias-free stride-2
+    depthwise 3×3 runs through `ops.depthwise` (the Hopper kernel K6)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size=3, *, stride=1,
                  padding=None, dilation=1, groups: int = 1, act: Act = "relu",
@@ -167,10 +174,36 @@ class ConvBNAct(nn.Module):
         self.act_name = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x)
+        y = self._maybe_depthwise(x)
+        if y is None:
+            y = self.conv(x)
         if self.bn is not None:
             y = self.bn(y)
         return activation(self.act_name)(y)
+
+    def _maybe_depthwise(self, x: torch.Tensor) -> torch.Tensor | None:
+        """The JAX package's `ConvBNAct._maybe_pallas_dw` with its opt-in
+        switch on: a depthwise 3×3 (groups = C = the input's channels),
+        dilation 1, padding 1, stride 2, no bias, over at least
+        `DEPTHWISE_MIN_PX` input pixels, whose compute dtype is x's, goes
+        through `ops.depthwise` with the float32 kernel. Returns None where
+        the conv does not qualify. Folding BN gives a conv a bias, so the
+        serving path never routes here."""
+        conv = self.conv
+        c = x.shape[-1]
+        if (conv.groups == 1 or conv.groups != c or conv.out_channels != c
+                or conv.kernel_size != (3, 3) or conv.dilation != (1, 1)
+                or conv.stride != (2, 2) or conv.padding != (1, 1)
+                or conv.bias is not None):
+            return None
+        if not depthwise.supports(tuple(x.shape), 2, dtype=x.dtype):
+            return None
+        if x.shape[0] * x.shape[1] * x.shape[2] < DEPTHWISE_MIN_PX:
+            return None
+        if _compute_types(x, conv.weight, conv.compute_dtype) != x.dtype:
+            return None
+        k = conv.weight.reshape(c, 3, 3).permute(1, 2, 0)
+        return depthwise.depthwise_conv3x3(x.contiguous(), k, 2)
 
 
 class SeparableConv(nn.Module):

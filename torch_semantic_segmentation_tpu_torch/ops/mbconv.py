@@ -22,6 +22,7 @@ Rounding points, the TPU kernel's:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -29,6 +30,25 @@ import torch.nn.functional as F
 
 
 _MAX_CIN = 128   # the backward holds dx for Cin/16 column tiles a warp
+_suppressed = 0  # depth of open `suppress_routing` blocks
+
+
+@contextlib.contextmanager
+def suppress_routing():
+    """Within the block no inverted residual routes to `fused_expand_dw`:
+    its expand and depthwise run as the plain conv layers (the JAX
+    package's `pallas_mbconv.suppress_routing`, which a rematerialised
+    train step opens around its forward)."""
+    global _suppressed
+    _suppressed += 1
+    try:
+        yield
+    finally:
+        _suppressed -= 1
+
+
+def routing_suppressed() -> bool:
+    return _suppressed > 0
 
 
 def _out_size(n: int, stride: int) -> int:

@@ -1,5 +1,6 @@
-"""Training step of the port: forward, loss, backward and the optimizer
-update with its LR schedule (the JAX package's `train.py`).
+"""Training and eval steps of the port: forward, loss, backward and the
+optimizer update with its LR schedule, and the confusion-matrix eval step
+(the JAX package's `train.py`).
 
 The JAX step is one jit-compiled program that donates the old state's
 buffers; here the step runs eagerly and updates the model's parameters,
@@ -9,18 +10,27 @@ its BatchNorm running statistics and the optimizer's state in place.
     state = create_train_state(model, cfg)
     step = make_train_step(model, state, resize_cross_entropy_loss)
     metrics = step(images, labels)          # {"loss": scalar tensor}
+    ev = make_eval_step(model, num_classes=19)
+    cm = ev(new_confusion_matrix(19), images, labels)
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import typing as tp
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
+from torch_semantic_segmentation_tpu_torch import metrics
 from torch_semantic_segmentation_tpu_torch.device import resolve_device
 from torch_semantic_segmentation_tpu_torch.losses import cross_entropy_loss
+from torch_semantic_segmentation_tpu_torch.ops import mbconv
+from torch_semantic_segmentation_tpu_torch.ops.conv import BatchNorm2d
+from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
+from torch_semantic_segmentation_tpu_torch.ops.upsample import resize_argmax
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +89,79 @@ def create_train_state(model: nn.Module, config: OptimizerConfig) -> TrainState:
 LossFn = tp.Callable[[tp.Any, torch.Tensor], torch.Tensor]
 
 
+def _remat_contexts(segment: nn.Module):
+    """`context_fn` of one checkpointed segment: the contexts of its first
+    forward and of its recompute in the backward. The recompute must not
+    move the segment's BN running statistics a second time, and must draw
+    the same dropout masks: checkpoint restores torch's global RNG, not the
+    explicit generators the dropout layers draw from. So the first forward
+    notes the generators' states; the recompute starts from them, and puts
+    back the generators' states and the running statistics it found when it
+    ends."""
+    bns = [m for m in segment.modules() if isinstance(m, BatchNorm2d)]
+    gens = list({id(m.generator): m.generator for m in segment.modules()
+                 if isinstance(m, Dropout) and m.generator is not None
+                 }.values())
+
+    def contexts():
+        noted: list[torch.Tensor] = []
+
+        @contextlib.contextmanager
+        def forward():
+            noted[:] = [g.get_state() for g in gens]
+            yield
+
+        @contextlib.contextmanager
+        def recompute():
+            after = [g.get_state() for g in gens]
+            stats = [(bn, bn.running_mean.clone(), bn.running_var.clone(),
+                      bn.num_batches_tracked.clone()) for bn in bns]
+            for g, s in zip(gens, noted):
+                g.set_state(s)
+            try:
+                yield
+            finally:
+                for g, s in zip(gens, after):
+                    g.set_state(s)
+                with torch.no_grad():
+                    for bn, mean, var, count in stats:
+                        bn.running_mean.copy_(mean)
+                        bn.running_var.copy_(var)
+                        bn.num_batches_tracked.copy_(count)
+
+        return forward(), recompute()
+
+    return contexts
+
+
+@contextlib.contextmanager
+def _checkpointed(model: nn.Module):
+    """Within the block each of the model's `remat_segments()` runs under a
+    non-reentrant `torch.utils.checkpoint` of its own, with K2 suppressed
+    in its forward and its recompute. A segment keeps its inputs for the
+    backward and no activation inside it; the backward recomputes one
+    segment at a time, so only that segment's activations are held at
+    once."""
+    segments = model.remat_segments()
+    for seg in segments:
+        def run(*args, _forward=seg.forward):
+            with mbconv.suppress_routing():
+                return _forward(*args)
+
+        def call(*args, _run=run, _contexts=_remat_contexts(seg)):
+            return torch.utils.checkpoint.checkpoint(
+                _run, *args, use_reentrant=False, context_fn=_contexts)
+
+        seg.forward = call
+    try:
+        yield
+    finally:
+        for seg in segments:
+            del seg.forward
+
+
 def make_train_step(model: nn.Module, state: TrainState,
-                    loss_fn: LossFn | None = None, *,
+                    loss_fn: LossFn | None = None, *, remat: bool = False,
                     device: str | torch.device | None = None
                     ) -> tp.Callable[[tp.Any, tp.Any],
                                      dict[str, torch.Tensor]]:
@@ -95,6 +176,15 @@ def make_train_step(model: nn.Module, state: TrainState,
     state and returns a new one, this step updates the model, its BN
     running statistics and the optimizer state in place. The loss stays on
     the device (no host sync).
+
+    `remat=True` keeps only the inputs of the model's segments for the
+    backward, which runs each segment's forward again (`_checkpointed`;
+    FastSCNN's segments are its LDS convs, GFE blocks, PPM, FFM and
+    classifier). As in the JAX package, the fused expand → depthwise op
+    (K2) is off inside them (`mbconv.suppress_routing`): its saving of the
+    expanded tensor is moot there. The running statistics move once a
+    step and the recompute sees the forward's dropout masks
+    (`_remat_contexts`).
     """
     dev = resolve_device(device)
     if loss_fn is None:
@@ -106,10 +196,51 @@ def make_train_step(model: nn.Module, state: TrainState,
         labels = torch.as_tensor(labels).to(dev)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(images), labels)
+        with _checkpointed(model) if remat else contextlib.nullcontext():
+            outputs = model(images)
+        loss = loss_fn(outputs, labels)
         loss.backward()
         optimizer.step()
         scheduler.step()
         return {"loss": loss.detach()}
+
+    return step
+
+
+def make_eval_step(model: nn.Module, *, num_classes: int,
+                   ignore_index: int = 255,
+                   device: str | torch.device | None = None
+                   ) -> tp.Callable[[torch.Tensor, tp.Any, tp.Any],
+                                    torch.Tensor]:
+    """The eval step: `step(cm, images, labels) -> cm`, on `device` (the
+    card unless the caller passes "cpu"; the model must already be there).
+
+    Each call runs the model in eval mode with its BN unfolded, under
+    `torch.inference_mode()`; 1/8-resolution logits go through the fused ×8
+    resize + argmax, full-resolution ones through an argmax; the ids update
+    the int64 confusion matrix (`metrics.update_confusion_matrix`). Only the
+    (C, C) matrix need leave the device."""
+    dev = resolve_device(device)
+    align_corners = bool(getattr(model, "align_corners", False))
+
+    @torch.inference_mode()
+    def step(cm: torch.Tensor, images, labels) -> torch.Tensor:
+        if tuple(cm.shape) != (num_classes, num_classes):
+            raise ValueError(f"confusion matrix {tuple(cm.shape)}, expected "
+                             f"{(num_classes, num_classes)}")
+        images = torch.as_tensor(images).to(dev)
+        labels = torch.as_tensor(labels).to(dev)
+        model.eval()
+        logits = model(images)
+        if isinstance(logits, (tuple, list)):
+            logits = logits[0]
+        size = (labels.shape[1], labels.shape[2])
+        if (logits.shape[1], logits.shape[2]) != size:
+            preds = resize_argmax(logits, size, align_corners=align_corners,
+                                  out_dtype=torch.int32)
+        else:
+            preds = torch.argmax(logits, dim=-1)
+        return metrics.update_confusion_matrix(cm, preds, labels,
+                                               ignore_index=ignore_index)
 
     return step
