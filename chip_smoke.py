@@ -28,7 +28,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    against the same step without it; then the eval step over 4 batches of
    8 frames, and the multi-scale + flip eval step over one batch of 2,
    each with its matrix checked;
-7. print the kernels line, the nvidia-smi line and the final JSON line.
+7. UNet, bilinear decoder, at full width (base 64, 19 classes, bf16
+   compute): serve 5 requests of 8 frames of 1024x2048 and hold the folded
+   predictor against the unfolded eval model; train 1 + 8 steps through
+   `augment_batch` at crop 768x768, batch 8 (the launches of K4's row);
+   one eval batch; one train step of the deconv decoder, which launches
+   no kernel;
+8. DeepLabV3-ResNet50 (`upsample_logits=False`, bf16): train 1 + 8 steps
+   of batch 16 through `augment_batch` at crop 768x768, scale 0.5-2.0,
+   with `resize_ohem_cross_entropy` (thresh 0.7, min_kept 100000; the
+   launches of K3's rows); one eval batch. In phases 7 and 8 every K4 and
+   K3 launch of one train step and one eval batch runs again on its own
+   inputs against the plain version, and the step's loss and d(logits)
+   are held against the same step through the plain versions;
+9. print the kernels line, the nvidia-smi line and the final JSON line.
 
 It imports nothing of JAX, and exits non-zero without a CUDA card or
 without the port package beside it.
@@ -37,6 +50,7 @@ without the port package beside it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -98,6 +112,22 @@ K6_OFF_STEP = (("stage1[0]", 8, 128, 256, 384, 2),
                ("stride 1", 8, 128, 256, 128, 1))
 K6_RAGGED = ((2, 9, 13, 3, 2), (1, 7, 11, 20, 2), (2, 9, 13, 20, 1),
              (2, 6, 10, 384, 2), (1, 5, 9, 384, 1))
+# K4 on the UNet training path (bilinear decoder, base 64, b8, crop 768):
+# (name, n, h, w, cl, cs), low (n,h,w,cl) and skip (n,2h,2w,cs)
+K4_PATH = (("up4", 8, 48, 48, 512, 512), ("up3", 8, 96, 96, 256, 256),
+           ("up2", 8, 192, 192, 128, 128), ("up1", 8, 384, 384, 64, 64))
+K4_PER_FORWARD = len(K4_PATH)
+# ragged (n, h, w, cl, cs): Cl != Cs, C of 1, 3 and 5, H = W = 1, odd H and
+# W, channels off the 8-channel groups
+K4_RAGGED = ((2, 5, 7, 24, 40), (1, 6, 10, 3, 5), (2, 1, 1, 1, 3),
+             (1, 9, 13, 5, 1), (1, 4, 6, 64, 8), (2, 7, 9, 16, 16))
+UNET_BATCH, UNET_CROP, UNET_LR = 8, 768, 0.045
+# K3 on the DeepLab OHEM path: logits (16,48,48,19) at output stride 16 ->
+# labels (16,768,768)
+DEEPLAB_BATCH, DEEPLAB_CROP, DEEPLAB_LR = 16, 768, 0.01
+K3_PATH = (DEEPLAB_BATCH, DEEPLAB_CROP // 16, DEEPLAB_CROP // 16, NUM_CLASSES,
+           DEEPLAB_CROP, DEEPLAB_CROP)
+OHEM_THRESH, OHEM_MIN_KEPT = 0.7, 100_000
 EVAL_BATCHES = 4
 # the eval step's K6 launches a batch: in eval mode no block routes to K2,
 # so GFE stage1[0]'s depthwise conv, at (8,128,256,384) on the floor of
@@ -485,6 +515,169 @@ def check_mbconv() -> dict:
                     library_ms=tot["lib_bwd"], bound_ms=bb[0], bound_by=bb[1])}
 
 
+def upsample_concat_inputs(n, h, w, cl, cs, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    low = torch.randn((n, h, w, cl), generator=g, device="cuda").to(dtype)
+    skip = torch.randn((n, 2 * h, 2 * w, cs), generator=g, device="cuda").to(
+        dtype)
+    return low, skip
+
+
+def check_upsample_concat() -> dict:
+    """K4 against its plain version, bit for bit, float32 and bf16, at the
+    four UpBlock shapes of the UNet training path and at ragged shapes;
+    per-forward times at the path's dtype, bf16: each UpBlock's time,
+    summed over the four."""
+    import torch
+    import torch.nn.functional as F
+    from torch_semantic_segmentation_tpu_torch.ops import upsample_concat as uc
+
+    def compare(n, h, w, cl, cs, dtype, seed, name):
+        low, skip = upsample_concat_inputs(n, h, w, cl, cs, dtype, seed)
+        got = uc.upsample_concat_forward(low, skip)
+        want = uc.upsample_concat_reference(low, skip)
+        torch.cuda.synchronize()
+        same = got.shape == want.shape and got.dtype == want.dtype and bool(
+            torch.equal(got, want))
+        err = float((got.float() - want.float()).abs().max()) \
+            if got.shape == want.shape else float("inf")
+        print(f"upsample_concat {name} low ({n},{h},{w},{cl}) skip "
+              f"({n},{2 * h},{2 * w},{cs}) {dtype}: max_abs_err {err:.3g}, "
+              f"the same bits {same}", flush=True)
+        if not same:
+            fail(f"upsample_concat {name} {dtype} differs from its plain "
+                 "version")
+        return err, (low, skip)
+
+    for i, (n, h, w, cl, cs) in enumerate(K4_RAGGED):
+        for dtype in (torch.float32, torch.bfloat16):
+            compare(n, h, w, cl, cs, dtype, 700 + i, "ragged")
+    tot = dict(kernel_ms=0.0, plain_ms=0.0, library_ms=0.0)
+    moved = flops = err = 0.0
+    for i, (name, n, h, w, cl, cs) in enumerate(K4_PATH):
+        for dtype in (torch.float32, torch.bfloat16):
+            e, (low, skip) = compare(n, h, w, cl, cs, dtype, 800 + i, name)
+            err = max(err, e)
+        # yardstick only: ATen's bilinear x2 then cat, channels_last bf16
+        low_c, skip_c = low.permute(0, 3, 1, 2), skip.permute(0, 3, 1, 2)
+
+        def library():
+            up = F.interpolate(low_c, scale_factor=2, mode="bilinear",
+                               align_corners=False)
+            return torch.cat((up, skip_c), 1)
+
+        t = dict(kernel_ms=cuda_ms(lambda: uc.upsample_concat_forward(low,
+                                                                      skip)),
+                 plain_ms=cuda_ms(lambda: uc.upsample_concat_reference(
+                     low, skip), iters=3, warmup=1),
+                 library_ms=library_ms(library))
+        b = 2 * (n * 4 * h * w * (cl + cs) + n * 4 * h * w * cs
+                 + n * h * w * cl)
+        f = 9 * n * 4 * h * w * cl
+        print(f"upsample_concat {name} bf16: " + " ".join(
+            f"{k} {v:.4f}" for k, v in t.items())
+            + f" bound_ms {bound(b, {'flop': f / FP32_FLOPS})[0]:.4f}",
+            flush=True)
+        for k in tot:
+            tot[k] += t[k]
+        moved, flops = moved + b, flops + f
+    bd = bound(moved, {"flop": flops / FP32_FLOPS})
+    print(f"upsample_concat the four UpBlocks a forward: kernel_ms "
+          f"{tot['kernel_ms']:.4f} plain_ms {tot['plain_ms']:.4f} library_ms "
+          f"{tot['library_ms']:.4f} bound_ms {bd[0]:.4f} (bound by {bd[2]})",
+          flush=True)
+    return dict(err=err, bound_ms=bd[0], bound_by=bd[1], **tot)
+
+
+def check_resize_ce_map() -> dict:
+    """K3, the per-pixel map's forward and backward, against the plain
+    version at K1's ragged shapes and at the DeepLab OHEM path's shape, with
+    K1's bars (the map's mean at 1e-4 relative, each element within 1e-5
+    of the map's scale; logz and d(logits) within BF16_TOL of scale);
+    times at the path's shape."""
+    import torch
+    import torch.nn.functional as F
+    from torch_semantic_segmentation_tpu_torch.ops import resize_ce as rce
+
+    def compare(n, h, w, c, oh, ow, seed, name):
+        logits, labels, _ = resize_ce_inputs(n, h, w, c, oh, ow, seed, False)
+        labels = labels.to(torch.int32)       # as `augment_batch` gives them
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        ct = torch.randn((n, oh, ow), generator=g, device="cuda") * 1e-5
+        lmap, logz = rce.resize_ce_map_forward(logits, labels)
+        want, want_logz = rce.resize_ce_map_reference(logits, labels)
+        dx = rce.resize_ce_map_backward(logits, labels, logz, ct)
+        dref = rce.resize_ce_map_reference_backward(logits, labels, logz, ct)
+        torch.cuda.synchronize()
+        merr = float((lmap - want).abs().max())
+        mscale = float(want.abs().max())
+        mean_err = abs(float(lmap.mean()) - float(want.mean()))
+        zerr = float((logz.float() - want_logz.float()).abs().max())
+        zscale = float(want_logz.float().abs().max())
+        derr = float((dx.float() - dref.float()).abs().max())
+        dscale = float(dref.float().abs().max())
+        print(f"resize_ce_map {name} ({n},{h},{w},{c})->({oh},{ow}): map err "
+              f"{merr:.3g} (scale {mscale:.3g}, tol 1e-5*scale), mean err "
+              f"{mean_err:.3g} (tol 1e-4 rel); logz err {zerr:.3g} (scale "
+              f"{zscale:.3g}); d(logits) err {derr:.3g} (scale {dscale:.3g}, "
+              f"tol {BF16_TOL:g}*scale)", flush=True)
+        if (merr > 1e-5 * mscale or mean_err > 1e-4 * abs(float(want.mean()))
+                or zerr > BF16_TOL * zscale or derr > BF16_TOL * dscale
+                or lmap.dtype != torch.float32 or dx.dtype != torch.bfloat16
+                or bool(lmap[labels == 255].any())):
+            fail(f"resize_ce_map {name} disagrees with its plain version")
+        return merr, derr, (logits, labels, logz, ct)
+
+    for i, (n, h, w, c, oh, ow) in enumerate(K1_RAGGED):
+        compare(n, h, w, c, oh, ow, 900 + i, "ragged")
+    n, h, w, c, oh, ow = K3_PATH
+    merr, derr, (logits, labels, logz, ct) = compare(n, h, w, c, oh, ow, 11,
+                                                     "path")
+    fwd_ms = cuda_ms(lambda: rce.resize_ce_map_forward(logits, labels))
+    bwd_ms = cuda_ms(lambda: rce.resize_ce_map_backward(logits, labels, logz,
+                                                        ct))
+    plain_fwd = cuda_ms(lambda: rce.resize_ce_map_reference(logits, labels),
+                        iters=3, warmup=1)
+    plain_bwd = cuda_ms(lambda: rce.resize_ce_map_reference_backward(
+        logits, labels, logz, ct), iters=3, warmup=1)
+    # yardstick only: F.interpolate then the per-pixel F.cross_entropy, and
+    # its backward for the cotangent map
+    lab = labels.long()
+    lg = logits.detach().permute(0, 3, 1, 2).requires_grad_(True)
+
+    def library():
+        up = F.interpolate(lg, size=(oh, ow), mode="bilinear",
+                           align_corners=False)
+        return F.cross_entropy(up.float(), lab, ignore_index=255,
+                               reduction="none")
+
+    with torch.no_grad():
+        lib_fwd = library_ms(library, iters=5)
+    out = library()
+    lib_bwd = library_ms(lambda: torch.autograd.grad(out, lg, ct,
+                                                     retain_graph=True),
+                         iters=5)
+    px, lab_bytes = n * oh * ow, labels.element_size()
+    exps = px * c / EXP_PER_S
+    fb = bound(n * h * w * c * 2 + px * (lab_bytes + 4 + 2),
+               {"exp": exps, "flop": (px * c * 4 + n * oh * w * c * 3)
+                / FP32_FLOPS})
+    bb = bound(2 * n * h * w * c * 2 + px * (lab_bytes + 2 + 4),
+               {"exp": exps, "flop": (px * c * 10 + n * oh * w * c * 5)
+                / FP32_FLOPS})
+    for d, k_ms, p_ms, l_ms, b in (("fwd", fwd_ms, plain_fwd, lib_fwd, fb),
+                                   ("bwd", bwd_ms, plain_bwd, lib_bwd, bb)):
+        print(f"resize_ce_map {d} path: kernel_ms {k_ms:.4f} plain_ms "
+              f"{p_ms:.4f} library_ms {l_ms:.4f} bound_ms {b[0]:.4f} (bound "
+              f"by {b[2]})", flush=True)
+    return {
+        "fwd": dict(err=merr, kernel_ms=fwd_ms, plain_ms=plain_fwd,
+                    library_ms=lib_fwd, bound_ms=fb[0], bound_by=fb[1]),
+        "bwd": dict(err=derr, kernel_ms=bwd_ms, plain_ms=plain_bwd,
+                    library_ms=lib_bwd, bound_ms=bb[0], bound_by=bb[1])}
+
+
 def depthwise_inputs(n, h, w, c, stride, dtype, seed):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -613,8 +806,13 @@ def reestimate_bn(model, images):
         m.momentum = momentum
 
 
-def calibrated_state(frames) -> dict:
-    """FastSCNN's state from a seed, with BN running stats set by one
+# (zoo name, constructor keywords) of the served models
+FASTSCNN = ("fastscnn", {"upsample_logits": False})
+UNET_BILINEAR = ("unet", {"base_ch": 64, "upsample": "bilinear"})
+
+
+def calibrated_state(frames, spec=FASTSCNN) -> dict:
+    """The model's state from a seed, with BN running stats set by one
     forward pass over two of the frames (as a trained model's statistics
     match its data) and BN affine params drawn from a seed: activations
     keep their scale through the random layers, so the ids vary over the
@@ -624,8 +822,8 @@ def calibrated_state(frames) -> dict:
         normalize_batch)
     from torch_semantic_segmentation_tpu_torch.models import get_model
 
-    model = get_model("fastscnn", NUM_CLASSES, upsample_logits=False,
-                      seed=0, device="cuda").eval()
+    name, kw = spec
+    model = get_model(name, NUM_CLASSES, seed=0, device="cuda", **kw).eval()
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for m in bns:
         m.reset_running_stats()
@@ -641,11 +839,12 @@ def calibrated_state(frames) -> dict:
     return {k: v.clone() for k, v in model.state_dict().items()}
 
 
-def build_model(compute_dtype, state: dict):
+def build_model(compute_dtype, state: dict, spec=FASTSCNN):
     import torch
     from torch_semantic_segmentation_tpu_torch.models import get_model
-    model = get_model("fastscnn", NUM_CLASSES, upsample_logits=False,
-                      compute_dtype=compute_dtype, device="cpu")
+    name, kw = spec
+    model = get_model(name, NUM_CLASSES, compute_dtype=compute_dtype,
+                      device="cpu", **kw)
     model.load_state_dict(state)
     return model.to(torch.device("cuda"))
 
@@ -710,10 +909,21 @@ def serve() -> dict:
           f"frames/s {SERVE_BATCH * REQUESTS / sum(lat):.2f}; "
           f"sepconv launches {launches}", flush=True)
 
-    # float32: folded + fused predictor vs the unfolded eval model
+    fold_check(frames, state, ids)
+    return dict(launches=launches, latency_ms=lat_ms)
+
+
+def fold_check(frames, state: dict, ids, spec=FASTSCNN):
+    """float32: the folded (and fused) predictor against the unfolded eval
+    model, logits and ids; the served bf16 `ids` against the float32 ids
+    are printed, not asserted."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.serving import make_predict_fn
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    folded, unfolded = build_model(None, state), build_model(None, state)
+    folded = build_model(None, state, spec)
+    unfolded = build_model(None, state, spec)
     fused_logits = make_predict_fn(folded, output="logits")(frames)
     fused_ids = make_predict_fn(folded, output="ids")(frames)
     plain_logits = make_predict_fn(unfolded, fold_bn=False,
@@ -727,8 +937,8 @@ def serve() -> dict:
     mismatch = float((fused_ids != plain_ids).float().mean())
     bf16_vs_f32 = float((ids != plain_ids).float().mean())
     present = int((torch.bincount(plain_ids.flatten().long()) > 0).sum())
-    print(f"serve f32 folded+fused vs unfolded: logits max_abs_err {err:.3g} "
-          f"(scale {scale:.3g}, tol 1e-4*scale + 1e-5); id mismatch "
+    print(f"serve {spec[0]} f32 folded+fused vs unfolded: logits max_abs_err "
+          f"{err:.3g} (scale {scale:.3g}, tol 1e-4*scale + 1e-5); id mismatch "
           f"{mismatch:.3g} (tol 1e-3) over {present} classes present; bf16 "
           f"ids vs f32 unfolded: mismatch {bf16_vs_f32:.3g}", flush=True)
     if present < 2:
@@ -737,10 +947,9 @@ def serve() -> dict:
         fail("folded+fused f32 logits disagree with the unfolded model")
     if mismatch >= 1e-3:
         fail("folded+fused f32 ids disagree with the unfolded model")
-    return dict(launches=launches, latency_ms=lat_ms)
 
 
-# the kernel wrappers of the training path: (count key, module, wrapper,
+# the kernel wrappers of the training paths: (count key, module, wrapper,
 # plain version)
 TRAIN_WRAPPERS = (
     ("resize_ce_fwd", "resize_ce", "resize_ce_forward", "resize_ce_reference"),
@@ -752,7 +961,13 @@ TRAIN_WRAPPERS = (
     ("depthwise_fwd", "depthwise", "depthwise3x3_forward",
      "depthwise3x3_reference"),
     ("depthwise_bwd", "depthwise", "depthwise3x3_backward",
-     "depthwise3x3_reference_backward"))
+     "depthwise3x3_reference_backward"),
+    ("upsample_concat", "upsample_concat", "upsample_concat_forward",
+     "upsample_concat_reference"),
+    ("resize_ce_map_fwd", "resize_ce", "resize_ce_map_forward",
+     "resize_ce_map_reference"),
+    ("resize_ce_map_bwd", "resize_ce", "resize_ce_map_backward",
+     "resize_ce_map_reference_backward"))
 
 
 def train_wrappers() -> list:
@@ -843,13 +1058,22 @@ def k6_unrouted():
         conv.DEPTHWISE_MIN_PX = saved
 
 
-def per_step(steps: int) -> dict:
-    """The launch counts of the training path's kernels in `steps` steps."""
-    return {"resize_ce_fwd": steps, "resize_ce_bwd": steps,
-            "mbconv_fwd": K2_PER_STEP * steps,
-            "mbconv_bwd": K2_PER_STEP * steps,
-            "depthwise_fwd": K6_PER_STEP * steps,
-            "depthwise_bwd": K6_PER_STEP * steps}
+def per_step(steps: int, model: str = "fastscnn") -> dict:
+    """The launch counts of every kernel in `steps` training steps of
+    `model`: FastSCNN launches K1, K2 and K6; UNet's bilinear decoder K4,
+    4 a forward; DeepLab with OHEM K3, 1 + 1."""
+    counts = {key: 0 for key, _, _, _ in TRAIN_WRAPPERS}
+    if model == "fastscnn":
+        counts.update({"resize_ce_fwd": steps, "resize_ce_bwd": steps,
+                       "mbconv_fwd": K2_PER_STEP * steps,
+                       "mbconv_bwd": K2_PER_STEP * steps,
+                       "depthwise_fwd": K6_PER_STEP * steps,
+                       "depthwise_bwd": K6_PER_STEP * steps})
+    elif model == "unet":
+        counts["upsample_concat"] = K4_PER_FORWARD * steps
+    elif model == "deeplab":
+        counts.update(resize_ce_map_fwd=steps, resize_ce_map_bwd=steps)
+    return counts
 
 
 def timed_steps(step, batches) -> tuple[list, list, int, dict, dict]:
@@ -1352,6 +1576,300 @@ def eval_check(model) -> dict:
                 multiscale_launches=used_ms)
 
 
+def request_times(predict, frames, requests: int):
+    """Run `predict(frames)` `requests` times, each synchronised: (the last
+    output, host ms a request, CUDA-event ms a request)."""
+    import torch
+    host, dev = [], []
+    for _ in range(requests):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = predict(frames)
+        end.record()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+        dev.append(start.elapsed_time(end))
+    return out, host, dev
+
+
+def expect_launches(used: dict, want: dict, what: str):
+    if used != want:
+        fail(f"{what}: kernel launches {used}, expected {want}")
+
+
+def kernel_vs_plain_step(model, images, labels, loss_fn, name: str,
+                         expect: dict) -> dict:
+    """One forward and backward of the train step (no update; the model's
+    state is put back after) through the kernels, recording each launch,
+    then through the kernels' plain versions, with the same dropout
+    masks: every recorded launch again on its own inputs against its plain
+    version (`check_recorded`, relative L2 2^-9), the launches `expect`
+    ({count key: launches}), the loss within 1e-4 relative and d(logits)
+    within relative L2 2^-9 of the plain versions' step."""
+    import torch
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def gradient():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        gen = getattr(model, "dropout_generator", None)
+        if gen is not None:
+            gen.manual_seed(1234)
+        logits = model(images)
+        logits.retain_grad()
+        loss = loss_fn(logits, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), logits.grad.detach().float()
+
+    calls = []
+    with swapped(recording(calls)):
+        lk, dk = gradient()
+    worst = check_recorded(calls)
+    recorded = {}
+    for key, _, _, _ in calls:
+        recorded[key] = recorded.get(key, 0) + 1
+    del calls
+    with swapped(plain_versions):
+        lp, dp = gradient()
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict(start)
+    loss_rel = abs(lk - lp) / abs(lp)
+    d_rel = rel_l2(dk, dp)
+    print(f"{name} one step, kernels against plain versions: each launch on "
+          f"its own inputs, worst relative L2 error " + ", ".join(
+              f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (tol 2^-9, launches {recorded}); loss {lk:.6f} vs {lp:.6f} "
+          f"(rel {loss_rel:.3g}, tol 1e-4); d(logits) relative L2 "
+          f"{d_rel:.3g} (tol 2^-9)", flush=True)
+    if recorded != expect:
+        fail(f"{name}: one step recorded {recorded}, expected {expect}")
+    if not loss_rel <= 1e-4 or not d_rel <= 2.0 ** -9:
+        fail(f"{name}: the step through the kernels disagrees with the step "
+             "through their plain versions")
+    return dict(recorded_rel_l2=worst, loss_rel=loss_rel, dlogits_rel_l2=d_rel)
+
+
+def eval_batch(model, images, labels, name: str, expect: dict) -> dict:
+    """`make_eval_step` over one batch (after a warm-up call), timed on the
+    host clock and on CUDA events: the matrix holds every valid pixel once,
+    mIoU lies in [0, 1], the launches are `expect`, and each launch of the
+    batch runs again on its own inputs against its plain version."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch import metrics
+    from torch_semantic_segmentation_tpu_torch.train import make_eval_step
+
+    step = make_eval_step(model, num_classes=NUM_CLASSES)
+    step(metrics.new_confusion_matrix(NUM_CLASSES), images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    cm = step(metrics.new_confusion_matrix(NUM_CLASSES), images, labels)
+    end.record()
+    torch.cuda.synchronize()
+    ms, ev_ms = 1e3 * (time.perf_counter() - t0), start.elapsed_time(end)
+    used, peak = launch_counts(), torch.cuda.max_memory_allocated()
+    calls = []
+    with swapped(recording(calls)):
+        step(metrics.new_confusion_matrix(NUM_CLASSES), images, labels)
+    worst = check_recorded(calls)
+    del calls
+    _, miou = metrics.iou_from_confusion_matrix(cm)
+    valid = int((labels != 255).sum())
+    print(f"{name} eval bf16 one batch {tuple(images.shape[:3])}: {ms:.3f} ms "
+          f"on the host clock, {ev_ms:.3f} on CUDA events; images/s "
+          f"{1e3 * images.shape[0] / ms:.2f}; max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB; mIoU {miou:.4f}; matrix total "
+          f"{int(cm.sum())} of {valid}; launches {used}; each launch against "
+          f"its plain version on the same inputs: worst relative L2 error "
+          f"{worst} (tol 2^-9)", flush=True)
+    if int(cm.sum()) != valid or not 0.0 <= miou <= 1.0:
+        fail(f"{name} eval: matrix total {int(cm.sum())} of {valid}, mIoU "
+             f"{miou}")
+    expect_launches(used, expect, f"{name} eval batch")
+    return dict(ms=ms, event_ms=ev_ms, miou=miou, launches=used,
+                peak_bytes=peak)
+
+
+def train_run(step, batches, name: str, batch: int, expect: dict) -> dict:
+    """A warm-up step and the timed steps: the losses finite and falling
+    (the mean of the last three below the first), the launches `expect`."""
+    step(*batches[0])
+    lat, losses, peak, launches, detail = timed_steps(step, batches)
+    print(f"{name}: losses {[round(v, 4) for v in losses]}; step latency_ms "
+          f"{[round(t, 3) for t in lat]} {timing_line(lat, detail)}; "
+          f"images/s {1e3 * batch * len(lat) / sum(lat):.2f}; "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; launches "
+          f"{launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"{name}: non-finite training loss: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        fail(f"{name}: the training loss did not fall: {losses}")
+    expect_launches(launches, expect, name)
+    return dict(latency_ms=lat, losses=losses, peak_bytes=peak,
+                launches=launches, detail=detail)
+
+
+def unet_phase() -> dict:
+    """UNet with the bilinear decoder at full width (base 64, 19 classes,
+    bf16 compute, float32 parameters from a seed): serving, training
+    through `augment_batch` (the main path of K4), one eval batch; then one
+    train step of the deconv decoder."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig, augment_batch, normalize_batch)
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        cross_entropy_loss)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.serving import make_predict_fn
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+
+    out = {}
+    frames, labels = (torch.from_numpy(a).cuda() for a in make_batch(500))
+    state = calibrated_state(frames, UNET_BILINEAR)
+    predict = make_predict_fn(build_model(torch.bfloat16, state,
+                                          UNET_BILINEAR), output="ids")
+    predict(frames)                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ids, host, dev = request_times(predict, frames, REQUESTS)
+    used, peak = launch_counts(), torch.cuda.max_memory_allocated()
+    print(f"unet serve bf16 {SERVE_BATCH}x{SERVE_H}x{SERVE_W}: latency_ms "
+          f"{[round(t, 3) for t in host]} median host {np.median(host):.3f}, "
+          f"CUDA events {np.median(dev):.3f}; frames/s "
+          f"{SERVE_BATCH * REQUESTS * 1e3 / sum(host):.2f}; "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; launches {used}",
+          flush=True)
+    if (tuple(ids.shape) != (SERVE_BATCH, SERVE_H, SERVE_W)
+            or ids.dtype != torch.uint8 or int(ids.max()) >= NUM_CLASSES):
+        fail(f"unet ids {tuple(ids.shape)} {ids.dtype}")
+    want = per_step(0)
+    want["upsample_concat"] = K4_PER_FORWARD * REQUESTS
+    expect_launches(used, want, "unet serving")
+    fold_check(frames, state, ids, UNET_BILINEAR)
+    out["serve"] = dict(latency_ms=host, event_ms=dev, peak_bytes=peak,
+                        launches=used)
+    del predict, state, ids
+    torch.cuda.empty_cache()
+
+    cfg = AugmentConfig(crop=(UNET_CROP, UNET_CROP), out_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = get_model("unet", NUM_CLASSES, base_ch=64, upsample="bilinear",
+                      compute_dtype=torch.bfloat16, seed=0, device="cuda")
+    inner = make_train_step(model, create_train_state(
+        model, OptimizerConfig(lr=UNET_LR, max_steps=1000)),
+        cross_entropy_loss)
+
+    def step(raw_images, raw_labels):
+        return inner(*augment_batch(raw_images, raw_labels, gen, cfg))
+
+    out["train"] = train_run(
+        step, [(frames, labels)] * TRAIN_STEPS,
+        f"unet train bf16 {UNET_BATCH}x{UNET_CROP}x{UNET_CROP} with "
+        "augmentation (main path of K4)", UNET_BATCH,
+        per_step(TRAIN_STEPS, "unet"))
+    images, lab = augment_batch(frames, labels, gen, cfg)
+    out["check"] = kernel_vs_plain_step(
+        model, images, lab, cross_entropy_loss, "unet",
+        {"upsample_concat": K4_PER_FORWARD})
+    out["eval"] = eval_batch(model, normalize_batch(
+        frames, out_dtype=torch.bfloat16), labels, "unet",
+        dict(per_step(0), upsample_concat=K4_PER_FORWARD))
+    del model, inner, step
+    torch.cuda.empty_cache()
+
+    deconv = get_model("unet", NUM_CLASSES, base_ch=64, upsample="deconv",
+                       compute_dtype=torch.bfloat16, seed=0, device="cuda")
+    dstep = make_train_step(deconv, create_train_state(
+        deconv, OptimizerConfig(lr=UNET_LR, max_steps=1000)),
+        cross_entropy_loss)
+    lat, losses, peak, launches, detail = timed_steps(dstep, [(images, lab)])
+    print(f"unet deconv decoder, one train step bf16 {UNET_BATCH}x{UNET_CROP}"
+          f"x{UNET_CROP} (the first, cuDNN's set-up included): loss "
+          f"{losses[0]:.4f}; {timing_line(lat, detail)}; max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB; launches {launches}", flush=True)
+    if not np.isfinite(losses[0]):
+        fail(f"unet deconv: non-finite loss {losses}")
+    expect_launches(launches, per_step(0), "unet deconv step")
+    out["deconv"] = dict(latency_ms=lat, loss=losses[0], peak_bytes=peak)
+    del deconv, dstep, images, lab
+    torch.cuda.empty_cache()
+    return out
+
+
+def deeplab_phase() -> dict:
+    """DeepLabV3-ResNet50 with `upsample_logits=False`, bf16 compute:
+    training through `augment_batch` with OHEM (the main path of K3) at
+    batch 16, or 8 where 16 does not fit; one eval batch."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig, augment_batch, normalize_batch)
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        resize_ohem_cross_entropy)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+
+    pairs = [make_batch(600), make_batch(601)]
+    frames = torch.from_numpy(np.concatenate([f for f, _ in pairs])).cuda()
+    labels = torch.from_numpy(np.concatenate([lb for _, lb in pairs])).cuda()
+    loss_fn = functools.partial(resize_ohem_cross_entropy,
+                                thresh=OHEM_THRESH, min_kept=OHEM_MIN_KEPT)
+    cfg = AugmentConfig(crop=(DEEPLAB_CROP, DEEPLAB_CROP), scale_range=(0.5, 2.0),
+                        out_dtype=torch.bfloat16)
+    out = {}
+    for batch in (DEEPLAB_BATCH, DEEPLAB_BATCH // 2):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = get_model("deeplabv3_resnet50", NUM_CLASSES,
+                          upsample_logits=False, compute_dtype=torch.bfloat16,
+                          seed=0, device="cuda")
+        inner = make_train_step(model, create_train_state(
+            model, OptimizerConfig(lr=DEEPLAB_LR, max_steps=1000)), loss_fn)
+
+        def step(raw_images, raw_labels, _inner=inner, _gen=gen):
+            return _inner(*augment_batch(raw_images, raw_labels, _gen, cfg))
+
+        batches = [(frames[:batch], labels[:batch])] * TRAIN_STEPS
+        try:
+            out["train"] = train_run(
+                step, batches, f"deeplabv3_resnet50 train bf16 "
+                f"{batch}x{DEEPLAB_CROP}x{DEEPLAB_CROP} with augmentation and "
+                f"OHEM (main path of K3)", batch,
+                per_step(TRAIN_STEPS, "deeplab"))
+            out["batch"] = batch
+            break
+        except torch.cuda.OutOfMemoryError:
+            peak = torch.cuda.max_memory_allocated()
+            print(f"deeplabv3_resnet50 batch {batch} does not fit: out of "
+                  f"memory at max_memory_allocated {peak / 2 ** 30:.3f} GiB",
+                  flush=True)
+            del model, inner, step
+            torch.cuda.empty_cache()
+    else:
+        fail("deeplabv3_resnet50 fits neither batch 16 nor batch 8")
+    batch = out["batch"]
+    images, lab = augment_batch(frames[:batch], labels[:batch], gen, cfg)
+    out["check"] = kernel_vs_plain_step(
+        model, images, lab, loss_fn, "deeplabv3_resnet50",
+        {"resize_ce_map_fwd": 1, "resize_ce_map_bwd": 1})
+    del images, lab
+    out["eval"] = eval_batch(model, normalize_batch(
+        frames[:batch], out_dtype=torch.bfloat16), labels[:batch],
+        "deeplabv3_resnet50", per_step(0))
+    del model, inner, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1372,7 +1890,7 @@ def main() -> int:
 
     # one nvcc for each source, all started together
     t0 = time.perf_counter()
-    names = ("sepconv", "resize_ce", "mbconv", "depthwise")
+    names = ("sepconv", "resize_ce", "mbconv", "depthwise", "upsample_concat")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = dict(zip(names, pool.map(kernels.build, names)))
     print(f"build: {time.perf_counter() - t0:.1f} s for all", flush=True)
@@ -1386,12 +1904,18 @@ def main() -> int:
     k1 = check_resize_ce()
     k2 = check_mbconv()
     k6 = check_depthwise()
+    k4 = check_upsample_concat()
+    k3 = check_resize_ce_map()
     served = serve()
     train()
     main_path = train_augmented()
     model = main_path.pop("model")
     remat_check(model, *main_path.pop("batch"))
     eval_check(model)
+    del model
+    torch.cuda.empty_cache()
+    unet = unet_phase()
+    deeplab = deeplab_phase()
 
     def row(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",
@@ -1418,6 +1942,12 @@ def main() -> int:
             tl["depthwise_fwd"], k6["fwd"]),
         row("depthwise_bwd", "depthwise.cu", "pallas_dw.py:452",
             tl["depthwise_bwd"], k6["bwd"]),
+        row("upsample_concat", "upsample_concat.cu", "pallas_upsample.py:109",
+            unet["train"]["launches"]["upsample_concat"], k4),
+        row("resize_ce_map_fwd", "resize_ce.cu", "pallas_resize_ce.py:446",
+            deeplab["train"]["launches"]["resize_ce_map_fwd"], k3["fwd"]),
+        row("resize_ce_map_bwd", "resize_ce.cu", "pallas_resize_ce.py:494",
+            deeplab["train"]["launches"]["resize_ce_map_bwd"], k3["bwd"]),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from torch_semantic_segmentation_tpu_torch.ops import (
-    depthwise, mbconv, resize_ce, sepconv)
+    depthwise, mbconv, resize_ce, sepconv, upsample_concat)
 
 torch.set_num_threads(2)
 
@@ -288,3 +288,100 @@ def test_depthwise_autograd_routing_and_wrapper_checks(cuda):
     with pytest.raises(ValueError, match="C <="):
         depthwise.depthwise3x3_forward(wide, torch.zeros((3, 3, 2056),
                                                          device=cuda), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,oh,ow,ac", RESIZE_CE_CASES)
+@pytest.mark.parametrize("label_dtype", ["uint8", "int32"])
+def test_resize_ce_map_kernels_match_plain_version(cuda, n, h, w, c, oh, ow,
+                                                   ac, label_dtype):
+    """K3: the loss map within 1e-5 of its scale (float32 sums in another
+    order), logz and d(logits) within two bf16 steps of their scale."""
+    rng = np.random.default_rng(6)
+    logits = torch.from_numpy((rng.normal(size=(n, h, w, c)) * 2).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    lab = rng.integers(0, c, (n, oh, ow))
+    lab[:, :3, :7] = 255
+    labels = torch.from_numpy(lab.astype(label_dtype)).to(cuda)
+    ct = torch.from_numpy(rng.normal(size=(n, oh, ow)).astype(
+        np.float32)).to(cuda)
+    f0 = resize_ce.resize_ce_map_forward.launches
+    b0 = resize_ce.resize_ce_map_backward.launches
+    loss_map, logz = resize_ce.resize_ce_map_forward(logits, labels, ac)
+    assert resize_ce.resize_ce_map_forward.launches == f0 + 1
+    want, want_logz = resize_ce.resize_ce_map_reference(logits, labels, ac)
+    assert loss_map.dtype == torch.float32 and loss_map.shape == want.shape
+    torch.testing.assert_close(loss_map, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    assert not bool(loss_map[:, :3, :7].any())
+    _bf16_close(logz, want_logz)
+    dx = resize_ce.resize_ce_map_backward(logits, labels, logz, ct, ac)
+    assert resize_ce.resize_ce_map_backward.launches == b0 + 1
+    ref = resize_ce.resize_ce_map_reference_backward(logits, labels, logz, ct,
+                                                     ac)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16 and dx.shape == logits.shape
+    _bf16_close(dx, ref)
+
+
+@pytest.mark.cuda
+def test_resize_ce_map_autograd_and_wrapper_checks(cuda):
+    logits = torch.randn(1, 4, 8, 5, device=cuda).to(torch.bfloat16)
+    labels = torch.randint(0, 5, (1, 32, 64), device=cuda)
+    lg = logits.clone().requires_grad_(True)
+    resize_ce.per_pixel_resize_ce(lg, labels).sum().backward()
+    assert lg.grad.dtype == torch.bfloat16
+    logz = torch.zeros((1, 32, 64), dtype=torch.bfloat16, device=cuda)
+    ct = torch.zeros((1, 32, 64), device=cuda)
+    with pytest.raises(TypeError):
+        resize_ce.resize_ce_map_forward(logits.float(), labels)
+    with pytest.raises(ValueError, match="cotangent"):
+        resize_ce.resize_ce_map_backward(logits, labels, logz, ct[:, :16])
+    with pytest.raises(ValueError, match="logz"):
+        resize_ce.resize_ce_map_backward(logits, labels, logz.float(), ct)
+
+
+# (n, h, w, cl, cs): UNet's up1 at base 16, Cl != Cs, C of 1, 3 and 5, H = W
+# = 1, odd H and W, channels off the 8-channel groups
+UPSAMPLE_CASES = [(2, 24, 32, 16, 16), (1, 9, 13, 24, 40), (2, 6, 10, 3, 5),
+                  (1, 4, 4, 1, 2), (2, 1, 1, 5, 3), (1, 7, 5, 12, 20),
+                  (1, 5, 9, 64, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cl,cs", UPSAMPLE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_upsample_concat_kernel_equals_plain_version(cuda, n, h, w, cl, cs,
+                                                     dtype):
+    """K4 and its plain version round at the same points: the same bits."""
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    low = torch.randn((n, h, w, cl), generator=g, device=cuda).to(dtype)
+    skip = torch.randn((n, 2 * h, 2 * w, cs), generator=g, device=cuda).to(dtype)
+    before = upsample_concat.upsample_concat_forward.launches
+    got = upsample_concat.upsample_concat_forward(low, skip)
+    assert upsample_concat.upsample_concat_forward.launches == before + 1
+    want = upsample_concat.upsample_concat_reference(low, skip)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_upsample_concat_autograd_and_wrapper_checks(cuda):
+    low = torch.randn(1, 4, 6, 8, device=cuda).to(torch.bfloat16)
+    skip = torch.randn(1, 8, 12, 8, device=cuda).to(torch.bfloat16)
+    lr, sr = low.clone().requires_grad_(True), skip.clone().requires_grad_(True)
+    upsample_concat.upsample2x_concat(lr, sr).float().sum().backward()
+    assert lr.grad.dtype == torch.bfloat16 and sr.grad.dtype == torch.bfloat16
+    # d(low) of a sum is 4 a low pixel: each output pixel's weights sum to 1
+    torch.testing.assert_close(lr.grad.float(), torch.full_like(lr.float(), 4.0))
+    with pytest.raises(TypeError):
+        upsample_concat.upsample_concat_forward(low.float(), skip)
+    with pytest.raises(TypeError):
+        upsample_concat.upsample_concat_forward(low.half(), skip.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        upsample_concat.upsample_concat_forward(low.transpose(1, 2).contiguous(
+            ).transpose(1, 2), skip)
+    with pytest.raises(ValueError, match="must be on"):
+        upsample_concat.upsample_concat_forward(low, skip.cpu())

@@ -32,7 +32,9 @@ def test_scan_covers_the_package():
             "compat/torch_loader.py", "ops/resize_ce.py", "ops/mbconv.py",
             "ops/folded_bn.py", "losses/__init__.py", "train.py",
             "ops/depthwise.py", "data/transforms.py", "metrics/__init__.py",
-            "eval.py"} <= names
+            "eval.py", "ops/upsample_concat.py", "ops/pool.py",
+            "models/unet.py", "models/resnet.py", "models/deeplab.py",
+            "ops/blocks.py"} <= names
 
 
 def test_banned_rule():

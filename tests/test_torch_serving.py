@@ -100,7 +100,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_model_registry():
-    assert available_models() == ["fastscnn"]
+    assert available_models() == sorted([
+        "fastscnn", "unet", "deeplabv3_resnet18", "deeplabv3_resnet34",
+        "deeplabv3_resnet50", "deeplabv3_resnet101"])
     with pytest.raises(KeyError, match="fastscnn"):
         get_model("enet")
     m = get_model("fastscnn", 5, upsample_logits=False, device="cpu")

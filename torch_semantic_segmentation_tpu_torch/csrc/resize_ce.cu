@@ -15,6 +15,16 @@
 // (pl.pallas_call in _primal, :329) and ::_bwd_kernel/_bwd_accumulate
 // (pl.pallas_call in _fused_bwd, :381).
 //
+// The per-pixel variant (K3, the OHEM building block; template flag MAP) replaces
+// ::_map_fwd_kernel (pl.pallas_call in _map_primal, :446) and ::_map_bwd_kernel
+// (pl.pallas_call in _map_bwd, :494). Its forward writes the float32 loss map
+// valid * (logz - y_label) (0 at an ignored label) and logz, instead of the
+// block's two partial sums; it takes no class weights. Its backward takes a
+// float32 cotangent map ct in place of cw[label] * g/S2: the per-pixel weight is
+// valid * ct, which re-zeros ignored pixels. Everything else, the taps, the
+// rounding points and the gather schedule, is K1's, and K1's launches compile
+// from the same code with MAP false.
+//
 // Forward: one block per (image, band of FWD_ROWS output rows, span of
 // FWD_SPAN output columns), one thread per output column. For each output row
 // the block forms the H-pass row of the low-res columns its span reads, once,
@@ -37,6 +47,9 @@
 // logz 34 MB), 0.02 ms at 3.35 TB/s, but takes 3.2e8 exponentials, about
 // 0.08 ms at 16 a clock on each of 132 SMs; the backward recomputes them. The
 // full-resolution logits never reach device memory, in either direction.
+// K3 at DeepLab's OHEM path, (16,48,48,19) -> (16,768,768) with int32 labels,
+// moves about 96 MB forward (labels 38 MB, the float32 map 38 MB, logz 19 MB),
+// 0.029 ms, and takes 1.8e8 exponentials, 0.043 ms: bound by exponentials too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,18 +128,19 @@ __device__ __forceinline__ float block_sum(float v, float* s_red) {
   return s;
 }
 
-template <typename L>
+template <typename L, bool MAP>
 __global__ void __launch_bounds__(THREADS)
 resize_ce_fwd(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
               const float* __restrict__ cw, Tables tb, float* __restrict__ partial,
-              __nv_bfloat16* __restrict__ logz, int h, int w, int c, int oh, int ow,
-              int tmax) {
+              float* __restrict__ loss_map, __nv_bfloat16* __restrict__ logz, int h,
+              int w, int c, int oh, int ow, int tmax) {
   extern __shared__ __align__(16) float smem[];
   float* s_red = smem;              // THREADS / 32
   float* s_cw = s_red + 32;         // c
   float* s_t = s_cw + c;            // tmax * c
   const int span = blockIdx.x, band = blockIdx.y, img = blockIdx.z;
-  for (int i = threadIdx.x; i < c; i += THREADS) s_cw[i] = cw[i];
+  if constexpr (!MAP)
+    for (int i = threadIdx.x; i < c; i += THREADS) s_cw[i] = cw[i];
   const int tlo = tb.fspan_tlo[span];
   const int ntc = tb.fspan_thi[span] - tlo + 1;
   const int oc = span * FWD_SPAN + threadIdx.x;
@@ -156,13 +170,18 @@ resize_ce_fwd(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
       float y = wl * s_t[jl + k] + wh * s_t[jh + k];
       y = fminf(fmaxf(y, -CLIP), CLIP);
       s += expf(y);
-      if (lab == k) { tl = y; wv = s_cw[k]; }
+      if (lab == k) { tl = y; wv = MAP ? 1.f : s_cw[k]; }
     }
     const float lz = logf(s);
     logz[px] = __float2bfloat16(lz);
-    acc_loss += wv * (lz - tl);
-    acc_w += wv;
+    if constexpr (MAP) {
+      loss_map[px] = wv * (lz - tl);
+    } else {
+      acc_loss += wv * (lz - tl);
+      acc_w += wv;
+    }
   }
+  if constexpr (MAP) return;
   const float sl = block_sum(acc_loss, s_red);
   const float sw = block_sum(acc_w, s_red);
   if (threadIdx.x == 0) {
@@ -172,11 +191,11 @@ resize_ce_fwd(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
   }
 }
 
-template <typename L>
+template <typename L, bool MAP>
 __global__ void __launch_bounds__(THREADS)
 resize_ce_bwd(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
               const float* __restrict__ cw, const __nv_bfloat16* __restrict__ logz,
-              const float* __restrict__ scale_ptr, Tables tb,
+              const float* __restrict__ scale_ptr, const float* __restrict__ ct, Tables tb,
               __nv_bfloat16* __restrict__ dx, int h, int w, int c, int oh, int ow, int js,
               int tmax, int ocmax) {
   extern __shared__ __align__(16) float smem[];
@@ -192,8 +211,11 @@ resize_ce_bwd(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
   const int r0 = band * BWD_ROWS, j0 = span * js;
   const int oc0 = tb.bspan_oc0[span], noc = tb.bspan_oc1[span] - oc0;
   const int tlo = tb.bspan_tlo[span], ntc = tb.bspan_thi[span] - tlo + 1;
-  const float scale = *scale_ptr;  // g / S2
-  for (int i = threadIdx.x; i < c; i += THREADS) s_cw[i] = cw[i];
+  float scale = 0.f;  // g / S2
+  if constexpr (!MAP) {
+    scale = *scale_ptr;
+    for (int i = threadIdx.x; i < c; i += THREADS) s_cw[i] = cw[i];
+  }
   for (int i = threadIdx.x; i < noc; i += THREADS) {
     s_jl[i] = tb.col_lo[oc0 + i];
     s_jh[i] = tb.col_hi[oc0 + i];
@@ -213,7 +235,8 @@ resize_ce_bwd(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
       const size_t px = (size_t(img) * oh + o) * ow + oc0 + i;
       const long long lab = static_cast<long long>(labels[px]);
       const float lz = __bfloat162float(logz[px]);
-      const float gw = (lab >= 0 && lab < c) ? s_cw[lab] * scale : 0.f;
+      float gw = 0.f;
+      if (lab >= 0 && lab < c) gw = MAP ? ct[px] : s_cw[lab] * scale;
       const float* t0 = s_t + (s_jl[i] - tlo) * c;
       const float* t1 = s_t + (s_jh[i] - tlo) * c;
       const float wl = s_wl[i], wh = s_wh[i];
@@ -268,37 +291,60 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               int(bytes));
 }
 
-template <typename L>
-int launch_fwd(const void* x, const void* labels, const void* cw, const Tables& tb,
-               void* partial, void* logz, int n, int h, int w, int c, int oh, int ow,
-               int tmax, cudaStream_t stream) {
-  const size_t smem = fwd_smem(c, tmax);
+// One argument pack for both kernels of either variant; a launch reads the
+// pointers its variant uses (K1: cw, partial, scale; K3: loss_map, ct).
+struct Args {
+  const void *x, *labels, *cw, *logz_in, *scale, *ct;
+  void *partial, *loss_map, *logz, *dx;
+  int n, h, w, c, oh, ow, js, tmax, ocmax;
+};
+
+template <typename L, bool MAP>
+int launch_fwd(const Args& a, const Tables& tb, cudaStream_t stream) {
+  const size_t smem = fwd_smem(a.c, a.tmax);
   if (smem > SMEM_LIMIT) return int(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(resize_ce_fwd<L>, smem);
+  cudaError_t err = allow_smem(resize_ce_fwd<L, MAP>, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(cdiv(ow, FWD_SPAN), cdiv(oh, FWD_ROWS), n);
-  resize_ce_fwd<L><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const L*>(labels),
-      static_cast<const float*>(cw), tb, static_cast<float*>(partial),
-      static_cast<__nv_bfloat16*>(logz), h, w, c, oh, ow, tmax);
+  const dim3 grid(cdiv(a.ow, FWD_SPAN), cdiv(a.oh, FWD_ROWS), a.n);
+  resize_ce_fwd<L, MAP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x), static_cast<const L*>(a.labels),
+      static_cast<const float*>(a.cw), tb, static_cast<float*>(a.partial),
+      static_cast<float*>(a.loss_map), static_cast<__nv_bfloat16*>(a.logz), a.h, a.w,
+      a.c, a.oh, a.ow, a.tmax);
   return int(cudaGetLastError());
 }
 
-template <typename L>
-int launch_bwd(const void* x, const void* labels, const void* cw, const void* logz,
-               const void* scale, const Tables& tb, void* dx, int n, int h, int w, int c,
-               int oh, int ow, int js, int tmax, int ocmax, cudaStream_t stream) {
-  const size_t smem = bwd_smem(c, js, tmax, ocmax);
+template <typename L, bool MAP>
+int launch_bwd(const Args& a, const Tables& tb, cudaStream_t stream) {
+  const size_t smem = bwd_smem(a.c, a.js, a.tmax, a.ocmax);
   if (smem > SMEM_LIMIT) return int(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(resize_ce_bwd<L>, smem);
+  cudaError_t err = allow_smem(resize_ce_bwd<L, MAP>, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(cdiv(w, js), cdiv(h, BWD_ROWS), n);
-  resize_ce_bwd<L><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const L*>(labels),
-      static_cast<const float*>(cw), static_cast<const __nv_bfloat16*>(logz),
-      static_cast<const float*>(scale), tb, static_cast<__nv_bfloat16*>(dx), h, w, c,
-      oh, ow, js, tmax, ocmax);
+  const dim3 grid(cdiv(a.w, a.js), cdiv(a.h, BWD_ROWS), a.n);
+  resize_ce_bwd<L, MAP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x), static_cast<const L*>(a.labels),
+      static_cast<const float*>(a.cw), static_cast<const __nv_bfloat16*>(a.logz_in),
+      static_cast<const float*>(a.scale), static_cast<const float*>(a.ct), tb,
+      static_cast<__nv_bfloat16*>(a.dx), a.h, a.w, a.c, a.oh, a.ow, a.js, a.tmax,
+      a.ocmax);
   return int(cudaGetLastError());
+}
+
+// Dispatch on the label type and the direction; `backward` picks the kernel.
+template <bool MAP>
+int run(const Args& a, int label_kind, bool backward, const void* itab, const void* ftab,
+        int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  const Tables tb = tables(static_cast<const int*>(itab), static_cast<const float*>(ftab),
+                           a.h, a.w, a.oh, a.ow, a.js);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (label_kind) {
+    case 0: return backward ? launch_bwd<uint8_t, MAP>(a, tb, s) : launch_fwd<uint8_t, MAP>(a, tb, s);
+    case 1: return backward ? launch_bwd<int32_t, MAP>(a, tb, s) : launch_fwd<int32_t, MAP>(a, tb, s);
+    case 2: return backward ? launch_bwd<int64_t, MAP>(a, tb, s) : launch_fwd<int64_t, MAP>(a, tb, s);
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -323,34 +369,44 @@ int resize_ce_forward(const void* x, const void* labels, int label_kind, const v
                       const void* itab, const void* ftab, void* partial, void* logz,
                       int n, int h, int w, int c, int oh, int ow, int js, int tmax,
                       int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  const Tables tb = tables(static_cast<const int*>(itab), static_cast<const float*>(ftab),
-                           h, w, oh, ow, js);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (label_kind) {
-    case 0: return launch_fwd<uint8_t>(x, labels, cw, tb, partial, logz, n, h, w, c, oh, ow, tmax, s);
-    case 1: return launch_fwd<int32_t>(x, labels, cw, tb, partial, logz, n, h, w, c, oh, ow, tmax, s);
-    case 2: return launch_fwd<int64_t>(x, labels, cw, tb, partial, logz, n, h, w, c, oh, ow, tmax, s);
-  }
-  return int(cudaErrorInvalidValue);
+  Args a{};
+  a.x = x; a.labels = labels; a.cw = cw; a.partial = partial; a.logz = logz;
+  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.js = js; a.tmax = tmax;
+  return run<false>(a, label_kind, false, itab, ftab, device, stream);
 }
 
 int resize_ce_backward(const void* x, const void* labels, int label_kind, const void* cw,
                        const void* logz, const void* scale, const void* itab,
                        const void* ftab, void* dx, int n, int h, int w, int c, int oh,
                        int ow, int js, int tmax, int ocmax, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  const Tables tb = tables(static_cast<const int*>(itab), static_cast<const float*>(ftab),
-                           h, w, oh, ow, js);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (label_kind) {
-    case 0: return launch_bwd<uint8_t>(x, labels, cw, logz, scale, tb, dx, n, h, w, c, oh, ow, js, tmax, ocmax, s);
-    case 1: return launch_bwd<int32_t>(x, labels, cw, logz, scale, tb, dx, n, h, w, c, oh, ow, js, tmax, ocmax, s);
-    case 2: return launch_bwd<int64_t>(x, labels, cw, logz, scale, tb, dx, n, h, w, c, oh, ow, js, tmax, ocmax, s);
-  }
-  return int(cudaErrorInvalidValue);
+  Args a{};
+  a.x = x; a.labels = labels; a.cw = cw; a.logz_in = logz; a.scale = scale; a.dx = dx;
+  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.js = js; a.tmax = tmax;
+  a.ocmax = ocmax;
+  return run<false>(a, label_kind, true, itab, ftab, device, stream);
+}
+
+// K3: the loss map (N,OH,OW) float32 and logz (N,OH,OW) bf16.
+int resize_ce_map_forward(const void* x, const void* labels, int label_kind,
+                          const void* itab, const void* ftab, void* loss_map, void* logz,
+                          int n, int h, int w, int c, int oh, int ow, int js, int tmax,
+                          int device, void* stream) {
+  Args a{};
+  a.x = x; a.labels = labels; a.loss_map = loss_map; a.logz = logz;
+  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.js = js; a.tmax = tmax;
+  return run<true>(a, label_kind, false, itab, ftab, device, stream);
+}
+
+// K3's backward: d(logits) from the cotangent map ct (N,OH,OW) float32.
+int resize_ce_map_backward(const void* x, const void* labels, int label_kind,
+                           const void* logz, const void* ct, const void* itab,
+                           const void* ftab, void* dx, int n, int h, int w, int c, int oh,
+                           int ow, int js, int tmax, int ocmax, int device, void* stream) {
+  Args a{};
+  a.x = x; a.labels = labels; a.logz_in = logz; a.ct = ct; a.dx = dx;
+  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.js = js; a.tmax = tmax;
+  a.ocmax = ocmax;
+  return run<true>(a, label_kind, true, itab, ftab, device, stream);
 }
 
 const char* resize_ce_error_string(int code) {

@@ -1,11 +1,23 @@
-"""Model zoo of the PyTorch port. Only FastSCNN is ported so far."""
+"""Model zoo of the PyTorch port: FastSCNN, UNet and DeepLabV3 so far."""
 
+from torch_semantic_segmentation_tpu_torch.models.deeplab import (
+    DeepLabV3,
+    deeplabv3_resnet18,
+    deeplabv3_resnet34,
+    deeplabv3_resnet50,
+    deeplabv3_resnet101,
+)
 from torch_semantic_segmentation_tpu_torch.models.fastscnn import (
     FastSCNN,
     fastscnn,
 )
+from torch_semantic_segmentation_tpu_torch.models.unet import UNet, unet
 
-_REGISTRY = {"fastscnn": fastscnn}
+_REGISTRY = {"fastscnn": fastscnn, "unet": unet,
+             "deeplabv3_resnet18": deeplabv3_resnet18,
+             "deeplabv3_resnet34": deeplabv3_resnet34,
+             "deeplabv3_resnet50": deeplabv3_resnet50,
+             "deeplabv3_resnet101": deeplabv3_resnet101}
 
 
 def get_model(name: str, num_classes: int = 19, **kwargs):
@@ -20,4 +32,6 @@ def available_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
-__all__ = ["FastSCNN", "fastscnn", "get_model", "available_models"]
+__all__ = ["DeepLabV3", "FastSCNN", "UNet", "available_models",
+           "deeplabv3_resnet18", "deeplabv3_resnet34", "deeplabv3_resnet50",
+           "deeplabv3_resnet101", "fastscnn", "get_model", "unet"]

@@ -3,6 +3,7 @@ package's numerics, plus the Hopper kernels that replace its Pallas ones."""
 
 from torch_semantic_segmentation_tpu_torch.ops.conv import (
     ConvBNAct,
+    ConvTranspose2d,
     SeparableConv,
     activation,
     make_conv,
@@ -11,6 +12,7 @@ from torch_semantic_segmentation_tpu_torch.ops.conv import (
 from torch_semantic_segmentation_tpu_torch.ops.pool import (
     adaptive_avg_pool2d,
     global_avg_pool,
+    max_pool2d,
 )
 from torch_semantic_segmentation_tpu_torch.ops.upsample import (
     resize_argmax,
@@ -18,13 +20,15 @@ from torch_semantic_segmentation_tpu_torch.ops.upsample import (
     resize_bilinear_nhcw,
 )
 from torch_semantic_segmentation_tpu_torch.ops.blocks import (
+    ASPP,
     InvertedResidual,
     PyramidPooling,
     SegHead,
 )
 
 __all__ = [
-    "ConvBNAct", "InvertedResidual", "PyramidPooling", "SegHead", "SeparableConv",
-    "activation", "adaptive_avg_pool2d", "global_avg_pool", "make_conv",
-    "make_norm", "resize_argmax", "resize_bilinear", "resize_bilinear_nhcw",
+    "ASPP", "ConvBNAct", "ConvTranspose2d", "InvertedResidual",
+    "PyramidPooling", "SegHead", "SeparableConv", "activation",
+    "adaptive_avg_pool2d", "global_avg_pool", "make_conv", "make_norm",
+    "max_pool2d", "resize_argmax", "resize_bilinear", "resize_bilinear_nhcw",
 ]

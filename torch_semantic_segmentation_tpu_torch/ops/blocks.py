@@ -1,4 +1,5 @@
-"""Inverted residual, pyramid pooling and segmentation-head blocks, NHWC."""
+"""Inverted residual, pyramid pooling, ASPP and segmentation-head blocks,
+NHWC."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
 from torch_semantic_segmentation_tpu_torch.ops.folded_bn import (
     folded_1x1_weights)
 from torch_semantic_segmentation_tpu_torch.ops.mbconv import fused_expand_dw
-from torch_semantic_segmentation_tpu_torch.ops.pool import adaptive_avg_pool2d
+from torch_semantic_segmentation_tpu_torch.ops.pool import (
+    adaptive_avg_pool2d, global_avg_pool)
 from torch_semantic_segmentation_tpu_torch.ops.upsample import resize_bilinear
 
 
@@ -104,6 +106,34 @@ class PyramidPooling(nn.Module):
             feats.append(resize_bilinear(y, (h, w),
                                          align_corners=self.align_corners))
         return self.fuse(torch.cat(feats, dim=-1))
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling (DeepLabV3): a 1×1 conv, 3×3 convs
+    dilated at `rates`, and the image-level branch (the global mean → 1×1
+    conv-BN-ReLU, broadcast over H and W), concatenated → 1×1 project. In
+    training mode the image-level branch's BN normalises over the N
+    values of each channel, as in the JAX package."""
+
+    def __init__(self, in_ch: int, out_ch: int = 256, *, rates=(6, 12, 18),
+                 compute_dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(compute_dtype=compute_dtype, generator=generator)
+        self.conv1 = ConvBNAct(in_ch, out_ch, 1, act="relu", **kw)
+        self.atrous = nn.ModuleList([
+            ConvBNAct(in_ch, out_ch, 3, dilation=r, act="relu", **kw)
+            for r in rates])
+        self.image_pool = ConvBNAct(in_ch, out_ch, 1, act="relu", **kw)
+        self.project = ConvBNAct(out_ch * (2 + len(rates)), out_ch, 1,
+                                 act="relu", **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, _ = x.shape
+        feats = [self.conv1(x)] + [conv(x) for conv in self.atrous]
+        gp = self.image_pool(global_avg_pool(x, keepdims=True))
+        feats.append(gp.expand(n, h, w, gp.shape[-1]))
+        return self.project(torch.cat(feats, dim=-1))
 
 
 class SegHead(nn.Module):

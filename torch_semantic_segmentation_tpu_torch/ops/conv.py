@@ -77,6 +77,37 @@ class Conv2d(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """`nn.ConvTranspose2d` on NHWC tensors with a call-time compute dtype.
+    The weight is torch's (in, out, kh, kw), the layout the JAX package's
+    `compat.export_torch_state_dict` writes; both are drawn from
+    uniform(±1/√(in·kh·kw)), as the JAX package's `ConvTranspose2d` draws
+    them. It runs on ATen/cuDNN: the JAX package left it to XLA."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, *, stride=1,
+                 padding=0, output_padding=0, use_bias: bool = True,
+                 compute_dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_ch, out_ch, _pair(kernel_size),
+                         stride=_pair(stride), padding=_pair(padding),
+                         output_padding=_pair(output_padding), bias=use_bias)
+        self.compute_dtype = compute_dtype
+        kh, kw = _pair(kernel_size)
+        bound = 1.0 / (in_ch * kh * kw) ** 0.5
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_types(x, self.weight, self.compute_dtype)
+        bias = self.bias.to(dt) if self.bias is not None else None
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
+                               bias, self.stride, self.padding,
+                               self.output_padding)
+        return y.permute(0, 2, 3, 1)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` on NHWC tensors with a call-time compute dtype and
     flax's `nnx.BatchNorm` numerics.

@@ -1,5 +1,6 @@
-"""Pooling on NHWC tensors: adaptive average pooling (the PPM bins) and
-global average pooling, both accumulated in float32."""
+"""Pooling on NHWC tensors: max pooling (UNet's encoder, the ResNet stem),
+adaptive average pooling (the PPM bins) and global average pooling, the
+averages accumulated in float32."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
@@ -19,6 +21,16 @@ def _pool_matrix(in_size: int, out_size: int) -> np.ndarray:
         hi = -(-((b + 1) * in_size) // out_size)  # ceil
         m[b, lo:hi] = 1.0 / (hi - lo)
     return m
+
+
+def max_pool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
+               padding: int = 0) -> torch.Tensor:
+    """Max pool of NHWC `x` (the JAX package's `ops/pool.max_pool2d`): a
+    square window, the stride (the window by default) and symmetric
+    padding with −inf. The gradient of a window whose maximum is tied goes
+    to its first maximum in row-major order, as in the JAX package."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride or window, padding)
+    return y.permute(0, 2, 3, 1)
 
 
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:

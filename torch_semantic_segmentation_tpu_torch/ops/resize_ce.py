@@ -17,10 +17,17 @@ bf16 low-res logits (N,h,w,C) bilinearly upsampled to the label grid
   pass rounded to bf16, the transposed H pass accumulated in float32,
   d(logits) in the logits' dtype. Class weights get no gradient.
 
-`resize_ce_forward` and `resize_ce_backward` launch the CUDA kernels
-(`csrc/resize_ce.cu`) for tensors on the card and run the plain PyTorch
-versions for tensors on the CPU. On the card the full-resolution logits
-never reach device memory.
+`per_pixel_resize_ce(logits, labels)` is the per-pixel variant (K3, the
+JAX package's `per_pixel_resize_ce`, behind OHEM): the float32 loss map
+(N,OH,OW), `logz − y_label` at a label in [0, C) and 0 elsewhere, without
+class weights. Its backward takes a float32 cotangent map `ct` in place of
+`cw[label]·g/S₂`: the per-pixel weight is `valid·ct`, which re-zeros
+ignored pixels. Everything else, the taps and the rounding points, is K1's.
+
+`resize_ce_forward`, `resize_ce_backward`, `resize_ce_map_forward` and
+`resize_ce_map_backward` launch the CUDA kernels (`csrc/resize_ce.cu`) for
+tensors on the card and run the plain PyTorch versions for tensors on the
+CPU. On the card the full-resolution logits never reach device memory.
 """
 
 from __future__ import annotations
@@ -105,12 +112,17 @@ def _upsampled(logits: torch.Tensor, oh: int, ow: int, align_corners: bool
     return _resize(t, 2, cols).clamp(-_CLIP, _CLIP)
 
 
-def _label_weights(labels: torch.Tensor, cw: torch.Tensor):
-    """(valid mask, class index with 0 where invalid, pixel weight)."""
-    c = cw.shape[0]
+def _valid_labels(labels: torch.Tensor, c: int):
+    """(valid mask: the label lies in [0, C); class index, 0 where
+    invalid)."""
     lab = labels.long()
     valid = (lab >= 0) & (lab < c)
-    safe = torch.where(valid, lab, 0)
+    return valid, torch.where(valid, lab, 0)
+
+
+def _label_weights(labels: torch.Tensor, cw: torch.Tensor):
+    """(valid mask, class index with 0 where invalid, pixel weight)."""
+    valid, safe = _valid_labels(labels, cw.shape[0])
     return valid, safe, torch.where(valid, cw.float()[safe], 0.0)
 
 
@@ -129,14 +141,41 @@ def resize_ce_reference_backward(logits, labels, cw, logz, scale,
                                  align_corners: bool = False):
     """Plain PyTorch backward: d(logits) in the logits' dtype, for
     `scale` = g / S₂ (a float32 tensor)."""
+    _, _, wv = _label_weights(labels, cw)
+    return _backward_from(logits, labels, logz, wv * scale.float().reshape(()),
+                          align_corners)
+
+
+def resize_ce_map_reference(logits, labels, align_corners: bool = False):
+    """Plain PyTorch forward of the per-pixel variant: (loss map (N,OH,OW)
+    float32, 0 where the label lies outside [0, C); logz in bf16)."""
+    oh, ow = labels.shape[1], labels.shape[2]
+    y = _upsampled(logits, oh, ow, align_corners)
+    logz = torch.log(torch.exp(y).sum(dim=-1))
+    valid, safe = _valid_labels(labels, logits.shape[-1])
+    tl = y.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    return torch.where(valid, logz - tl, 0.0), logz.to(torch.bfloat16)
+
+
+def resize_ce_map_reference_backward(logits, labels, logz, ct,
+                                     align_corners: bool = False):
+    """Plain PyTorch backward of the per-pixel variant: d(logits) in the
+    logits' dtype from the cotangent map `ct` (N,OH,OW)."""
+    valid, _ = _valid_labels(labels, logits.shape[-1])
+    return _backward_from(logits, labels, logz,
+                          torch.where(valid, ct.float(), 0.0), align_corners)
+
+
+def _backward_from(logits, labels, logz, gw, align_corners: bool):
+    """d(logits) for the per-pixel weight `gw` (N,OH,OW) float32 of the
+    cotangent `gw·(softmax(y) − onehot)`."""
     n, h, w, c = logits.shape
     oh, ow = labels.shape[1], labels.shape[2]
     y = _upsampled(logits, oh, ow, align_corners)
     p = torch.exp(y - logz.float().unsqueeze(-1))
-    valid, safe, wv = _label_weights(labels, cw)
+    valid, safe = _valid_labels(labels, c)
     onehot = F.one_hot(safe, c).float() * valid.unsqueeze(-1)
-    gw = (wv * scale.float().reshape(())).unsqueeze(-1)
-    d = (gw * (p - onehot)).to(torch.bfloat16).float()
+    d = (gw.unsqueeze(-1) * (p - onehot)).to(torch.bfloat16).float()
     dev = str(logits.device)
     dw = _resize_transposed(d, 2, _device_taps(w, ow, align_corners, dev), w)
     dw = dw.to(torch.bfloat16).float()
@@ -164,6 +203,10 @@ def _library() -> ctypes.CDLL:
         lib.resize_ce_forward.restype = i
         lib.resize_ce_backward.argtypes = [p, p, i, p, p, p, p, p, p] + [i] * 10 + [p]
         lib.resize_ce_backward.restype = i
+        lib.resize_ce_map_forward.argtypes = [p, p, i, p, p, p, p] + [i] * 9 + [p]
+        lib.resize_ce_map_forward.restype = i
+        lib.resize_ce_map_backward.argtypes = [p, p, i, p, p, p, p, p] + [i] * 10 + [p]
+        lib.resize_ce_map_backward.restype = i
         lib.resize_ce_error_string.argtypes = [i]
         lib.resize_ce_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -269,7 +312,7 @@ def _device_tables(h: int, w: int, oh: int, ow: int, c: int,
             torch.from_numpy(plan.ftab).to(device))
 
 
-def _check_cuda_inputs(logits, labels, cw):
+def _check_cuda_inputs(logits, labels, cw=None):
     if logits.dtype != torch.bfloat16:
         raise TypeError(f"resize_ce kernel takes bfloat16 logits, got "
                         f"{logits.dtype}")
@@ -284,13 +327,22 @@ def _check_cuda_inputs(logits, labels, cw):
     if labels.shape[0] != logits.shape[0]:
         raise ValueError(f"resize_ce kernel: {labels.shape[0]} label maps "
                          f"for {logits.shape[0]} logit maps")
-    if tuple(cw.shape) != (logits.shape[-1],) or cw.dtype != torch.float32:
+    if cw is not None and (tuple(cw.shape) != (logits.shape[-1],)
+                           or cw.dtype != torch.float32):
         raise ValueError(f"resize_ce kernel: class weights {tuple(cw.shape)} "
                          f"{cw.dtype}, expected ({logits.shape[-1]},) float32")
     for t in (labels, cw):
-        if t.device != logits.device:
+        if t is not None and t.device != logits.device:
             raise ValueError("resize_ce kernel: all tensors must be on "
                              f"{logits.device}, got one on {t.device}")
+
+
+def _check_map(t: torch.Tensor, shape, dtype, device, what: str):
+    if (tuple(t.shape) != shape or t.dtype != dtype
+            or not t.is_contiguous() or t.device != device):
+        raise ValueError(f"resize_ce backward: {what} must be a contiguous "
+                         f"{dtype} {shape} tensor on {device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -349,10 +401,7 @@ def resize_ce_backward(logits: torch.Tensor, labels: torch.Tensor,
     _check_cuda_inputs(logits, labels, cw)
     n, h, w, c = logits.shape
     oh, ow = labels.shape[1], labels.shape[2]
-    if (tuple(logz.shape) != (n, oh, ow) or logz.dtype != torch.bfloat16
-            or not logz.is_contiguous() or logz.device != logits.device):
-        raise ValueError("resize_ce backward: logz must be a contiguous "
-                         f"bfloat16 ({n}, {oh}, {ow}) tensor on the card")
+    _check_map(logz, (n, oh, ow), torch.bfloat16, logits.device, "logz")
     key = (h, w, oh, ow, c, bool(align_corners))
     plan = _plan(*key)
     itab, ftab = _device_tables(*key, str(logits.device))
@@ -370,6 +419,68 @@ def resize_ce_backward(logits: torch.Tensor, labels: torch.Tensor,
 
 
 resize_ce_backward.launches = 0
+
+
+def resize_ce_map_forward(logits: torch.Tensor, labels: torch.Tensor,
+                          align_corners: bool = False):
+    """(loss map, logz) of the per-pixel variant: the kernel on the card,
+    `resize_ce_map_reference` on the CPU."""
+    if logits.device.type == "cpu":
+        return resize_ce_map_reference(logits, labels, align_corners)
+    if logits.device.type != "cuda":
+        raise ValueError(f"resize_ce: no kernel for device {logits.device}")
+    _check_cuda_inputs(logits, labels)
+    n, h, w, c = logits.shape
+    oh, ow = labels.shape[1], labels.shape[2]
+    key = (h, w, oh, ow, c, bool(align_corners))
+    plan = _plan(*key)
+    itab, ftab = _device_tables(*key, str(logits.device))
+    loss_map = torch.empty((n, oh, ow), dtype=torch.float32,
+                           device=logits.device)
+    logz = torch.empty((n, oh, ow), dtype=torch.bfloat16, device=logits.device)
+    lib = _library()
+    _check(lib, lib.resize_ce_map_forward(
+        logits.data_ptr(), labels.data_ptr(), _LABEL_KINDS[labels.dtype],
+        itab.data_ptr(), ftab.data_ptr(), loss_map.data_ptr(), logz.data_ptr(),
+        n, h, w, c, oh, ow, plan.js, plan.tmax_fwd, logits.device.index or 0,
+        _stream(logits)), "map forward")
+    resize_ce_map_forward.launches += 1
+    return loss_map, logz
+
+
+resize_ce_map_forward.launches = 0
+
+
+def resize_ce_map_backward(logits: torch.Tensor, labels: torch.Tensor,
+                           logz: torch.Tensor, ct: torch.Tensor,
+                           align_corners: bool = False) -> torch.Tensor:
+    """d(logits) of the per-pixel variant from the cotangent map `ct`: the
+    kernel on the card, `resize_ce_map_reference_backward` on the CPU."""
+    if logits.device.type == "cpu":
+        return resize_ce_map_reference_backward(logits, labels, logz, ct,
+                                                align_corners)
+    if logits.device.type != "cuda":
+        raise ValueError(f"resize_ce: no kernel for device {logits.device}")
+    _check_cuda_inputs(logits, labels)
+    n, h, w, c = logits.shape
+    oh, ow = labels.shape[1], labels.shape[2]
+    _check_map(logz, (n, oh, ow), torch.bfloat16, logits.device, "logz")
+    _check_map(ct, (n, oh, ow), torch.float32, logits.device, "the cotangent")
+    key = (h, w, oh, ow, c, bool(align_corners))
+    plan = _plan(*key)
+    itab, ftab = _device_tables(*key, str(logits.device))
+    dx = torch.empty_like(logits)
+    lib = _library()
+    _check(lib, lib.resize_ce_map_backward(
+        logits.data_ptr(), labels.data_ptr(), _LABEL_KINDS[labels.dtype],
+        logz.data_ptr(), ct.data_ptr(), itab.data_ptr(), ftab.data_ptr(),
+        dx.data_ptr(), n, h, w, c, oh, ow, plan.js, plan.tmax_bwd, plan.ocmax,
+        logits.device.index or 0, _stream(logits)), "map backward")
+    resize_ce_map_backward.launches += 1
+    return dx
+
+
+resize_ce_map_backward.launches = 0
 
 
 class _ResizeCE(torch.autograd.Function):
@@ -402,3 +513,28 @@ def resize_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                                device=logits.device).detach().contiguous())
     return _ResizeCE.apply(logits.contiguous(), labels.contiguous(), cw,
                            bool(align_corners))
+
+
+class _ResizeCEMap(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, align_corners):
+        loss_map, logz = resize_ce_map_forward(logits, labels, align_corners)
+        ctx.align_corners = align_corners
+        ctx.save_for_backward(logits, labels, logz)
+        return loss_map
+
+    @staticmethod
+    def backward(ctx, ct):
+        logits, labels, logz = ctx.saved_tensors
+        dx = resize_ce_map_backward(logits, labels, logz,
+                                    ct.float().contiguous(), ctx.align_corners)
+        return dx, None, None
+
+
+def per_pixel_resize_ce(logits: torch.Tensor, labels: torch.Tensor, *,
+                        align_corners: bool = False) -> torch.Tensor:
+    """The per-pixel fused resize + CE loss map (N,OH,OW) float32, 0 where
+    the label lies outside [0, C). logits (N,h,w,C) bf16; labels (N,OH,OW)
+    uint8, int32 or int64."""
+    return _ResizeCEMap.apply(logits.contiguous(), labels.contiguous(),
+                              bool(align_corners))

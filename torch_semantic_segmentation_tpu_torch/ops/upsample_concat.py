@@ -1,0 +1,142 @@
+"""Fused ×2 bilinear upsample + skip concat (UNet's bilinear decoder), with
+its Hopper kernel.
+
+`upsample2x_concat(low, skip)` returns `concat([up2x(low), skip], -1)`:
+low (N,H,W,Cl), skip (N,2H,2W,Cs), the result (N,2H,2W,Cl+Cs) in skip's
+dtype. The upsample is align_corners=False with the edge clamped (the JAX
+package's `ops/pallas_upsample.py`, `_up2x_rows` and `_up2x_lanes`): even
+output rows are 0.25·x[i−1] + 0.75·x[i], odd ones 0.75·x[i] + 0.25·x[i+1],
+first along H, then along W, in float32, rounded once to the output type.
+
+`upsample_concat_forward` launches the CUDA kernel (`csrc/upsample_concat.cu`)
+for tensors on the card and runs the plain PyTorch version for tensors on
+the CPU; the two give the same bits. The backward is the JAX package's
+`_fused_bwd`: d(skip) is the cotangent's channel tail, d(low) the adjoint
+resize as two float32 products with the transposed interpolation matrices,
+cast to low's dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from torch_semantic_segmentation_tpu_torch.ops.upsample import _matrix
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _up2x(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """×2 along `dim` of a float32 tensor: even outputs
+    0.25·x[i−1] + 0.75·x[i], odd ones 0.75·x[i] + 0.25·x[i+1], indices
+    clamped; each product and the sum rounded on their own."""
+    n = x.shape[dim]
+    prev = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
+    nxt = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
+    even = 0.25 * prev + 0.75 * x
+    odd = 0.75 * x + 0.25 * nxt
+    y = torch.stack([even, odd], dim + 1)
+    shape = list(x.shape)
+    shape[dim] = 2 * n
+    return y.reshape(shape)
+
+
+def upsample2x_reference(low: torch.Tensor) -> torch.Tensor:
+    """The ×2 upsample of NHWC `low`, float32: the H pass, then the W pass."""
+    return _up2x(_up2x(low.float(), 1), 2)
+
+
+def upsample_concat_reference(low: torch.Tensor,
+                              skip: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch forward: concat([up2x(low), skip], -1) in skip's
+    dtype."""
+    return torch.cat([upsample2x_reference(low).to(skip.dtype), skip], dim=-1)
+
+
+def _library() -> ctypes.CDLL:
+    from torch_semantic_segmentation_tpu_torch import kernels
+
+    lib = kernels.load("upsample_concat")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.upsample2x_concat.argtypes = [p, p, p] + [i] * 7 + [p]
+        lib.upsample2x_concat.restype = i
+        lib.upsample2x_concat_error_string.argtypes = [i]
+        lib.upsample2x_concat_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check_shapes(low: torch.Tensor, skip: torch.Tensor):
+    if low.dim() != 4 or skip.dim() != 4:
+        raise ValueError("upsample_concat takes NHWC low and skip")
+    n, h, w, _ = low.shape
+    if tuple(skip.shape[:3]) != (n, 2 * h, 2 * w):
+        raise ValueError(f"upsample_concat: skip {tuple(skip.shape)} for low "
+                         f"{tuple(low.shape)}, expected (N, 2H, 2W, Cs)")
+
+
+def upsample_concat_forward(low: torch.Tensor,
+                            skip: torch.Tensor) -> torch.Tensor:
+    """The forward: the kernel on the card, `upsample_concat_reference` on
+    the CPU."""
+    _check_shapes(low, skip)
+    if low.device.type == "cpu":
+        return upsample_concat_reference(low, skip)
+    if low.device.type != "cuda":
+        raise ValueError(f"upsample_concat: no kernel for device {low.device}")
+    if skip.device != low.device:
+        raise ValueError(f"upsample_concat kernel: all tensors must be on "
+                         f"{low.device}, got skip on {skip.device}")
+    if low.dtype not in _DTYPES or skip.dtype != low.dtype:
+        raise TypeError(f"upsample_concat kernel takes bfloat16 or float32 "
+                        f"low and skip of one dtype, got {low.dtype} and "
+                        f"{skip.dtype}")
+    if not (low.is_contiguous() and skip.is_contiguous()):
+        raise ValueError("upsample_concat kernel takes contiguous tensors")
+    n, h, w, cl = low.shape
+    cs = skip.shape[-1]
+    out = torch.empty((n, 2 * h, 2 * w, cl + cs), dtype=skip.dtype,
+                      device=low.device)
+    lib = _library()
+    err = lib.upsample2x_concat(
+        low.data_ptr(), skip.data_ptr(), out.data_ptr(), _DTYPES[low.dtype],
+        n, h, w, cl, cs, low.device.index or 0,
+        torch.cuda.current_stream(low.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("upsample_concat kernel launch failed: "
+                           + lib.upsample2x_concat_error_string(err).decode())
+    upsample_concat_forward.launches += 1
+    return out
+
+
+upsample_concat_forward.launches = 0
+
+
+def upsample2x_adjoint(g: torch.Tensor) -> torch.Tensor:
+    """The transpose of the ×2 upsample: (N,2H,2W,C) → (N,H,W,C) in
+    float32, as two products with the transposed interpolation matrices."""
+    n, oh, ow, c = g.shape
+    wh = _matrix(oh // 2, oh, False, g, torch.float32)       # (2H, H)
+    ww = _matrix(ow // 2, ow, False, g, torch.float32)       # (2W, W)
+    d = torch.einsum("nhwc,ho->nowc", g.float(), wh)
+    return torch.einsum("nhwc,wo->nhoc", d, ww)
+
+
+class _UpsampleConcat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, low, skip):
+        ctx.c_low, ctx.low_dtype = low.shape[-1], low.dtype
+        return upsample_concat_forward(low, skip)
+
+    @staticmethod
+    def backward(ctx, g):
+        cl = ctx.c_low
+        return upsample2x_adjoint(g[..., :cl]).to(ctx.low_dtype), g[..., cl:]
+
+
+def upsample2x_concat(low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """concat([up2x(low), skip], -1): low (N,H,W,Cl), skip (N,2H,2W,Cs);
+    returns (N,2H,2W,Cl+Cs) in skip's dtype."""
+    return _UpsampleConcat.apply(low.contiguous(), skip.contiguous())
