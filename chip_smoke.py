@@ -97,9 +97,13 @@ K2_PATH = ((8, 128, 256, 64, 384, 2, 1), (8, 64, 128, 64, 384, 1, 2),
            (8, 64, 128, 64, 384, 2, 1), (8, 32, 64, 96, 576, 1, 3),
            (8, 32, 64, 128, 768, 1, 2))
 # ragged (n, h, w, cin, ce, stride): odd W at stride 1, Ce off the 64-wide
-# chunk, odd H and W at stride 2
+# chunk, odd H and W at stride 2; then shapes whose backward splits Ce over
+# groups of chunks (few tiles): Cin 128 and 96, the last chunk ragged at Ce
+# 392, Ce off the 8-channel groups at 70 (the plain-load paths)
 K2_RAGGED = ((2, 9, 19, 16, 96, 1), (1, 8, 12, 24, 72, 2),
-             (2, 7, 13, 12, 40, 2))
+             (2, 7, 13, 12, 40, 2), (2, 8, 16, 128, 768, 1),
+             (1, 9, 17, 96, 576, 2), (2, 32, 64, 64, 392, 1),
+             (1, 5, 9, 20, 70, 2))
 # K6 on the training path, the LDS's stride-2 depthwise convs at b8:
 # (name, n, h, w, c, stride)
 K6_PATH = (("ds1", 8, 512, 1024, 32, 2), ("ds2", 8, 256, 512, 48, 2))
@@ -485,8 +489,10 @@ def check_mbconv() -> dict:
         # the same backward on cuDNN's heuristics, as earlier runs timed it
         t["lib_bwd_heuristic"] = cuda_ms(lambda: torch.autograd.grad(
             out, (xc, w1, b1, kd), gl, retain_graph=True), reps=5)
-        print(f"mbconv path ({n},{h},{w},{cin})x{ce} s{s}: " + " ".join(
-            f"{key} {v:.4f}" for key, v in t.items()), flush=True)
+        groups = mbconv._library().mbconv_bwd_groups(n, h, w, cin, ce, s, 0)
+        print(f"mbconv path ({n},{h},{w},{cin})x{ce} s{s}: backward over "
+              f"{groups} groups of chunks; " + " ".join(
+                  f"{key} {v:.4f}" for key, v in t.items()), flush=True)
         for key in tot:
             tot[key] += count * t[key]
         pin = n * h * w

@@ -125,6 +125,39 @@ def test_mbconv_kernels_match_plain_version(cuda, n, h, w, cin, ce, stride):
         _bf16_close(a, r)
 
 
+# (n, h, w, cin, ce, stride) whose backward splits Ce over groups of chunks
+# (few tiles): Cin 128 and 96, the last chunk ragged at Ce 392, Ce off the
+# 8-channel groups at 70 (the plain-load paths)
+MBCONV_SPLIT_CASES = [(2, 8, 16, 128, 768, 1), (1, 9, 17, 96, 576, 2),
+                      (2, 32, 64, 64, 392, 1), (1, 5, 9, 20, 70, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,ce,stride", MBCONV_SPLIT_CASES)
+def test_mbconv_backward_split_over_chunk_groups(cuda, n, h, w, cin, ce,
+                                                 stride):
+    """Each output at relative L2 2^-7 of the plain version, as
+    `chip_smoke.py` holds the backward (the ReLU mask is recomputed on each
+    side, so an element whose pre-activation rounds to 0 may differ by all
+    of its de)."""
+    groups = mbconv._library().mbconv_bwd_groups(n, h, w, cin, ce, stride,
+                                                 cuda.index or 0)
+    assert 1 < groups <= (ce + 63) // 64
+    x, wt, b, k = _mbconv_inputs(5, n, h, w, cin, ce, cuda)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    g = torch.randn((n, ho, wo, ce), generator=torch.Generator(
+        cuda).manual_seed(1), device=cuda).to(torch.bfloat16)
+    got = mbconv.expand_dw_backward(x, wt, b, k, g, stride)
+    ref = mbconv.expand_dw_reference_backward(x, wt, b, k, g, stride)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16
+    for name, a, r in zip(("dx", "dW", "db", "dk"), got, ref):
+        assert a.shape == r.shape, name
+        rel = float((a.float() - r.float()).norm()
+                    / r.float().norm().clamp_min(1e-30))
+        assert rel <= 2.0 ** -7, (name, rel)
+
+
 @pytest.mark.cuda
 def test_mbconv_autograd_and_wrapper_checks(cuda):
     x, wt, b, k = _mbconv_inputs(4, 1, 6, 10, 16, 64, cuda)

@@ -17,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_semantic_segmentation_tpu import losses as jlosses
 from torch_semantic_segmentation_tpu.losses import (
     resize_cross_entropy_loss as j_resize_ce_loss)
 from torch_semantic_segmentation_tpu.ops import pallas_resize_ce as prce
+from torch_semantic_segmentation_tpu_torch import losses as tlosses
 from torch_semantic_segmentation_tpu_torch.losses import (
     cross_entropy_loss, resize_cross_entropy_loss)
 from torch_semantic_segmentation_tpu_torch.ops import resize_ce
@@ -162,3 +164,75 @@ def test_cross_entropy_matches_torch():
         lt.permute(0, 3, 1, 2), lab, weight=torch.from_numpy(cw),
         ignore_index=255)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("label", [5, 7])
+@pytest.mark.parametrize("weights", [False, True])
+@pytest.mark.parametrize("route", ["ce", "ohem", "resize_xla", "k1_plain"])
+def test_labels_from_c_to_ignore_index(route, weights, label):
+    """A label in [C, ignore_index) with C = 5 (4 for K1's case), float32.
+    The plain paths follow the JAX package's one-hot rule: true logit 0,
+    weight 1, or 0 under class weights (`cross_entropy_loss` 1.97992 on
+    1x4x4 logits from seed 0 with one such label), at 1e-6 relative, and
+    the float32 resize branch its XLA route at `test_float32_branch_
+    matches_jax`'s 1e-5. K1's plain version keeps the Pallas rule, weight
+    0: its value equals that with those pixels ignored, and the
+    interpret-mode kernel's at `_assert_close`'s bars."""
+    rng = np.random.default_rng(0)
+    cw = rng.uniform(0.5, 2.0, (5,)).astype(np.float32) if weights else None
+    jcw = None if cw is None else jnp.asarray(cw)
+    tcw = None if cw is None else torch.from_numpy(cw)
+    if route in ("ce", "ohem"):
+        gen = np.random.default_rng(0)
+        logits = gen.normal(size=(1, 4, 4, 5)).astype(np.float32)
+        labels = gen.integers(0, 5, (1, 4, 4)).astype(np.int32)
+        labels[0, 0, 0] = label
+        if route == "ce" and not weights and label == 5:
+            np.testing.assert_allclose(float(tlosses.cross_entropy_loss(
+                torch.from_numpy(logits), torch.from_numpy(labels))),
+                1.97992, rtol=1e-5)
+        labels[0, 3, 3] = 255
+        lj, yj = jnp.asarray(logits), jnp.asarray(labels)
+        lt, yt = torch.from_numpy(logits), torch.from_numpy(labels)
+        if route == "ce":
+            want = float(jlosses.cross_entropy_loss(lj, yj, class_weights=jcw))
+            got = float(tlosses.cross_entropy_loss(lt, yt, class_weights=tcw))
+        else:
+            kw = dict(thresh=0.7, min_kept=4)
+            want = float(jlosses.ohem_cross_entropy(lj, yj, class_weights=jcw,
+                                                    **kw))
+            got = float(tlosses.ohem_cross_entropy(lt, yt, class_weights=tcw,
+                                                   **kw))
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+    elif route == "resize_xla":
+        logits = (rng.normal(size=(2, 2, 2, 5)) * 2.0).astype(np.float32)
+        labels = rng.integers(0, 5, (2, 16, 16)).astype(np.int32)
+        labels[0, :3, :3] = label
+        labels[1, 5, :4] = 255
+        fn = lambda lg: j_resize_ce_loss(  # noqa: E731
+            lg, jnp.asarray(labels), class_weights=jcw)
+        wv, wd = jax.value_and_grad(fn)(jnp.asarray(logits))
+        lt = torch.from_numpy(logits).requires_grad_(True)
+        val = resize_cross_entropy_loss(lt, torch.from_numpy(labels),
+                                        class_weights=tcw)
+        val.backward()
+        np.testing.assert_allclose(float(val.detach()), float(wv), rtol=1e-5)
+        np.testing.assert_allclose(lt.grad.numpy(), np.asarray(wd), rtol=1e-5,
+                                   atol=1e-5 * np.abs(np.asarray(wd)).max())
+    else:
+        lshape, yshape = CASES[2]
+        logits, labels, cw4 = _data(lshape, yshape, weights=weights)
+        labels[:, 10:12, 7:40] = label
+        fn = lambda lg, lab, w: resize_cross_entropy_loss(  # noqa: E731
+            lg, lab, class_weights=w)
+        got = _port(logits, labels, cw4, fn)
+        ignored = labels.copy()
+        ignored[:, 10:12, 7:40] = 255
+        as_ignored = _port(logits, ignored, cw4, fn)
+        assert got[0] == as_ignored[0]
+        np.testing.assert_array_equal(got[1], as_ignored[1])
+        want = _jax(logits, labels, cw4, False,
+                    lambda lg: prce.resize_cross_entropy(
+                        lg, jnp.asarray(labels), None if cw4 is None
+                        else jnp.asarray(cw4), interpret=True))
+        _assert_close(got, want)

@@ -29,14 +29,25 @@ from torch_semantic_segmentation_tpu_torch.ops.upsample import (
     resize_bilinear_nhcw)
 
 
+def _one_hot_pick(values: torch.Tensor, labels: torch.Tensor,
+                  valid: torch.Tensor, dim: int) -> torch.Tensor:
+    """`values` picked at each valid pixel's label along `dim` (`labels`
+    has `values`' shape without `dim`), as the JAX package's one-hot
+    product picks it: 0 where the label lies outside [0, C), which no
+    class matches. So a label in [C, ignore_index) counts with true logit
+    0, and with weight 0 under class weights, where a gather would raise."""
+    inside = valid & (labels >= 0) & (labels < values.shape[dim])
+    safe = torch.where(inside, labels, 0).long().unsqueeze(dim)
+    return torch.where(inside, values.gather(dim, safe).squeeze(dim), 0.0)
+
+
 def _per_pixel_ce(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_index: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel CE in float32 and the validity mask; logits (..., C)."""
     logits = logits.float()
     valid = labels != ignore_index
-    safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    true_logit = logits.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    true_logit = _one_hot_pick(logits, labels, valid, -1)
     return torch.where(valid, logz - true_logit, 0.0), valid
 
 
@@ -47,8 +58,7 @@ def _pixel_weights(labels: torch.Tensor, valid: torch.Tensor,
         return valid.float()
     cw = torch.as_tensor(class_weights, dtype=torch.float32,
                          device=labels.device)
-    safe = torch.where(valid, labels, 0).long()
-    return torch.where(valid, cw[safe], 0.0)
+    return _one_hot_pick(cw.expand(*labels.shape, -1), labels, valid, -1)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -87,9 +97,8 @@ def resize_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
                              out_dtype=logits.dtype)       # (N, OH, C, OW)
     xf = x.float()
     valid = labels != ignore_index
-    safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(xf, dim=2)
-    true_logit = xf.gather(2, safe.unsqueeze(2)).squeeze(2)
+    true_logit = _one_hot_pick(xf, labels, valid, 2)
     loss = torch.where(valid, logz - true_logit, 0.0)
     wts = _pixel_weights(labels, valid, class_weights)
     return (loss * wts).sum() / torch.clamp(wts.sum(), min=1e-12)
@@ -189,9 +198,8 @@ def resize_ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
         x = resize_bilinear_nhcw(logits, (oh, ow), align_corners=align_corners,
                                  out_dtype=logits.dtype)   # (N, OH, C, OW)
         xf = x.float()
-        safe = torch.where(valid, labels, 0).long()
         logz = torch.logsumexp(xf, dim=2)
-        true_logit = xf.gather(2, safe.unsqueeze(2)).squeeze(2)
+        true_logit = _one_hot_pick(xf, labels, valid, 2)
         loss = torch.where(valid, logz - true_logit, 0.0)
     flat, vflat = loss.reshape(-1), valid.reshape(-1)
     keep = _ohem_keep(flat, vflat, thresh, min_kept, None)

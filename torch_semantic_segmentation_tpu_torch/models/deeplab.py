@@ -53,6 +53,15 @@ class DeepLabV3(nn.Module):
                                     aspp_channels // 2, num_classes,
                                     dropout_generator=dropout_generator, **kw)
 
+    def remat_segments(self) -> list[nn.Module]:
+        """The modules a rematerialised train step checkpoints one by one
+        (`train.make_train_step(remat=True)`): the backbone's stem and
+        four stages, the ASPP, the classifier and the aux head."""
+        b = self.backbone
+        heads = [self.aux_head] if self.aux else []
+        return [b.stem, b.stage1, b.stage2, b.stage3, b.stage4, self.aspp,
+                self.classifier, *heads]
+
     def forward(self, x: torch.Tensor):
         h, w = x.shape[1], x.shape[2]
         _, _, c3, c4 = self.backbone(x)

@@ -105,7 +105,7 @@ class ResNet(nn.Module):
                 blocks.append(block(in_c, ch, stride=st if bi == 0 else 1,
                                     dilation=dl * mg, **kw))
                 in_c = ch * block.expansion
-            stages.append(nn.ModuleList(blocks))
+            stages.append(nn.Sequential(*blocks))
         self.stage1, self.stage2, self.stage3, self.stage4 = stages
         self.out_channels = in_c
         self.stage_channels = tuple(c * block.expansion for c in chans)
@@ -115,7 +115,6 @@ class ResNet(nn.Module):
         x = max_pool2d(self.stem(x), 3, stride=2, padding=1)
         feats = []
         for stage in (self.stage1, self.stage2, self.stage3, self.stage4):
-            for blk in stage:
-                x = blk(x)
+            x = stage(x)
             feats.append(x)
         return tuple(feats)

@@ -104,6 +104,13 @@ class UNet(nn.Module):
         self.up1 = UpBlock(2 * b, b, b, **up)
         self.head = make_conv(b, num_classes, 1, use_bias=True, **kw)
 
+    def remat_segments(self) -> list[nn.Module]:
+        """The modules a rematerialised train step checkpoints one by one
+        (`train.make_train_step(remat=True)`): the four encoder
+        DoubleConvs, the bottom one, the four UpBlocks and the head."""
+        return [self.enc1, self.enc2, self.enc3, self.enc4, self.bottom,
+                self.up4, self.up3, self.up2, self.up1, self.head]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]
         if h % 16 or w % 16:

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 
-_MAX_CIN = 128   # the backward holds dx for Cin/16 column tiles a warp
+_MAX_CIN = 128   # the backward holds dx for up to 8 column tiles a warp
 _suppressed = 0  # depth of open `suppress_routing` blocks
 
 
@@ -121,9 +121,11 @@ def _library() -> ctypes.CDLL:
         p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         lib.mbconv_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.mbconv_forward.restype = i
-        lib.mbconv_backward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                        i, i, i, p]
+        lib.mbconv_backward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                        i, i, i, i, i, p]
         lib.mbconv_backward.restype = i
+        lib.mbconv_bwd_groups.argtypes = [i, i, i, i, i, i, i]
+        lib.mbconv_bwd_groups.restype = i
         for name in ("mbconv_fwd_smem", "mbconv_bwd_smem"):
             getattr(lib, name).argtypes = [i, i]
             getattr(lib, name).restype = z
@@ -199,9 +201,10 @@ expand_dw_forward.launches = 0
 
 
 def expand_dw_backward(x, w, b, k, g, stride: int):
-    """The backward: (dx, dW′, db′, dk) from the cotangent g; one kernel
-    launch on the card (dW′, db′ and dk summed with float32 atomics), the
-    plain version on the CPU."""
+    """The backward: (dx, dW′, db′, dk) from the cotangent g; the kernel on
+    the card (dW′, db′ and dk summed with float32 atomics; where Ce is split
+    over groups of chunks, a float32 scratch of the groups' partials of dx
+    that a second kernel sums in order), the plain version on the CPU."""
     if x.device.type == "cpu":
         return expand_dw_reference_backward(x, w, b, k, g, stride)
     if x.device.type != "cuda":
@@ -219,16 +222,23 @@ def expand_dw_backward(x, w, b, k, g, stride: int):
     bf = b.float().contiguous()
     kf = k.float().contiguous()
     _check_smem(lib, lib.mbconv_bwd_smem(c_in, stride), "backward")
+    dev = x.device.index or 0
+    groups = lib.mbconv_bwd_groups(n, h, wd, c_in, ce, stride, dev)
+    if groups < 1:
+        raise RuntimeError("mbconv backward: no launch configuration for "
+                           f"{tuple(x.shape)}x{ce} at stride {stride}")
     dx = torch.empty_like(x)
+    part = (torch.empty((groups, n, h, wd, c_in), dtype=torch.float32,
+                        device=x.device) if groups > 1 else None)
     zeros = dict(dtype=torch.float32, device=x.device)
     dw_ = torch.zeros((c_in, ce), **zeros)
     db = torch.zeros((ce,), **zeros)
     dk = torch.zeros((3, 3, ce), **zeros)
     _check(lib, lib.mbconv_backward(
         x.data_ptr(), wb.data_ptr(), bf.data_ptr(), kf.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), dw_.data_ptr(), db.data_ptr(),
-        dk.data_ptr(), n, h, wd, c_in, ce, stride, x.device.index or 0,
-        _stream(x)), "backward")
+        g.data_ptr(), dx.data_ptr(), None if part is None else part.data_ptr(),
+        dw_.data_ptr(), db.data_ptr(), dk.data_ptr(), n, h, wd, c_in, ce,
+        stride, groups, dev, _stream(x)), "backward")
     expand_dw_backward.launches += 1
     return dx, dw_, db, dk
 

@@ -141,8 +141,10 @@ def _checkpointed(model: nn.Module):
     in its forward and its recompute. A segment keeps its inputs for the
     backward and no activation inside it; the backward recomputes one
     segment at a time, so only that segment's activations are held at
-    once."""
-    segments = model.remat_segments()
+    once. A model without `remat_segments` is one segment, as the JAX
+    package's `nnx.remat` wraps any model's whole forward."""
+    segments = (model.remat_segments() if hasattr(model, "remat_segments")
+                else [model])
     for seg in segments:
         def run(*args, _forward=seg.forward):
             with mbconv.suppress_routing():
@@ -180,7 +182,9 @@ def make_train_step(model: nn.Module, state: TrainState,
     `remat=True` keeps only the inputs of the model's segments for the
     backward, which runs each segment's forward again (`_checkpointed`;
     FastSCNN's segments are its LDS convs, GFE blocks, PPM, FFM and
-    classifier). As in the JAX package, the fused expand → depthwise op
+    classifier, UNet's its DoubleConvs, UpBlocks and head, DeepLabV3's its
+    backbone's stem and stages, ASPP and heads; any other model is one
+    segment). As in the JAX package, the fused expand → depthwise op
     (K2) is off inside them (`mbconv.suppress_routing`): its saving of the
     expanded tensor is moot there. The running statistics move once a
     step and the recompute sees the forward's dropout masks
