@@ -697,7 +697,7 @@ def depthwise_inputs(n, h, w, c, stride, dtype, seed):
 def check_depthwise() -> dict:
     """K6 forward and backward against the plain version at the LDS's two
     convs, GFE stage1[0]'s, a stride-1 case and ragged shapes, float32 and
-    bf16; per-step times at the path's dtype, bf16: each LDS conv's time,
+    bf16 (y bit for bit); per-step times at the path's dtype, bf16: each LDS conv's time,
     summed over the two."""
     import torch
     import torch.nn.functional as F
@@ -715,7 +715,9 @@ def check_depthwise() -> dict:
         for nm, a, r in (("y", y, want), ("dx", dx, rdx)):
             e = (a.float() - r.float()).abs()
             sc = float(r.float().abs().max())
-            if dtype == torch.float32:
+            if nm == "y":
+                ok = ok and a.shape == r.shape and bool(torch.equal(a, r))
+            elif dtype == torch.float32:
                 ok = ok and bool((e <= 1e-4 + 1e-4 * r.abs()).all())
             else:
                 ok = ok and float(e.max()) <= BF16_TOL * sc
@@ -726,9 +728,9 @@ def check_depthwise() -> dict:
         tol = "rtol=atol=1e-4" if dtype == torch.float32 else \
             f"{BF16_TOL:g}*scale"
         print(f"depthwise {name} ({n},{h},{w},{c}) s{s} {dtype}: y err "
-              f"{errs[0]:.3g}, dx err {errs[1]:.3g} (tol {tol}); dk rel L2 "
-              f"{dk_rel:.3g} (tol 1e-5), same bits in two launches {same}",
-              flush=True)
+              f"{errs[0]:.3g} (the same bits as the plain version), dx err "
+              f"{errs[1]:.3g} (tol {tol}); dk rel L2 {dk_rel:.3g} (tol "
+              f"1e-5), same bits in two launches {same}", flush=True)
         if not ok or not dk_rel <= 1e-5 or not same:
             fail(f"depthwise {name} {dtype} disagrees with its plain version "
                  "or dk is not deterministic")

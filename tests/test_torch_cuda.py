@@ -158,6 +158,30 @@ def test_mbconv_backward_split_over_chunk_groups(cuda, n, h, w, cin, ce,
         assert rel <= 2.0 ** -7, (name, rel)
 
 
+# (n, h, w, cin, ce, stride) whose forward splits Ce over groups of chunks
+# (few tiles): the two 32x64 path shapes at batch 1-2 (Ce 576 and 768), a
+# ragged last group (Ce 392; Ce 70 off the 8-channel groups, the plain-load
+# paths), stride 2 with odd H and W
+MBCONV_FWD_SPLIT_CASES = [(2, 32, 64, 96, 576, 1), (1, 32, 64, 128, 768, 1),
+                          (2, 32, 64, 64, 392, 1), (1, 5, 9, 20, 70, 2),
+                          (1, 9, 17, 96, 576, 2), (2, 7, 13, 64, 392, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,ce,stride", MBCONV_FWD_SPLIT_CASES)
+def test_mbconv_forward_split_over_chunk_groups(cuda, n, h, w, cin, ce,
+                                                stride):
+    """y within two bf16 steps of its scale, as `chip_smoke.py` holds it."""
+    x, wt, b, k = _mbconv_inputs(6, n, h, w, cin, ce, cuda)
+    f0 = mbconv.expand_dw_forward.launches
+    y = mbconv.expand_dw_forward(x, wt, b, k, stride)
+    assert mbconv.expand_dw_forward.launches == f0 + 1
+    want = mbconv.expand_dw_reference(x, wt, b, k, stride)
+    torch.cuda.synchronize()
+    assert y.shape == want.shape and y.dtype == torch.bfloat16
+    _bf16_close(y, want)
+
+
 @pytest.mark.cuda
 def test_mbconv_autograd_and_wrapper_checks(cuda):
     x, wt, b, k = _mbconv_inputs(4, 1, 6, 10, 16, 64, cuda)
@@ -242,10 +266,12 @@ def test_resize_ce_all_ignored_and_wrapper_checks(cuda):
 
 # (n, h, w, c, stride): the LDS convs ds1 and ds2 at batch 8 full
 # resolution, the stride-1 case at the GFE's width; odd H and W, C of 3, 20
-# and 384 (off the 8-channel groups, and GFE stage1[0]'s width)
+# and 384 (off the 8-channel groups, and GFE stage1[0]'s width); C of 1200
+# and 2048, whose forward tiles fit one buffer of shared memory, not two
 DEPTHWISE_CASES = [(8, 512, 1024, 32, 2), (8, 256, 512, 48, 2),
                    (8, 128, 256, 128, 1), (2, 9, 13, 3, 2), (1, 7, 11, 20, 2),
-                   (2, 9, 13, 20, 1), (2, 6, 10, 384, 2), (1, 5, 9, 384, 1)]
+                   (2, 9, 13, 20, 1), (2, 6, 10, 384, 2), (1, 5, 9, 384, 1),
+                   (1, 6, 7, 1200, 1), (1, 5, 9, 2048, 2)]
 
 
 def _depthwise_inputs(seed, n, h, w, c, stride, device):
@@ -266,9 +292,11 @@ def _rel_l2(a, b):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_depthwise_kernels_match_plain_version(cuda, n, h, w, c, stride,
                                                dtype):
-    """Forward and dx within 1e-4 (float32) or two bf16 steps of their
-    scale; dk at a relative L2 error of 1e-5 and the same bit for bit from
-    launch to launch."""
+    """The forward equal to the plain version bit for bit, and so the
+    stride-1 dx, which is the forward's kernel with the taps flipped; the
+    stride-2 dx within 1e-4 (float32) or two bf16 steps of its scale; dk at
+    a relative L2 error of 1e-5 and the same bit for bit from launch to
+    launch."""
     dtype = getattr(torch, dtype)
     x, k, dy = _depthwise_inputs(8, n, h, w, c, stride, cuda)
     x, dy = x.to(dtype), dy.to(dtype)
@@ -283,12 +311,14 @@ def test_depthwise_kernels_match_plain_version(cuda, n, h, w, c, stride,
     rdx, rdk = depthwise.depthwise3x3_reference_backward(x, k, dy, stride)
     torch.cuda.synchronize()
     assert y.dtype == dtype and dx.dtype == dtype and dk.dtype == torch.float32
-    for got, ref in ((y, want), (dx, rdx)):
-        assert got.shape == ref.shape
-        if dtype == torch.float32:
-            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
-        else:
-            _bf16_close(got, ref)
+    assert y.shape == want.shape and torch.equal(y, want)
+    assert dx.shape == rdx.shape
+    if stride == 1:
+        assert torch.equal(dx, rdx)
+    elif dtype == torch.float32:
+        torch.testing.assert_close(dx, rdx, rtol=1e-4, atol=1e-4)
+    else:
+        _bf16_close(dx, rdx)
     assert _rel_l2(dk, rdk) <= 1e-5
     assert torch.equal(dk, dk2)
 

@@ -134,6 +134,49 @@ def test_plain_backward_is_the_transpose_of_the_forward():
     assert abs(lhs - float((dk.double() * k).sum())) < 1e-5
 
 
+def _bf16_round(a):
+    """float32 → the nearest bf16 (ties to even), as float32: the bits of
+    the output cast, written out in numpy."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+# (C, stride): the LDS's widths, GFE stage1[0]'s and a ragged one
+PINNED_CASES = [(c, s) for c in (32, 48, 384, 20) for s in (1, 2)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("c,stride", PINNED_CASES)
+def test_plain_forward_is_the_kernels_sum_bit_for_bit(c, stride, dtype):
+    """`depthwise3x3_reference` against a numpy float32 loop in the Hopper
+    kernel's order: taps row outer, column inner, each product and each sum
+    rounded to float32 on its own (no fused multiply-add), the zero padding's
+    products included, one rounding to x's type at the end. The card's test
+    holds the kernel to the plain version with `torch.equal`; this pins the
+    plain version to that order."""
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(c + stride)
+    xt = torch.from_numpy(rng.normal(size=(2, 9, 11, c)).astype(
+        np.float32)).to(dtype)
+    k = rng.normal(size=(3, 3, c)).astype(np.float32) * 0.5
+    got = depthwise.depthwise3x3_reference(xt, torch.from_numpy(k), stride)
+    x = xt.float().numpy()
+    ho, wo = (9 - 1) // stride + 1, (11 - 1) // stride + 1
+    xp = np.zeros((2, 11, 13, c), np.float32)
+    xp[:, 1:10, 1:12] = x
+    acc = np.zeros((2, ho, wo, c), np.float32)
+    for dh in range(3):
+        for dw in range(3):
+            win = xp[:, dh:dh + stride * (ho - 1) + 1:stride,
+                     dw:dw + stride * (wo - 1) + 1:stride]
+            prod = np.multiply(win, k[dh, dw], dtype=np.float32)
+            acc = np.add(acc, prod, dtype=np.float32)
+    want = _bf16_round(acc) if dtype == torch.bfloat16 else acc
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 def test_learning_to_downsample_train_bf16_matches_routed_jax(monkeypatch):
     monkeypatch.setenv("TPU_SEG_PALLAS_DW_MIN_PX", "0")
     monkeypatch.setenv("FASTSCNN_PACKED_LDS", "0")

@@ -27,12 +27,36 @@
 // products (7 us on the bf16 tensor cores). The design keeps e, the largest
 // activation of the network, out of device memory in both directions.
 //
-// Forward: one block of 256 threads per output tile (8 rows by 16 columns at
-// stride 1, 8 by 8 at stride 2). The block stages the input region the tile
-// reads (with its one-pixel halo, zero outside the image) once, then walks over
-// chunks of 64 expanded channels: W' chunk to shared memory, e chunk by warp
-// mma (16x16x16) into shared memory as bf16 (zero outside the image), then the
-// nine taps per (output pixel, channel) and the store.
+// Forward: the nine GFE blocks of a step move 0.35 GB (0.104 ms at 3.35 TB/s)
+// and do 34 GFLOP of expand products (35 us at the dense bf16 rate) and 1.2
+// billion taps on the CUDA cores; no unit alone bounds it, so the design keeps
+// all three streams busy side by side:
+// - templates on Cin's 16-wide tiles and the stride (Fwd<KT, S>): tile, region
+//   and tap indices are compile-time. An output tile of 8 x 16 at stride 1
+//   (its e region of 10 x 18 recomputes 1.5x the expand products; a 16 x 16
+//   tile recomputes less but spills registers and was slower), 8 x 8 at
+//   stride 2;
+// - Ce split over blockIdx.y groups of 64-channel chunks where the tiles alone
+//   fill less than two waves of the card (the GFE's 64x128 and 32x64 blocks);
+//   the groups' outputs are disjoint, so nothing is reduced;
+// - two blocks of 256 threads an SM (at most 128 registers, at most 103,424
+//   bytes of shared memory at the GFE's shapes; stride 2 above Cin 64 holds
+//   one); x's region by cp.async once a block, W', the taps and the bias of
+//   the next chunk by cp.async under this chunk's tap pass (taps and bias
+//   double-buffered); two barriers a chunk;
+// - the expand by mma.sync.m16n8k16 with ldmatrix (their fragment layouts are
+//   documented): a warp keeps 32 columns of the chunk, their W' fragments
+//   and bias in registers, and walks row tiles, the next k step's x fragment
+//   loading under this one's products; bias, ReLU, the image mask and the bf16 rounding on
+//   the accumulator registers, e written to shared memory as bf16x2. wgmma's
+//   higher rate would buy little: the expand products are a third of the
+//   bytes bound at the dense rate, and with the products compiled out the
+//   kernel takes the same time (`scripts/torch_fwd_probe.py --variants
+//   k2_no_products,k2_no_taps`): the tap pass sets it;
+// - the tap pass: a thread takes 8 channels and a run of 4 (stride 1) or 2
+//   (stride 2) outputs of a tile row; it reads each e pixel of the run's
+//   window once, 16 bytes at a time, adds it to every output of the run that
+//   reads it, and writes y 16 bytes at a time.
 //
 // Backward: what bounds it is neither bytes (x, g, dx and the sums: 0.13 ms
 // at 3.35 TB/s for the nine GFE blocks of a step) nor the three products
@@ -82,44 +106,11 @@ constexpr int WARPS = THREADS / 32;
 constexpr int CH = 64;                 // expanded channels per chunk
 constexpr int LDC = CH + 8;            // row stride of the bf16 chunk tiles
 constexpr int CT = CH / 16;            // mma column tiles per chunk
-constexpr int GROUPS = THREADS / CH;   // pixel groups of the forward's tap pass
 constexpr int MAX_CIN = 128;           // the backward holds dx for up to 8 column tiles
 constexpr size_t SMEM_LIMIT = 232448;  // 227 KB, Hopper's per-block maximum
 
-static_assert(THREADS % CH == 0, "threads must split over the chunk's channels");
-
-__host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
-__host__ __device__ inline size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-// Output tile of the forward, by stride.
-__host__ __device__ inline int fwd_th(int) { return 8; }
-__host__ __device__ inline int fwd_tw(int s) { return s == 1 ? 16 : 8; }
-__host__ __device__ inline int fwd_rh(int s) { return s * (fwd_th(s) - 1) + 3; }
-__host__ __device__ inline int fwd_rw(int s) { return s * (fwd_tw(s) - 1) + 3; }
-
-struct FwdLayout {
-  int kpad, ldx, pin, pin_pad;
-  size_t x, w, e, stage, kb, total;
-};
-
-__host__ __device__ inline FwdLayout fwd_layout(int cin, int s) {
-  FwdLayout L;
-  L.kpad = round16(cin);
-  L.ldx = L.kpad + 8;
-  L.pin = fwd_rh(s) * fwd_rw(s);
-  L.pin_pad = round16(L.pin);
-  size_t off = 0;
-  L.x = off; off = align128(off + size_t(L.pin_pad) * L.ldx * 2);
-  L.w = off; off = align128(off + size_t(L.kpad) * LDC * 2);
-  L.e = off; off = align128(off + size_t(L.pin_pad) * LDC * 2);
-  L.stage = off; off = align128(off + size_t(WARPS) * 256 * 4);
-  L.kb = off; off = align128(off + size_t(10) * CH * 4);  // 9 taps, then the bias
-  L.total = off;
-  return L;
 }
 
 // Pixels [0, npix) of a region of rw columns starting at (gy0, gx0): all Cin
@@ -148,127 +139,6 @@ __device__ __forceinline__ void load_x_region(const __nv_bfloat16* __restrict__ 
       if (p < npix && gy >= 0 && gy < h && gx >= 0 && gx < w && a < cin)
         val = xn[(size_t(gy) * w + gx) * cin + a];
       s_x[p * ldx + a] = val;
-    }
-  }
-}
-
-// W' columns [c0, c0+CH) into (kpad, LDC) bf16, taps (bf16-rounded or not)
-// and the bias of the chunk into s_kb (9*CH taps, then CH biases).
-__device__ __forceinline__ void load_chunk_weights(const __nv_bfloat16* __restrict__ wt,
-                                                   const float* __restrict__ bias,
-                                                   const float* __restrict__ taps,
-                                                   __nv_bfloat16* s_w, float* s_kb,
-                                                   int cin, int ce, int kpad, int c0,
-                                                   bool round_taps) {
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < kpad * CH; i += THREADS) {
-    const int a = i / CH, j = i % CH;
-    s_w[a * LDC + j] = (a < cin && c0 + j < ce) ? wt[size_t(a) * ce + c0 + j] : zero;
-  }
-  for (int i = threadIdx.x; i < 10 * CH; i += THREADS) {
-    const int t = i / CH, j = i % CH;
-    float v = 0.f;
-    if (c0 + j < ce) {
-      v = t < 9 ? taps[size_t(t) * ce + c0 + j] : bias[c0 + j];
-      if (t < 9 && round_taps) v = round_bf16(v);
-    }
-    s_kb[i] = v;
-  }
-}
-
-// e chunk for `nrt` row tiles of 16 pixels of s_x: bf16(relu(x . W' + b')),
-// zero where `inside(p)` is false. Warps take row tiles in turn.
-template <typename Inside>
-__device__ __forceinline__ void expand_chunk(const __nv_bfloat16* s_x, const __nv_bfloat16* s_w,
-                                             const float* s_bias, float* s_stage,
-                                             __nv_bfloat16* s_e, int nrt, int kpad, int ldx,
-                                             Inside inside) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* stage = s_stage + warp * 256;
-  for (int rt = warp; rt < nrt; rt += WARPS) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[CT];
-#pragma unroll
-    for (int j = 0; j < CT; ++j) wmma::fill_fragment(acc[j], 0.f);
-    for (int k0 = 0; k0 < kpad; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, s_x + rt * 16 * ldx + k0, ldx);
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, s_w + k0 * LDC + 16 * j, LDC);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r = lane / 2, col = (lane % 2) * 8;
-      const int p = rt * 16 + r;
-      const bool in = inside(p);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int c = 16 * j + col + e;
-        const float v = fmaxf(stage[r * 16 + col + e] + s_bias[c], 0.f);
-        s_e[p * LDC + c] = __float2bfloat16(in ? v : 0.f);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-mbconv_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
-                  const float* __restrict__ bias, const float* __restrict__ taps,
-                  __nv_bfloat16* __restrict__ y, int h, int w, int cin, int ce, int s,
-                  int ho, int wo, bool vec) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const FwdLayout L = fwd_layout(cin, s);
-  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + L.x);
-  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
-  __nv_bfloat16* s_e = reinterpret_cast<__nv_bfloat16*>(smem + L.e);
-  float* s_stage = reinterpret_cast<float*>(smem + L.stage);
-  float* s_kb = reinterpret_cast<float*>(smem + L.kb);
-
-  const int th = fwd_th(s), tw = fwd_tw(s), rw = fwd_rw(s);
-  const int tiles_x = (wo + tw - 1) / tw, tiles_y = (ho + th - 1) / th;
-  const int t = blockIdx.x;
-  const int ox0 = (t % tiles_x) * tw;
-  const int oy0 = (t / tiles_x % tiles_y) * th;
-  const int n = t / (tiles_x * tiles_y);
-  const int gy0 = s * oy0 - 1, gx0 = s * ox0 - 1;
-  const __nv_bfloat16* xn = x + size_t(n) * h * w * cin;
-
-  load_x_region(xn, s_x, L.pin, L.pin_pad, rw, gy0, gx0, h, w, cin, L.kpad, L.ldx, vec);
-
-  auto inside = [&](int p) {
-    const int gy = gy0 + p / rw, gx = gx0 + p % rw;
-    return p < L.pin && gy >= 0 && gy < h && gx >= 0 && gx < w;
-  };
-  const int c = threadIdx.x % CH;
-  for (int c0 = 0; c0 < ce; c0 += CH) {
-    __syncthreads();  // the previous chunk's taps are done with s_w, s_e, s_kb
-    load_chunk_weights(wt, bias, taps, s_w, s_kb, cin, ce, L.kpad, c0, true);
-    __syncthreads();
-    expand_chunk(s_x, s_w, s_kb + 9 * CH, s_stage, s_e, L.pin_pad / 16, L.kpad, L.ldx, inside);
-    __syncthreads();
-    if (c0 + c >= ce) continue;
-    float k[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) k[i] = s_kb[i * CH + c];
-    for (int op = threadIdx.x / CH; op < th * tw; op += GROUPS) {
-      const int oyl = op / tw, oxl = op % tw;
-      const int oy = oy0 + oyl, ox = ox0 + oxl;
-      if (oy >= ho || ox >= wo) continue;
-      float acc = 0.f;
-#pragma unroll
-      for (int dh = 0; dh < 3; ++dh)
-#pragma unroll
-        for (int dw = 0; dw < 3; ++dw) {
-          const int p = (s * oyl + dh) * rw + s * oxl + dw;
-          acc += __bfloat162float(s_e[p * LDC + c]) * k[dh * 3 + dw];
-        }
-      y[((size_t(n) * ho + oy) * wo + ox) * ce + c0 + c] = __float2bfloat16(acc);
     }
   }
 }
@@ -661,6 +531,307 @@ bool vec_ok(const void* p, int cin) {
   return cin % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// ---------------------------------------------------------------------------
+// Forward. KT = 16-wide column tiles of Cin (Cin rounded up to 32), S =
+// stride, both template parameters: the tile, the staged region and every tap
+// index are compile-time, so no division by a runtime size is left.
+
+// mma.sync.m16n8k16 (bf16 in, float32 accumulators) with its operands from
+// shared memory by ldmatrix: the fragment layouts are the PTX ISA's.
+__device__ __forceinline__ void ldsm_x4(unsigned r[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned r[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void cp_async_wait_group0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The forward's geometry: an output tile of TH x TW (8 x 16 at stride 1,
+// 8 x 8 at stride 2), the region of e it reads (RH x RW pixels, padded to RT row tiles of 16), RUN
+// outputs along W a unit of the tap pass; the shared memory: x's region, the
+// e chunk, one W' chunk, and two buffers of the chunk's taps and bias.
+template <int KT, int S>
+struct Fwd {
+  static constexpr int TH = 8;
+  static constexpr int TW = S == 2 ? 8 : 16;
+  static constexpr int RUN = S == 2 ? 2 : 4;
+  static constexpr int RH = S * (TH - 1) + 3, RW = S * (TW - 1) + 3;
+  static constexpr int PIN = RH * RW, RT = (PIN + 15) / 16, PIN_PAD = 16 * RT;
+  static constexpr int KPAD = 16 * KT, LDX = KPAD + 8;
+  static constexpr int UNITS = 8 * TH * (TW / RUN);   // (channel group, run) of the tap pass
+  static constexpr size_t X = 0;
+  static constexpr size_t E = a128(X + size_t(PIN_PAD) * LDX * 2);
+  static constexpr size_t W = a128(E + size_t(PIN_PAD) * LDC * 2);
+  static constexpr size_t KB = a128(W + size_t(KPAD) * LDC * 2);
+  static constexpr size_t TOTAL = a128(KB + size_t(2) * 10 * CH * 4);
+  static_assert(UNITS % THREADS == 0, "the tap pass gives every thread the same units");
+  static_assert(TW % RUN == 0, "a tile row is whole runs");
+};
+
+// x's region (RH x RW pixels from (gy0, gx0), all Cin channels) into rows of
+// LDX bf16, zero outside the image, past Cin and in the padding rows: by
+// cp.async in 16-byte pieces where `vec` (Cin % 8 == 0, x aligned).
+template <int KT, int S>
+__device__ __forceinline__ void stage_x_fwd(const __nv_bfloat16* __restrict__ xn,
+                                            __nv_bfloat16* s_x, int gy0, int gx0, int h, int w,
+                                            int cin, bool vec) {
+  using L = Fwd<KT, S>;
+  if (vec) {
+    constexpr int NV = L::KPAD / 8;
+    for (int i = threadIdx.x; i < L::PIN_PAD * NV; i += THREADS) {
+      const int p = i / NV, v = i % NV;
+      const int gy = gy0 + p / L::RW, gx = gx0 + p % L::RW;
+      const bool ok = p < L::PIN && gy >= 0 && gy < h && gx >= 0 && gx < w && v * 8 < cin;
+      cp_async16(s_x + p * L::LDX + v * 8, ok ? xn + (size_t(gy) * w + gx) * cin + v * 8 : xn,
+                 ok);
+    }
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    for (int i = threadIdx.x; i < L::PIN_PAD * L::KPAD; i += THREADS) {
+      const int p = i / L::KPAD, a = i % L::KPAD;
+      const int gy = gy0 + p / L::RW, gx = gx0 + p % L::RW;
+      const bool ok = p < L::PIN && gy >= 0 && gy < h && gx >= 0 && gx < w && a < cin;
+      s_x[p * L::LDX + a] = ok ? xn[(size_t(gy) * w + gx) * cin + a] : zero;
+    }
+  }
+}
+
+// The chunk's taps (float32, as given) and bias into s_kb (9*CH, then CH),
+// zero past Ce: by cp.async where `async` (Ce % 8 == 0, both aligned).
+__device__ __forceinline__ void stage_kb_fwd(const float* __restrict__ bias,
+                                             const float* __restrict__ taps, float* s_kb,
+                                             int ce, int c0, bool async) {
+  if (async) {
+    for (int i = threadIdx.x; i < 10 * (CH / 4); i += THREADS) {
+      const int t = i / (CH / 4), v = (i % (CH / 4)) * 4;
+      const bool ok = c0 + v < ce;
+      const float* src = t < 9 ? taps + size_t(t) * ce + c0 + v : bias + c0 + v;
+      cp_async16(s_kb + t * CH + v, ok ? src : taps, ok);
+    }
+  } else {
+    stage_kb(bias, taps, s_kb, ce, c0);
+  }
+}
+
+// Grid (tiles, groups): block (t, gy) takes output tile t and the chunks
+// [gy*cpg, min((gy+1)*cpg, chunks)) of 64 expanded channels. Per chunk: e =
+// bf16(relu(x . W' + b')) on the region by mma, 0 outside the image, the
+// epilogue on the accumulator registers; then the nine taps. W' and the taps
+// of the next chunk load under this chunk's tap pass.
+template <int KT, int S>
+__global__ void __launch_bounds__(THREADS, 2)
+mbconv_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
+                  const float* __restrict__ bias, const float* __restrict__ taps,
+                  __nv_bfloat16* __restrict__ y, int h, int w, int cin, int ce, int ho, int wo,
+                  int cpg, bool vec, bool async, bool vec_y) {
+  using L = Fwd<KT, S>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + L::X);
+  __nv_bfloat16* s_e = reinterpret_cast<__nv_bfloat16*>(smem + L::E);
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem + L::W);
+  float* s_kb = reinterpret_cast<float*>(smem + L::KB);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles_x = (wo + L::TW - 1) / L::TW, tiles_y = (ho + L::TH - 1) / L::TH;
+  const int t = blockIdx.x;
+  const int ox0 = (t % tiles_x) * L::TW;
+  const int oy0 = (t / tiles_x % tiles_y) * L::TH;
+  const int n = t / (tiles_x * tiles_y);
+  const int gy0 = S * oy0 - 1, gx0 = S * ox0 - 1;
+  const int chunks = (ce + CH - 1) / CH;
+  const int cbeg = blockIdx.y * cpg, cend = min(chunks, cbeg + cpg);
+
+  stage_x_fwd<KT, S>(x + size_t(n) * h * w * cin, s_x, gy0, gx0, h, w, cin, vec);
+  stage_w<L::KPAD>(wt, s_w, cin, ce, cbeg * CH, async);
+  stage_kb_fwd(bias, taps, s_kb, ce, cbeg * CH, async);
+  cp_async_commit();
+
+  // the tap pass: thread u takes channel group g (8 channels) of the chunk
+  // and the runs u/8, u/8 + THREADS/8, ...; run r is tile row r / (TW/RUN)
+  const int g = threadIdx.x % 8;
+  const int gr = lane >> 2, tig = lane & 3;      // the mma fragments' row and column pair
+
+  for (int ci = cbeg; ci < cend; ++ci) {
+    const int c0 = ci * CH;
+    float* kb = s_kb + ((ci - cbeg) & 1) * 10 * CH;
+    cp_async_wait_group0();
+    __syncthreads();  // x, W', taps and bias of this chunk are in; s_e is free
+
+    // e = bf16(relu(x . W' + b')) on the region: warp w takes the columns
+    // [n0, n0 + 32) of the chunk, whose W' fragments and bias it holds in
+    // registers, and the row tiles w/2, w/2 + 4, ...; the next k step's x
+    // fragment loads under this one's products
+    {
+      const int n0 = (warp & 1) * 32;
+      float2 bv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bv[j] = *reinterpret_cast<const float2*>(kb + 9 * CH + n0 + 8 * j + 2 * tig);
+      unsigned b[KT][2][4];
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          ldsm_x4_trans(b[kt][q], s_w + (kt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDC +
+                                      n0 + 16 * q + 8 * (lane >> 4));
+      for (int rt = warp >> 1; rt < L::RT; rt += WARPS / 2) {
+        float acc[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        const __nv_bfloat16* xa = s_x + (rt * 16 + (lane & 15)) * L::LDX + 8 * (lane >> 4);
+        unsigned a[2][4];
+        ldsm_x4(a[0], xa);
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt) {
+          if (kt + 1 < KT) ldsm_x4(a[(kt + 1) & 1], xa + (kt + 1) * 16);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16(acc[j], a[kt & 1], b[kt][j >> 1][2 * (j & 1)], b[kt][j >> 1][2 * (j & 1) + 1]);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int p = rt * 16 + gr + 8 * half;
+          const int gy = gy0 + p / L::RW, gx = gx0 + p % L::RW;
+          const bool in = p < L::PIN && gy >= 0 && gy < h && gx >= 0 && gx < w;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float v0 = fmaxf(acc[j][2 * half] + bv[j].x, 0.f);
+            const float v1 = fmaxf(acc[j][2 * half + 1] + bv[j].y, 0.f);
+            *reinterpret_cast<__nv_bfloat162*>(s_e + p * LDC + n0 + 8 * j + 2 * tig) =
+                __float22bfloat162_rn(in ? make_float2(v0, v1) : make_float2(0.f, 0.f));
+          }
+        }
+      }
+    }
+    // the taps rounded to bf16 in place, once a chunk (the expand reads only the bias)
+    for (int i = threadIdx.x; i < 9 * CH; i += THREADS) kb[i] = round_bf16(kb[i]);
+    __syncthreads();  // e and the rounded taps are in; W' and the other taps buffer are free
+
+    if (ci + 1 < cend) {
+      stage_w<L::KPAD>(wt, s_w, cin, ce, c0 + CH, async);
+      stage_kb_fwd(bias, taps, s_kb + ((ci + 1 - cbeg) & 1) * 10 * CH, ce, c0 + CH, async);
+      cp_async_commit();
+    }
+
+    // y = the nine taps of e, each product and sum rounded to float32, row
+    // tap outer, column tap inner; e read 16 bytes at a time, each staged
+    // pixel once a run, y written 16 bytes at a time
+    const int cg = c0 + 8 * g;
+    if (cg >= ce) continue;
+    const int valid = min(8, ce - cg);
+    float kv[9][8];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const float4* src = reinterpret_cast<const float4*>(kb + i * CH + 8 * g);
+      const float4 lo = src[0], hi = src[1];
+      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) kv[i][e] = v[e];
+    }
+#pragma unroll
+    for (int r = 0; r < L::UNITS / THREADS; ++r) {
+      const int run = threadIdx.x / 8 + r * (THREADS / 8);
+      const int tr = run / (L::TW / L::RUN), tc = (run % (L::TW / L::RUN)) * L::RUN;
+      float acc[L::RUN][8];
+#pragma unroll
+      for (int j = 0; j < L::RUN; ++j)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[j][e] = 0.f;
+      const __nv_bfloat16* base = s_e + (S * tr * L::RW + S * tc) * LDC + 8 * g;
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+        for (int col = 0; col < S * (L::RUN - 1) + 3; ++col) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(base + (dh * L::RW + col) * LDC);
+          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+          float ev[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h2[e]);
+            ev[2 * e] = f.x;
+            ev[2 * e + 1] = f.y;
+          }
+#pragma unroll
+          for (int j = 0; j < L::RUN; ++j) {
+            const int dw = col - S * j;
+            if (dw < 0 || dw > 2) continue;
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              acc[j][e] = __fadd_rn(acc[j][e], __fmul_rn(ev[e], kv[dh * 3 + dw][e]));
+          }
+        }
+      const int oy = oy0 + tr;
+      if (oy >= ho) continue;
+      __nv_bfloat16* row = y + (size_t(n) * ho + oy) * wo * ce + cg;
+#pragma unroll
+      for (int j = 0; j < L::RUN; ++j) {
+        const int ox = ox0 + tc + j;
+        if (ox >= wo) continue;
+        __nv_bfloat16* dst = row + size_t(ox) * ce;
+        if (vec_y && valid == 8) {
+          __align__(16) __nv_bfloat162 packed[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            packed[e] = __float22bfloat162_rn(make_float2(acc[j][2 * e], acc[j][2 * e + 1]));
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(packed);
+        } else {
+          for (int e = 0; e < valid; ++e) dst[e] = __float2bfloat16(acc[j][e]);
+        }
+      }
+    }
+  }
+}
+
+// The forward's launch for one (KT, S): shared memory, blocks an SM, launch.
+template <int KT, int S>
+struct FwdLaunch {
+  static size_t smem() { return Fwd<KT, S>::TOTAL; }
+  static cudaError_t prepare() {
+    return cudaFuncSetAttribute(mbconv_fwd_kernel<KT, S>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem()));
+  }
+  static int blocks_per_sm() {
+    int nb = 0;
+    if (prepare() != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, mbconv_fwd_kernel<KT, S>, THREADS,
+                                                      smem()) != cudaSuccess)
+      return 0;
+    return nb;
+  }
+  static long long tiles(int n, int ho, int wo) {
+    using L = Fwd<KT, S>;
+    return (long long)((wo + L::TW - 1) / L::TW) * ((ho + L::TH - 1) / L::TH) * n;
+  }
+  static cudaError_t run(dim3 grid, cudaStream_t stream, const __nv_bfloat16* x,
+                         const __nv_bfloat16* wt, const float* bias, const float* taps,
+                         __nv_bfloat16* y, int h, int w, int cin, int ce, int ho, int wo, int cpg,
+                         bool vec, bool async, bool vec_y) {
+    cudaError_t err = prepare();
+    if (err != cudaSuccess) return err;
+    mbconv_fwd_kernel<KT, S><<<grid, THREADS, smem(), stream>>>(
+        x, wt, bias, taps, y, h, w, cin, ce, ho, wo, cpg, vec, async, vec_y);
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -668,7 +839,8 @@ extern "C" {
 // Shared memory of the forward and of the backward block (0: Cin too wide).
 size_t mbconv_fwd_smem(int cin, int stride) {
   if (cin > MAX_CIN) return 0;
-  return fwd_layout(cin, stride).total;
+  return bwd_dispatch<FwdLaunch, size_t>(cin, stride, size_t(0),
+                                         [](auto L) { return L.smem(); });
 }
 size_t mbconv_bwd_smem(int cin, int stride) {
   if (cin > MAX_CIN) return 0;
@@ -678,6 +850,8 @@ size_t mbconv_bwd_smem(int cin, int stride) {
 size_t mbconv_smem_limit() { return SMEM_LIMIT; }
 
 // y from x, W' (bf16), b', k on `stream`; returns the launch's cudaError_t.
+// Ce is split over groups of chunks (blockIdx.y) where the tiles alone fill
+// less than two waves of the card; the groups' outputs are disjoint.
 int mbconv_forward(const void* x, const void* wt, const void* bias, const void* taps,
                    void* y, int n, int h, int w, int cin, int ce, int stride, int device,
                    void* stream) {
@@ -686,19 +860,30 @@ int mbconv_forward(const void* x, const void* wt, const void* bias, const void* 
   if (cin > MAX_CIN || (stride != 1 && stride != 2)) return int(cudaErrorInvalidValue);
   const int ho = (h - 1) / stride + 1, wo = (w - 1) / stride + 1;
   if (n == 0 || h == 0 || w == 0 || ce == 0) return 0;
-  const size_t smem = fwd_layout(cin, stride).total;
-  if (smem > SMEM_LIMIT) return int(cudaErrorInvalidValue);
-  if ((err = cudaFuncSetAttribute(mbconv_fwd_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  int(smem))) != cudaSuccess)
+  int sms = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
     return int(err);
-  const long long tiles = (long long)((wo + fwd_tw(stride) - 1) / fwd_tw(stride)) *
-                          ((ho + fwd_th(stride) - 1) / fwd_th(stride)) * n;
-  mbconv_fwd_kernel<<<unsigned(tiles), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
-      static_cast<const float*>(bias), static_cast<const float*>(taps),
-      static_cast<__nv_bfloat16*>(y), h, w, cin, ce, stride, ho, wo, vec_ok(x, cin));
-  return int(cudaGetLastError());
+  const int chunks = (ce + CH - 1) / CH;
+  const bool vec = vec_ok(x, cin);
+  const bool async = ce % 8 == 0 && reinterpret_cast<uintptr_t>(wt) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(bias) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(taps) % 16 == 0;
+  const bool vec_y = ce % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = bwd_dispatch<FwdLaunch, cudaError_t>(cin, stride, cudaErrorInvalidValue, [&](auto L) {
+    const long long tiles = L.tiles(n, ho, wo);
+    const int per_sm = L.blocks_per_sm();
+    if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+    const long long want = (2LL * sms * per_sm + tiles - 1) / tiles;
+    const int groups = int(want < chunks ? want : chunks);
+    const int cpg = (chunks + groups - 1) / groups;
+    return L.run(dim3(unsigned(tiles), unsigned((chunks + cpg - 1) / cpg)), st,
+                 static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
+                 static_cast<const float*>(bias), static_cast<const float*>(taps),
+                 static_cast<__nv_bfloat16*>(y), h, w, cin, ce, ho, wo, cpg, vec, async, vec_y);
+  });
+  return int(err);
 }
 
 // The backward's groups of chunks at this shape (the scratch the caller
