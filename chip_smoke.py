@@ -88,9 +88,10 @@ K2_PER_STEP = 9
 # K1 on the training path: logits (8,128,256,19) -> labels (8,1024,2048)
 K1_PATH = (SERVE_BATCH, SERVE_H // 8, SERVE_W // 8, NUM_CLASSES, SERVE_H,
            SERVE_W)
-# ragged (n, h, w, c, oh, ow): OW not a multiple of 128, C of 19, 3 and 66
+# ragged (n, h, w, c, oh, ow): OW not a multiple of 128, C of 19, 3 and 66;
+# x8 across 3 backward spans and 3 bands, both ragged
 K1_RAGGED = ((2, 8, 12, 19, 64, 96), (1, 5, 7, 3, 40, 56),
-             (2, 6, 20, 66, 48, 160))
+             (2, 6, 20, 66, 48, 160), (2, 19, 70, 19, 152, 560))
 # K2 on the training path, the nine GFE blocks at b8:
 # (n, h, w, cin, ce, stride, blocks of this shape)
 K2_PATH = ((8, 128, 256, 64, 384, 2, 1), (8, 64, 128, 64, 384, 1, 2),

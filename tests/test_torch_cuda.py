@@ -137,9 +137,9 @@ MBCONV_SPLIT_CASES = [(2, 8, 16, 128, 768, 1), (1, 9, 17, 96, 576, 2),
 def test_mbconv_backward_split_over_chunk_groups(cuda, n, h, w, cin, ce,
                                                  stride):
     """Each output at relative L2 2^-7 of the plain version, as
-    `chip_smoke.py` holds the backward (the ReLU mask is recomputed on each
-    side, so an element whose pre-activation rounds to 0 may differ by all
-    of its de)."""
+    `chip_smoke.py` holds the backward at the path shapes (the ReLU mask is
+    recomputed on each side; both follow the exact pre-activation's sign,
+    `test_mbconv_backward_masks_by_the_exact_sign`)."""
     groups = mbconv._library().mbconv_bwd_groups(n, h, w, cin, ce, stride,
                                                  cuda.index or 0)
     assert 1 < groups <= (ce + 63) // 64
@@ -156,6 +156,47 @@ def test_mbconv_backward_split_over_chunk_groups(cuda, n, h, w, cin, ce,
         rel = float((a.float() - r.float()).norm()
                     / r.float().norm().clamp_min(1e-30))
         assert rel <= 2.0 ** -7, (name, rel)
+
+
+# (n, h, w, cin, ce, stride) whose pre-activations all lie within their
+# float32 rounding error of 0: Cin of 64, 128, 96 and a ragged 20
+MBCONV_SIGN_CASES = [(2, 8, 16, 64, 384, 1), (1, 9, 17, 128, 768, 2),
+                     (2, 12, 20, 96, 576, 1), (1, 5, 9, 20, 70, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,ce,stride", MBCONV_SIGN_CASES)
+def test_mbconv_backward_masks_by_the_exact_sign(cuda, n, h, w, cin, ce,
+                                                stride):
+    """Every pixel holds one x vector and b′ = −float32(x·W′), so each
+    channel's exact pre-activation is the float32 rounding error of x·W′
+    and the tensor cores' float32 sum lands on either side of 0. The
+    kernel takes the exact sum there, as the plain version does: db′ is 0
+    on the same channels, and each output is within 2^-9 relative L2 of
+    the plain version (the bar of `chip_smoke.check_recorded`)."""
+    rng = np.random.default_rng(7)
+    x0 = torch.from_numpy(rng.normal(size=cin).astype(np.float32)).to(
+        torch.bfloat16)
+    wt = torch.from_numpy((rng.normal(size=(cin, ce)) * 0.3).astype(
+        np.float32)).to(torch.bfloat16).float()
+    exact = x0.double().numpy() @ wt.double().numpy()
+    b = torch.from_numpy(-exact.astype(np.float32))
+    exact += b.double().numpy()
+    assert (exact > 0).any() and (exact < 0).any()
+    k = torch.from_numpy(rng.normal(size=(3, 3, ce)).astype(np.float32))
+    x = x0.reshape(1, 1, 1, cin).expand(n, h, w, cin).contiguous()
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    g = torch.from_numpy(rng.normal(size=(n, ho, wo, ce)).astype(np.float32))
+    x, wt, b, k, g = (t.to(cuda) for t in (x, wt, b, k, g.to(torch.bfloat16)))
+    got = mbconv.expand_dw_backward(x, wt, b, k, g, stride)
+    ref = mbconv.expand_dw_reference_backward(x, wt, b, k, g, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2] == 0, ref[2] == 0)
+    for name, a, r in zip(("dx", "dW", "db", "dk"), got, ref):
+        assert a.shape == r.shape, name
+        rel = float((a.float() - r.float()).norm()
+                    / r.float().norm().clamp_min(1e-30))
+        assert rel <= 2.0 ** -9, (name, rel)
 
 
 # (n, h, w, cin, ce, stride) whose forward splits Ce over groups of chunks
@@ -205,9 +246,14 @@ def test_mbconv_autograd_and_wrapper_checks(cuda):
                                  b[:8], k[..., :8], 1)
 
 
-# (n, h, w, c, oh, ow, align_corners): OW off 128, C of 3, 19 and 66
+# (n, h, w, c, oh, ow, align_corners): OW off 128, C of 3, 19 and 66; then
+# shapes whose backward crosses spans and bands: x8 with 3 spans and 3
+# bands, both ragged; C of 66 (three class groups); a non-integer ratio
+# with align_corners; x8 where K3's spans (31 columns) outnumber K1's (32)
 RESIZE_CE_CASES = [(2, 8, 12, 19, 64, 96, False), (1, 5, 7, 3, 40, 56, True),
-                   (2, 6, 20, 66, 48, 160, False), (1, 16, 16, 19, 128, 128, True)]
+                   (2, 6, 20, 66, 48, 160, False), (1, 16, 16, 19, 128, 128, True),
+                   (2, 19, 70, 19, 152, 560, False), (1, 13, 37, 66, 104, 296, False),
+                   (1, 12, 20, 19, 100, 170, True), (1, 16, 64, 19, 128, 512, False)]
 
 
 @pytest.mark.cuda

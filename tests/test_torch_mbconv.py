@@ -119,6 +119,47 @@ def test_plain_version_pads_e_not_x():
     assert float(y[0, 1, 1, 0]) == 2.0  # an image pixel
 
 
+def _near_zero_inputs(seed, n, h, w, cin, ce):
+    """Every pixel holds one x vector and b′ = −float32(x·W′), so that each
+    channel's exact pre-activation x·W′ + b′ is the float32 rounding error
+    of x·W′: a float32 sum in any order can land on either side of 0.
+    Returns x, W′, b′, k, g (torch, bf16 x and g; stride 1) and the exact
+    pre-activations (numpy float64, (Ce,))."""
+    rng = np.random.default_rng(seed)
+    x0 = torch.from_numpy(rng.normal(size=cin).astype(np.float32)).to(
+        torch.bfloat16)
+    wt = torch.from_numpy((rng.normal(size=(cin, ce)) * 0.3).astype(
+        np.float32)).to(torch.bfloat16).float()
+    s = x0.double().numpy() @ wt.double().numpy()
+    b = torch.from_numpy(-s.astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(3, 3, ce)).astype(np.float32))
+    x = x0.reshape(1, 1, 1, cin).expand(n, h, w, cin).contiguous()
+    g = torch.from_numpy(rng.normal(size=(n, h, w, ce)).astype(
+        np.float32)).to(torch.bfloat16)
+    return x, wt, b, k, g, s + b.double().numpy()
+
+
+@pytest.mark.parametrize("cin,ce,seed", [(16, 64, 0), (64, 128, 1),
+                                         (128, 96, 2), (20, 70, 3)])
+def test_plain_backward_masks_by_the_exact_sign(cin, ce, seed):
+    """The plain backward's mask e > 0 follows the exact pre-activation's
+    sign, as the backward kernel's does, at elements whose float32 sum lies
+    within its rounding error of 0: db′ is 0 exactly on the channels whose
+    exact pre-activation is at most 0, and elsewhere the float64 sum of de
+    (to 1e-5 of its scale); the channels of both signs occur."""
+    n, h, w = 2, 6, 10
+    x, wt, b, k, g, exact = _near_zero_inputs(seed, n, h, w, cin, ce)
+    assert (exact > 0).any() and (exact < 0).any()
+    _, _, db, _ = mbconv.expand_dw_reference_backward(x, wt, b, k, g, 1)
+    gp = np.pad(g.double().numpy(), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    de = sum(gp[:, 2 - dh:2 - dh + h, 2 - dw:2 - dw + w]
+             * k.double().numpy()[dh, dw] for dh in range(3) for dw in range(3))
+    want = np.where(exact > 0, de.sum(axis=(0, 1, 2)), 0.0)
+    got = db.double().numpy()
+    np.testing.assert_array_equal(got == 0, want == 0)
+    assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 def test_inverted_residual_train_bf16_matches_routed_jax_block(
         monkeypatch, stride):

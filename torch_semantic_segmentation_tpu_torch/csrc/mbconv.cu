@@ -12,10 +12,12 @@
 //
 // Backward from the cotangent g (N,Ho,Wo,Ce) bf16, in gather form: for each
 // input pixel the up to 3x3 output positions that read it (stride-2 parity),
-//   de  = sum_taps k * g (k in float32),   dem = de masked by e > 0,
+//   de  = sum_taps k * g (k in float32),   dem = de masked by e > 0 (the
+//         exact pre-activation's sign, below),
 //   dx  = bf16(dem) . W'^T (float32 accumulation, written in bf16),
 //   dW' = sum_p x_p^T . bf16(dem_p),  db' = sum_p dem_p,  dk = sum g * shifted e.
-// Only x, W', b' and k are read: the 6x-wide e is recomputed, never stored.
+// Only x, W', b', k and W''s column norms are read: the 6x-wide e is
+// recomputed, never stored.
 //
 // Replaces the JAX package's TPU kernels ops/pallas_mbconv.py::_fwd_kernel
 // (pl.pallas_call in _fwd, :337) and ::_bwd_kernel (pl.pallas_call in
@@ -90,6 +92,17 @@
 //   lanes of a warp by shuffles. Each block adds its tile's share with
 //   float32 atomics, so their summation order varies from run to run (a
 //   relative change of about 1e-6 of each sum).
+// - the mask e > 0 follows the sign of the exact pre-activation x . W' + b',
+//   as the plain version's does (ops/mbconv.py::_expand, exact=True). A
+//   float32 sum of it in any order may fall on the other side of 0 where it
+//   lies within its rounding error of 0, and a flipped element moves all of
+//   its de into dx, dW' and db'. db' is a sum that the train-mode BN after
+//   the block nearly cancels, so one flip moved it by up to 1.2e-3 of its
+//   norm at FastSCNN's Ce 768 blocks (scripts/torch_mbconv_mask_probe.py).
+//   An element whose float32 sum lies within GAMMA |x_p| |W'_c| of 0 (|x_p|
+//   once a tile, |W'_c| from the caller) is summed again exactly in double
+//   by its warp, out of line (exact_near): 6.6e-4 of the elements of
+//   FastSCNN's step, 4% of the backward's time on an H100.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,7 +181,13 @@ struct Bwd {
   static constexpr size_t G = a128(E + size_t(BP) * LDC * 2);
   static constexpr size_t STAGE = a128(G + size_t(GR) * GC * GLD * 2);
   static constexpr size_t KB = a128(STAGE + size_t(WARPS) * 256 * 4);
-  static constexpr size_t TOTAL = a128(KB + size_t(10) * CH * 4);
+  static constexpr size_t TOTAL = a128(KB + size_t(11) * CH * 4);
+  // The tensor cores' float32 pre-activation lies within GAMMA |x_p| |W'_c| of
+  // the exact one: KPAD / 16 k-steps, each of 16 exact products added to the
+  // accumulator at a loss of at most about 17 float32 steps (2^-23) of
+  // sum |x_a W'_ac| <= |x_p| |W'_c|, so KPAD 2^-23; GAMMA = KPAD 2^-20 keeps a
+  // margin of 8.
+  static constexpr float GAMMA = KPAD / 1048576.f;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
@@ -237,6 +256,41 @@ __device__ __forceinline__ void stage_kb(const float* __restrict__ bias,
   }
 }
 
+// The chunk's column norms |W'_c| (float32) into s_wn: CH, zero past Ce.
+__device__ __forceinline__ void stage_wnorm(const float* __restrict__ wnorm, float* s_wn, int ce,
+                                            int c0) {
+  for (int j = threadIdx.x; j < CH; j += THREADS) s_wn[j] = c0 + j < ce ? wnorm[c0 + j] : 0.f;
+}
+
+// The e pass's rare path. Bit i of a lane's `near` marks its element i of the
+// 16 x 16 tile at column col0 of the chunk (pixel 16 warp + lane / 2, column
+// col0 + 8 (lane % 2) + i) whose float32 pre-activation lay within its error
+// bound of 0. Each such element is summed again exactly, the products in
+// double over the lanes of the warp and added by a butterfly (every lane gets
+// the same value), rounded to float32 once, and its e rewritten. Out of line,
+// so that the common path keeps its registers; all 32 lanes call it.
+template <int KPAD, int LDX>
+__device__ __noinline__ void exact_near(unsigned near, const __nv_bfloat16* s_x,
+                                        const __nv_bfloat16* s_w, const float* s_bias,
+                                        __nv_bfloat16* s_e, int warp, int col0) {
+  const int lane = threadIdx.x % 32;
+  for (int i = 0; i < 8; ++i) {
+    for (unsigned todo = __ballot_sync(0xffffffffu, (near >> i) & 1u); todo; todo &= todo - 1) {
+      const int src = __ffs(todo) - 1;
+      const int p = warp * 16 + src / 2, c = col0 + (src % 2) * 8 + i;
+      double s = 0.0;
+#pragma unroll
+      for (int a = lane; a < KPAD; a += 32)
+        s = fma(double(__bfloat162float(s_x[p * LDX + a])),
+                double(__bfloat162float(s_w[a * LDC + c])), s);
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+      if (lane == src)
+        s_e[p * LDC + c] = __float2bfloat16(fmaxf(float(s + double(s_bias[c])), 0.f));
+    }
+  }
+}
+
 // Grid (tiles, groups): block (t, gy) takes input tile t (8 x 16 pixels) and
 // the chunks [gy*cpg, min((gy+1)*cpg, chunks)) of 64 expanded channels. With
 // one group it writes dx in bf16; with more it writes its float32 partial of
@@ -245,7 +299,8 @@ template <int KT, int S>
 __global__ void __launch_bounds__(THREADS, 2)
 mbconv_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
                   const float* __restrict__ bias, const float* __restrict__ taps,
-                  const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dx,
+                  const float* __restrict__ wnorm, const __nv_bfloat16* __restrict__ g,
+                  __nv_bfloat16* __restrict__ dx,
                   float* __restrict__ part, float* __restrict__ dwt, float* __restrict__ db,
                   float* __restrict__ dk, int h, int w, int cin, int ce, int ho, int wo,
                   int cpg, size_t part_stride, bool vec, bool async) {
@@ -275,6 +330,7 @@ mbconv_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   stage_g<L::GR, L::GC>(gn, s_g, r_lo, q_lo, ho, wo, ce, cbeg * CH, async);
   load_x_region(xn, s_x, BP, BP, BTJ, v0, u0, h, w, cin, L::KPAD, L::LDX, vec);
   stage_kb(bias, taps, s_kb, ce, cbeg * CH);
+  stage_wnorm(wnorm, s_kb + 10 * CH, ce, cbeg * CH);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> dxacc[KT];
 #pragma unroll
@@ -287,6 +343,7 @@ mbconv_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   const int c = warp * 8 + cl;
   float* stage = s_stage + warp * 256;
   const int r16 = lane / 2, col8 = (lane % 2) * 8;
+  float xtol = 0.f;  // GAMMA |x_p| of this lane's pixel p in the e pass
 
   for (int ci = cbeg; ci < cend; ++ci) {
     const int c0 = ci * CH;
@@ -297,6 +354,17 @@ mbconv_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     {
       const int p = warp * 16 + r16;
       const bool in = v0 + p / BTJ < h && u0 + p % BTJ < w;
+      if (ci == cbeg) {  // x is in: the lane pair (2 r16, 2 r16 + 1) sums |x_p|^2
+        float ss = 0.f;
+        const __nv_bfloat16* xp = s_x + p * L::LDX + (lane % 2) * (L::KPAD / 2);
+#pragma unroll 8
+        for (int a = 0; a < L::KPAD / 2; ++a) {
+          const float xv = __bfloat162float(xp[a]);
+          ss = fmaf(xv, xv, ss);
+        }
+        ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+        xtol = L::GAMMA * sqrtf(ss);
+      }
 #pragma unroll
       for (int half = 0; half < CT / 2; ++half) {
         wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
@@ -317,12 +385,20 @@ mbconv_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         for (int j = 0; j < 2; ++j) {
           wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
           __syncwarp();
+          // where the float32 sum lies within its error bound of 0 its sign
+          // may be wrong: such elements, rare, take the exact sum, so that
+          // the mask e > 0 follows the exact pre-activation's sign
+          unsigned near = 0;
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
             const int cc = 16 * (2 * half + j) + col8 + e;
-            const float v = fmaxf(stage[r16 * 16 + col8 + e] + s_kb[9 * CH + cc], 0.f);
-            s_e[p * LDC + cc] = __float2bfloat16(in ? v : 0.f);
+            const float v = stage[r16 * 16 + col8 + e] + s_kb[9 * CH + cc];
+            if (in && fabsf(v) <= xtol * s_kb[10 * CH + cc]) near |= 1u << e;
+            s_e[p * LDC + cc] = __float2bfloat16(in ? fmaxf(v, 0.f) : 0.f);
           }
+          if (__any_sync(0xffffffffu, near != 0))
+            exact_near<L::KPAD, L::LDX>(near, s_x, s_w, s_kb + 9 * CH, s_e, warp,
+                                        16 * (2 * half + j));
           __syncwarp();
         }
       }
@@ -383,6 +459,7 @@ mbconv_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     if (more) {
       stage_g<L::GR, L::GC>(gn, s_g, r_lo, q_lo, ho, wo, ce, c0 + CH, async);
       stage_kb(bias, taps, s_kb, ce, c0 + CH);
+      stage_wnorm(wnorm, s_kb + 10 * CH, ce, c0 + CH);
     }
 
     // dx += bf16(dem) . W'^T: warp w owns pixels [16w, 16w+16)
@@ -495,14 +572,15 @@ struct BwdLaunch {
   }
   static cudaError_t run(dim3 grid, cudaStream_t stream, const __nv_bfloat16* x,
                          const __nv_bfloat16* wt, const float* bias, const float* taps,
-                         const __nv_bfloat16* g, __nv_bfloat16* dx, float* part, float* dwt,
-                         float* db, float* dk, int h, int w, int cin, int ce, int ho, int wo,
-                         int cpg, size_t part_stride, bool vec, bool async) {
+                         const float* wnorm, const __nv_bfloat16* g, __nv_bfloat16* dx,
+                         float* part, float* dwt, float* db, float* dk, int h, int w, int cin,
+                         int ce, int ho, int wo, int cpg, size_t part_stride, bool vec,
+                         bool async) {
     cudaError_t err = prepare();
     if (err != cudaSuccess) return err;
     mbconv_bwd_kernel<KT, S><<<grid, THREADS, smem(), stream>>>(
-        x, wt, bias, taps, g, dx, part, dwt, db, dk, h, w, cin, ce, ho, wo, cpg, part_stride,
-        vec, async);
+        x, wt, bias, taps, wnorm, g, dx, part, dwt, db, dk, h, w, cin, ce, ho, wo, cpg,
+        part_stride, vec, async);
     return cudaGetLastError();
   }
 };
@@ -911,11 +989,12 @@ int mbconv_bwd_groups(int n, int h, int w, int cin, int ce, int stride, int devi
 // dx (bf16) and the sums dW', db', dk (float32, zeroed by the caller, added to
 // with atomics) from the cotangent g on `stream`, over `groups` groups of
 // chunks (mbconv_bwd_groups); with more than one, `part` is a float32 scratch
-// of groups * N*H*W*Cin. Returns the cudaError_t.
+// of groups * N*H*W*Cin. wnorm (Ce) holds the L2 norms of W''s columns (float32,
+// of its bf16 values). Returns the cudaError_t.
 int mbconv_backward(const void* x, const void* wt, const void* bias, const void* taps,
-                    const void* g, void* dx, void* part, void* dwt, void* db, void* dk, int n,
-                    int h, int w, int cin, int ce, int stride, int groups, int device,
-                    void* stream) {
+                    const void* wnorm, const void* g, void* dx, void* part, void* dwt,
+                    void* db, void* dk, int n, int h, int w, int cin, int ce, int stride,
+                    int groups, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (cin > MAX_CIN || (stride != 1 && stride != 2) || groups < 1 || (groups > 1 && !part))
@@ -935,9 +1014,10 @@ int mbconv_backward(const void* x, const void* wt, const void* bias, const void*
     return L.run(dim3(unsigned(tiles), unsigned(groups)), st,
                  static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
                  static_cast<const float*>(bias), static_cast<const float*>(taps),
-                 static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dx),
-                 static_cast<float*>(part), static_cast<float*>(dwt), static_cast<float*>(db),
-                 static_cast<float*>(dk), h, w, cin, ce, ho, wo, cpg, count, vec, async);
+                 static_cast<const float*>(wnorm), static_cast<const __nv_bfloat16*>(g),
+                 static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part),
+                 static_cast<float*>(dwt), static_cast<float*>(db), static_cast<float*>(dk),
+                 h, w, cin, ce, ho, wo, cpg, count, vec, async);
   });
   if (err != cudaSuccess || groups == 1) return int(err);
   const unsigned blocks = unsigned(count < 1024 * 256 ? (count + 255) / 256 : 1024);

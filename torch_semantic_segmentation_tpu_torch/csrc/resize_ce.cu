@@ -21,9 +21,9 @@
 // valid * (logz - y_label) (0 at an ignored label) and logz, instead of the
 // block's two partial sums; it takes no class weights. Its backward takes a
 // float32 cotangent map ct in place of cw[label] * g/S2: the per-pixel weight is
-// valid * ct, which re-zeros ignored pixels. Everything else, the taps, the
-// rounding points and the gather schedule, is K1's, and K1's launches compile
-// from the same code with MAP false.
+// valid * ct, which re-zeros ignored pixels. Everything else, the taps and the
+// rounding points, is K1's; K1's forward compiles from the same code with MAP
+// false, while each has a backward of its own (below).
 //
 // Forward: one block per (image, band of FWD_ROWS output rows, span of
 // FWD_SPAN output columns), one thread per output column. For each output row
@@ -33,20 +33,47 @@
 // and keeps its share of sum w (logz - y_label) and sum w. The block's two
 // sums go to `partial`; the caller adds them up (no atomics: deterministic).
 //
-// Backward: the transposed resize is a scatter; a block owns a band of
-// BWD_ROWS low-res rows and a span of JS low-res columns and gathers instead.
-// It walks over the output rows that touch its band (recomputing the few its
-// neighbours also touch), forms y again, the cotangent
-// bf16(cw[label] * g/S2 * (exp(y - logz) - onehot)) for the output columns
-// its span touches (shared memory), the transposed W pass for its own columns
-// rounded to bf16, and accumulates the transposed H pass into its band in
-// float32 in shared memory. d(logits) is written once, in bf16.
+// K1's backward (resize_ce_bwd_mma) computes both transposed passes as the
+// Pallas kernel does: the W pass as bf16 matrix products with float32 sums,
+// the H pass summed in float32. A block owns a band of BWD_ROWS low-res rows,
+// a span of low-res columns in 16-wide tiles and a group of 8-wide class
+// tiles (geometry from the host, ops/resize_ce.py::_plan). It walks over the
+// output rows that touch its band, ascending (recomputing the few its
+// neighbours also touch). For each: the H pass of the two x rows (staged by
+// cp.async a row ahead, with the row's labels and logz); the
+// cotangent bf16(cw[label] * g/S2 * (exp(y - logz) - onehot)), one thread an
+// output column, stored as bf16; then each warp, owning one (column tile,
+// class tile), runs mma.sync.m16n8k16 over the tile's k range: A is the
+// tile's dense block of the transposed interpolation matrix (16 low-res
+// columns x the output columns that touch them, the bf16 tap values, built on
+// the host as mma fragments and read from L1 each row: held in registers they
+// took the block to 128 registers, 2 blocks an SM), B the cotangent by
+// ldmatrix.trans. The products are exact in float32, so only the order of the
+// float32 sum differs from the plain version's. The result, rounded to bf16,
+// goes into a sliding pair of float32 accumulators (low-res rows R and R + 1:
+// the output rows that touch a row are contiguous, and an output row touches
+// two adjacent rows); a row the walk has passed is written in bf16 if it lies
+// in the band and dropped if it is a neighbour's. No shared-memory gather, no
+// atomics: deterministic. Two barriers a row.
+//
+// K3's backward (resize_ce_bwd<L, true>) gathers instead: a block owns a band
+// of BWD_ROWS low-res rows and a span of JS low-res columns, forms the
+// cotangent of the output columns its span touches in shared memory, and each
+// (column, class) item sums over the ~16 output columns that touch its column
+// with a tap lookup each (five shared loads a visit), then accumulates the
+// transposed H pass into its band in shared memory. On K1's shape that gather
+// was 0.69 of 1.27 ms on an H100 80GB HBM3 at 700 W
+// (scripts/torch_resize_ce_probe.py, variant k1b_no_wpass); the banded
+// products replace it.
 //
 // Bound on this card: the exponentials. At (8,128,256,19) -> (8,1024,2048)
 // the forward moves about 60 MB (logits 10 MB, uint8 labels 17 MB, the bf16
 // logz 34 MB), 0.02 ms at 3.35 TB/s, but takes 3.2e8 exponentials, about
-// 0.08 ms at 16 a clock on each of 132 SMs; the backward recomputes them. The
-// full-resolution logits never reach device memory, in either direction.
+// 0.08 ms at 16 a clock on each of 132 SMs. The backward recomputes them
+// (3.2e8, 0.076 ms) and moves about 70 MB (d(logits) 10 MB more), 0.021 ms;
+// its products, about 4e6 m16n8k16 (4e9 flops), are under 0.01 ms at the
+// tensor cores' bf16 rate. The full-resolution logits never reach device
+// memory, in either direction.
 // K3 at DeepLab's OHEM path, (16,48,48,19) -> (16,768,768) with int32 labels,
 // moves about 96 MB forward (labels 38 MB, the float32 map 38 MB, logz 19 MB),
 // 0.029 ms, and takes 1.8e8 exponentials, 0.043 ms: bound by exponentials too.
@@ -78,12 +105,15 @@ struct Tables {
   const int *bspan_oc0, *bspan_oc1, *bspan_tlo, *bspan_thi;  // backward spans
   const int *col_oc0, *col_oc1;                        // (w)
   const float *row_wlo, *row_whi, *col_wlo, *col_whi;
+  const int* tail;  // K1's backward tables (mma_tables), after the pieces above
+  int tail_off;     // the tail's offset in the int table, in ints
 };
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 Tables tables(const int* it, const float* ft, int h, int w, int oh, int ow, int js) {
   Tables t;
+  const int* const it0 = it;
   const int nfs = cdiv(ow, FWD_SPAN), nb = cdiv(h, BWD_ROWS), nbs = cdiv(w, js);
   t.row_lo = it; it += oh;
   t.row_hi = it; it += oh;
@@ -98,7 +128,9 @@ Tables tables(const int* it, const float* ft, int h, int w, int oh, int ow, int 
   t.bspan_tlo = it; it += nbs;
   t.bspan_thi = it; it += nbs;
   t.col_oc0 = it; it += w;
-  t.col_oc1 = it;
+  t.col_oc1 = it; it += w;
+  t.tail = it;
+  t.tail_off = int(it - it0);
   t.row_wlo = ft; ft += oh;
   t.row_whi = ft; ft += oh;
   t.col_wlo = ft; ft += ow;
@@ -278,6 +310,324 @@ resize_ce_bwd(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1's backward on the tensor cores. A block owns (image, band of BWD_ROWS
+// low-res rows, span of `js` low-res columns in 16-wide tiles, group of gt
+// class tiles of 8); warp u owns (column tile u % tiles, class tile
+// u / tiles) of the span and group.
+
+constexpr int MMA_WARPS = THREADS / 32;
+constexpr int MAX_GROUP_TILES = 4;  // class tiles of 8 a block takes, at most
+
+// Class tiles of 8 a block takes: the fewest groups of at most
+// MAX_GROUP_TILES, balanced.
+inline int class_group_tiles(int c) {
+  const int ct = cdiv(c, 8);
+  return cdiv(ct, cdiv(ct, MAX_GROUP_TILES));
+}
+
+// Column tiles of 16 a span takes: two where the warps hold the units of
+// two and the ratio keeps the staged cotangent small, else one.
+inline int span_tiles(int c, int w, int ow) {
+  return 2 * class_group_tiles(c) <= MMA_WARPS && w > 16 && ow <= 16 * w ? 2 : 1;
+}
+
+__host__ __device__ constexpr size_t a16(size_t b) { return (b + 15) & ~size_t(15); }
+
+// The shared memory of the mma backward, in bytes: class weights, the
+// span's column taps, the H-pass rows (float32 holding bf16); two buffers
+// each of the two staged x rows, of the row's labels (room for 8-byte
+// labels) and of its logz, all staged from a 16-byte boundary; two buffers
+// of the cotangent (bf16, `ld` a row: the group's classes, padded so that
+// the 8 rows of an ldmatrix fall on distinct banks).
+struct MmaSmem {
+  int ld, xe, le, ze;
+  size_t cw, jl, jh, wl, wh, t, x, lab, lz, d, total;
+  __host__ __device__ MmaSmem(int c, int gt, int tmax, int ocmax) {
+    ld = gt % 2 ? 8 * gt : 8 * gt + 8;
+    xe = 8 * cdiv(tmax * c + 7, 8);  // bf16 elements a staged x row
+    le = int(a16(8 * size_t(ocmax) + 32));  // bytes a staged label row
+    ze = 8 * cdiv(ocmax + 7, 8);     // bf16 elements a staged logz row
+    cw = 0;
+    jl = a16(cw + 4 * size_t(c));
+    jh = a16(jl + 4 * size_t(ocmax));
+    wl = a16(jh + 4 * size_t(ocmax));
+    wh = a16(wl + 4 * size_t(ocmax));
+    t = a16(wh + 4 * size_t(ocmax));
+    x = a16(t + 4 * size_t(tmax) * 8 * gt);
+    lab = a16(x + 2 * 2 * size_t(xe) * 2);
+    lz = a16(lab + 2 * size_t(le));
+    d = a16(lz + 2 * size_t(ze) * 2);
+    total = a16(d + 2 * size_t(ocmax) * ld * 2);
+  }
+};
+
+// The tail of the int table (ops/resize_ce.py::_mma_schedule): per 16-wide
+// column tile its first output column, its k steps and the offset of its A
+// fragments; per span its output columns [oc0, oc1) and the low-res columns
+// [tlo, thi] their W taps read; then, from a 16-byte boundary, the A
+// fragments, (k step, lane, 4) words of two bf16 each in mma.sync's layout.
+struct MTables {
+  const int *tile_k0, *tile_ks, *tile_frag;
+  const int *span_oc0, *span_oc1, *span_tlo, *span_thi;
+  const unsigned* frags;
+};
+
+MTables mma_tables(const Tables& tb, int w, int js) {
+  const int nt = cdiv(w, 16), ns = cdiv(w, js);
+  const int* it = tb.tail;
+  MTables m;
+  m.tile_k0 = it; it += nt;
+  m.tile_ks = it; it += nt;
+  m.tile_frag = it; it += nt;
+  m.span_oc0 = it; it += ns;
+  m.span_oc1 = it; it += ns;
+  m.span_tlo = it; it += ns;
+  m.span_thi = it; it += ns;
+  const int off = tb.tail_off + 3 * nt + 4 * ns;
+  it += (4 - off % 4) % 4;
+  m.frags = reinterpret_cast<const unsigned*>(it);
+  return m;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// mma.sync.m16n8k16 (bf16 in, float32 accumulators) with B from shared memory
+// by ldmatrix.trans: the fragment layouts are the PTX ISA's.
+__device__ __forceinline__ void ldsm_x2_trans(unsigned& b0, unsigned& b1, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(a));
+}
+__device__ __forceinline__ void mma_bf16(float c[4], const uint4& a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// The offset in dst of src[p0] staged by `stage`.
+template <typename T>
+__device__ __forceinline__ int lead(size_t p0, bool vec) {
+  return vec ? int(p0 % (16 / sizeof(T))) : 0;
+}
+
+// src[p0, p0 + count) into dst: by cp.async in 16-byte pieces from the
+// boundary below p0 where `vec` (src aligned), the piece past the end
+// zero-filled; else by plain loads.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, size_t p0, int count,
+                                      bool vec) {
+  constexpr int PER = 16 / sizeof(T);
+  if (!vec) {
+    for (int i = threadIdx.x; i < count; i += THREADS) dst[i] = src[p0 + i];
+    return;
+  }
+  const int e0 = lead<T>(p0, vec), nel = e0 + count;
+  for (int i = threadIdx.x; i < cdiv(nel, PER); i += THREADS)
+    cp_async16(dst + PER * i, src + (p0 - e0) + PER * i,
+               int(sizeof(T)) * min(PER, nel - PER * i));
+}
+
+template <typename L>
+__global__ void __launch_bounds__(THREADS, 3)
+resize_ce_bwd_mma(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
+                  const float* __restrict__ cw, const __nv_bfloat16* __restrict__ logz,
+                  const float* __restrict__ scale_ptr, Tables tb, MTables mt,
+                  __nv_bfloat16* __restrict__ dx, int h, int w, int c, int oh, int ow,
+                  int js, int tmax, int ocmax, int gt, bool vec) {
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const MmaSmem sm(c, gt, tmax, ocmax);
+  float* s_cw = reinterpret_cast<float*>(smem + sm.cw);
+  int* s_jl = reinterpret_cast<int*>(smem + sm.jl);
+  int* s_jh = reinterpret_cast<int*>(smem + sm.jh);
+  float* s_wl = reinterpret_cast<float*>(smem + sm.wl);
+  float* s_wh = reinterpret_cast<float*>(smem + sm.wh);
+  float* s_t = reinterpret_cast<float*>(smem + sm.t);
+  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + sm.x);
+  L* s_lab = reinterpret_cast<L*>(smem + sm.lab);
+  __nv_bfloat16* s_lz = reinterpret_cast<__nv_bfloat16*>(smem + sm.lz);
+  __nv_bfloat16* s_d = reinterpret_cast<__nv_bfloat16*>(smem + sm.d);
+  const int ld = sm.ld, xe = sm.xe, le = sm.le / int(sizeof(L)), ze = sm.ze;
+
+  const int ngroups = cdiv(cdiv(c, 8), gt);
+  const int span = blockIdx.x / ngroups, cg0 = (blockIdx.x % ngroups) * gt * 8;
+  const int ng = min(gt * 8, c - cg0);  // classes of this group
+  const int band = blockIdx.y, img = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = band * BWD_ROWS, r_end = min(r0 + BWD_ROWS, h);
+  const int oc0 = mt.span_oc0[span], noc = mt.span_oc1[span] - oc0;
+  const int tlo = mt.span_tlo[span], ntc = mt.span_thi[span] - tlo + 1;
+  const float scale = *scale_ptr;
+  for (int i = tid; i < c; i += THREADS) s_cw[i] = cw[i];
+  for (int i = tid; i < noc; i += THREADS) {
+    s_jl[i] = (tb.col_lo[oc0 + i] - tlo) * ng;
+    s_jh[i] = (tb.col_hi[oc0 + i] - tlo) * ng;
+    s_wl[i] = tb.col_wlo[oc0 + i];
+    s_wh[i] = tb.col_whi[oc0 + i];
+  }
+  // rows past the span's columns and classes past the group's stay zero
+  for (int i = tid; i < 2 * ocmax * ld / 8; i += THREADS)
+    reinterpret_cast<uint4*>(s_d)[i] = make_uint4(0u, 0u, 0u, 0u);
+
+  // this warp's unit; A's fragments are read from the table (L1) a row
+  const int tiles = js / 16;
+  const int tile = span * tiles + warp % tiles, ct = warp / tiles;
+  const bool has_unit = ct < cdiv(ng, 8) && tile < cdiv(w, 16);
+  int ks = 0, kb = 0;
+  const uint4* fr = nullptr;
+  if (has_unit) {
+    ks = mt.tile_ks[tile];
+    kb = mt.tile_k0[tile] - oc0;
+    fr = reinterpret_cast<const uint4*>(mt.frags + mt.tile_frag[tile]) + lane;
+  }
+  // the sliding pair: the transposed H pass of low-res rows R and R + 1
+  const int o_begin = tb.band_o0[band], o_end = tb.band_o1[band];
+  int R = o_begin < o_end ? tb.row_lo[o_begin] : r0;
+  int next_row = r0;  // the band's first row not yet written
+  float cur[4] = {0.f, 0.f, 0.f, 0.f}, nxt[4] = {0.f, 0.f, 0.f, 0.f};
+  const int g = lane >> 2, kq = cg0 + ct * 8 + 2 * (lane & 3);
+  const int ja = tile * 16 + g, jb = ja + 8;
+  auto write_row = [&](int row, const float v[4]) {
+    __nv_bfloat16* dst = dx + (size_t(img) * h + row) * w * c;
+    if (ja < w) {
+      if (kq < c) dst[size_t(ja) * c + kq] = __float2bfloat16(v[0]);
+      if (kq + 1 < c) dst[size_t(ja) * c + kq + 1] = __float2bfloat16(v[1]);
+    }
+    if (jb < w) {
+      if (kq < c) dst[size_t(jb) * c + kq] = __float2bfloat16(v[2]);
+      if (kq + 1 < c) dst[size_t(jb) * c + kq + 1] = __float2bfloat16(v[3]);
+    }
+  };
+  // row `row` is finished: written if it lies in the band (the band's rows
+  // before it, which no output row touched, as zeros), dropped if it is a
+  // neighbour's
+  auto flush = [&](int row, const float v[4]) {
+    if (row < r0 || row >= r_end) return;
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+    for (; next_row < row; ++next_row) write_row(next_row, zero);
+    write_row(row, v);
+    next_row = row + 1;
+  };
+  // output row o's two x rows, labels and logz into buffer `buf`
+  auto x_at = [&](int r) { return ((size_t(img) * h + r) * w + tlo) * c; };
+  auto stage_row = [&](int o, int buf) {
+    stage(s_x + 2 * buf * xe, x, x_at(tb.row_lo[o]), ntc * c, vec);
+    stage(s_x + (2 * buf + 1) * xe, x, x_at(tb.row_hi[o]), ntc * c, vec);
+    const size_t px = (size_t(img) * oh + o) * ow + oc0;
+    stage(s_lab + buf * le, labels, px, noc, vec);
+    stage(s_lz + buf * ze, logz, px, noc, vec);
+    cp_async_commit();
+  };
+
+  if (o_begin < o_end) {
+    stage_row(o_begin, 0);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+  for (int o = o_begin; o < o_end; ++o) {
+    const int buf = (o - o_begin) & 1;
+    const int hl = tb.row_lo[o], hh = tb.row_hi[o];
+    const float a = tb.row_wlo[o], b = tb.row_whi[o];
+    if (o + 1 < o_end) stage_row(o + 1, buf ^ 1);
+    // the H pass: s_t[j][k] = bf16(a x[hl][tlo + j][cg0 + k] + b x[hh][...])
+    {
+      const __nv_bfloat16* x0 = s_x + 2 * buf * xe + lead<__nv_bfloat16>(x_at(hl), vec) + cg0;
+      const __nv_bfloat16* x1 =
+          s_x + (2 * buf + 1) * xe + lead<__nv_bfloat16>(x_at(hh), vec) + cg0;
+      for (int i = tid; i < ntc * ng; i += THREADS) {
+        const int j = i / ng, k = i - j * ng;
+        s_t[i] = round_bf16(a * __bfloat162float(x0[j * c + k]) +
+                            b * __bfloat162float(x1[j * c + k]));
+      }
+    }
+    __syncthreads();
+    // the cotangent bf16(gw (exp(y - logz) - onehot)) of output column q,
+    // classes [k0, k1) of the group (k0 even)
+    __nv_bfloat16* sd = s_d + size_t(buf) * ocmax * ld;
+    const size_t px = (size_t(img) * oh + o) * ow + oc0;
+    const L* lab_row = s_lab + buf * le + lead<L>(px, vec);
+    const __nv_bfloat16* lz_row = s_lz + buf * ze + lead<__nv_bfloat16>(px, vec);
+    auto cotangent = [&](int q, int k0, int k1) {
+      const long long lab = static_cast<long long>(lab_row[q]);
+      const float lz = __bfloat162float(lz_row[q]);
+      const bool valid = lab >= 0 && lab < c;
+      const float gw = valid ? s_cw[lab] * scale : 0.f;
+      const int kl = valid ? int(lab) - cg0 : -1;
+      const float* t0 = s_t + s_jl[q];
+      const float* t1 = s_t + s_jh[q];
+      const float wl = s_wl[q], wh = s_wh[q];
+      __nv_bfloat16* d = sd + size_t(q) * ld;
+      for (int k = k0; k < k1; k += 2) {
+        float dv[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (k + e < k1) {
+            float y = wl * t0[k + e] + wh * t1[k + e];
+            y = fminf(fmaxf(y, -CLIP), CLIP);
+            const float p = expf(y - lz);
+            dv[e] = gw * (p - (kl == k + e ? 1.f : 0.f));
+          }
+        }
+        *reinterpret_cast<__nv_bfloat162*>(d + k) = __floats2bfloat162_rn(dv[0], dv[1]);
+      }
+    };
+    // whole columns a thread while every thread has one; the columns left
+    // over as (column, class pair) items, so that the last round is short
+    const int full = noc / THREADS * THREADS, pairs = cdiv(ng, 2);
+    for (int q = tid; q < full; q += THREADS) cotangent(q, 0, ng);
+    for (int i = tid; i < (noc - full) * pairs; i += THREADS) {
+      const int q = full + i / pairs, k = 2 * (i - (q - full) * pairs);
+      cotangent(q, k, min(k + 2, ng));
+    }
+    cp_async_wait_all();  // the next row's staging has landed
+    __syncthreads();
+    if (has_unit) {  // the banded product, then the transposed H pass
+      // the transposed W pass: dw (16 low-res columns x 8 classes) = A d over
+      // the tile's k range, float32 sums of exact bf16 products
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      const __nv_bfloat16* bp = sd + size_t(kb + (lane & 15)) * ld + ct * 8;
+      for (int s = 0; s < ks; ++s) {
+        unsigned b0, b1;
+        ldsm_x2_trans(b0, b1, bp + size_t(16 * s) * ld);
+        mma_bf16(acc, __ldg(fr + 32 * s), b0, b1);
+      }
+      // rows the walk has passed are finished
+      for (; R < hl; ++R) {
+        flush(R, cur);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) { cur[i] = nxt[i]; nxt[i] = 0.f; }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float dwv = round_bf16(acc[i]);
+        cur[i] += a * dwv;
+        if (b != 0.f) {
+          if (hh == R) cur[i] += b * dwv;
+          else nxt[i] += b * dwv;
+        }
+      }
+    }
+  }
+  if (has_unit) {
+    flush(R, cur);
+    flush(R + 1, nxt);
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+    for (; next_row < r_end; ++next_row) write_row(next_row, zero);
+  }
+}
+
 size_t fwd_smem(int c, int tmax) { return sizeof(float) * (32 + c + size_t(tmax) * c); }
 
 size_t bwd_smem(int c, int js, int tmax, int ocmax) {
@@ -331,6 +681,34 @@ int launch_bwd(const Args& a, const Tables& tb, cudaStream_t stream) {
 }
 
 // Dispatch on the label type and the direction; `backward` picks the kernel.
+// K1's backward: `a.js` is K3's span (the layout of the tables before the
+// tail), a.tmax and a.ocmax are this kernel's (ops/resize_ce.py::_plan).
+template <typename L>
+int launch_bwd_mma(const Args& a, const Tables& tb, cudaStream_t stream) {
+  const int gt = class_group_tiles(a.c), js = 16 * span_tiles(a.c, a.w, a.ow);
+  const size_t smem = MmaSmem(a.c, gt, a.tmax, a.ocmax).total;
+  if (smem > SMEM_LIMIT) return int(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(resize_ce_bwd_mma<L>, smem);
+  if (err != cudaSuccess) return int(err);
+  const bool vec = (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.labels) |
+                    reinterpret_cast<uintptr_t>(a.logz_in)) % 16 == 0;
+  const dim3 grid(cdiv(a.w, js) * cdiv(cdiv(a.c, 8), gt), cdiv(a.h, BWD_ROWS), a.n);
+  resize_ce_bwd_mma<L><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x), static_cast<const L*>(a.labels),
+      static_cast<const float*>(a.cw), static_cast<const __nv_bfloat16*>(a.logz_in),
+      static_cast<const float*>(a.scale), tb, mma_tables(tb, a.w, js),
+      static_cast<__nv_bfloat16*>(a.dx), a.h, a.w, a.c, a.oh, a.ow, js, a.tmax, a.ocmax,
+      gt, vec);
+  return int(cudaGetLastError());
+}
+
+// The backward's kernel: K1's on the tensor cores, K3's the gather.
+template <typename L, bool MAP>
+int launch_backward(const Args& a, const Tables& tb, cudaStream_t stream) {
+  if constexpr (MAP) return launch_bwd<L, true>(a, tb, stream);
+  else return launch_bwd_mma<L>(a, tb, stream);
+}
+
 template <bool MAP>
 int run(const Args& a, int label_kind, bool backward, const void* itab, const void* ftab,
         int device, void* stream) {
@@ -340,9 +718,9 @@ int run(const Args& a, int label_kind, bool backward, const void* itab, const vo
                            a.h, a.w, a.oh, a.ow, a.js);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (label_kind) {
-    case 0: return backward ? launch_bwd<uint8_t, MAP>(a, tb, s) : launch_fwd<uint8_t, MAP>(a, tb, s);
-    case 1: return backward ? launch_bwd<int32_t, MAP>(a, tb, s) : launch_fwd<int32_t, MAP>(a, tb, s);
-    case 2: return backward ? launch_bwd<int64_t, MAP>(a, tb, s) : launch_fwd<int64_t, MAP>(a, tb, s);
+    case 0: return backward ? launch_backward<uint8_t, MAP>(a, tb, s) : launch_fwd<uint8_t, MAP>(a, tb, s);
+    case 1: return backward ? launch_backward<int32_t, MAP>(a, tb, s) : launch_fwd<int32_t, MAP>(a, tb, s);
+    case 2: return backward ? launch_backward<int64_t, MAP>(a, tb, s) : launch_fwd<int64_t, MAP>(a, tb, s);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -362,6 +740,11 @@ size_t resize_ce_bwd_smem(int c, int js, int tmax, int ocmax) {
   return bwd_smem(c, js, tmax, ocmax);
 }
 size_t resize_ce_smem_limit() { return SMEM_LIMIT; }
+// K1's backward: the column tiles of 16 of its spans, and its shared memory.
+int resize_ce_bwd_span_tiles(int c, int w, int ow) { return span_tiles(c, w, ow); }
+size_t resize_ce_bwd_mma_smem(int c, int tmax, int ocmax) {
+  return MmaSmem(c, class_group_tiles(c), tmax, ocmax).total;
+}
 
 // label_kind: 0 uint8, 1 int32, 2 int64. Launch on `stream`; returns the
 // launch's cudaError_t (0 on success).

@@ -55,12 +55,22 @@ def _out_size(n: int, stride: int) -> int:
     return (n + 2 - 3) // stride + 1
 
 
-def _expand(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _expand(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            exact: bool = False) -> torch.Tensor:
     """e = bf16(relu(bf16(x)·bf16(W′) + b′)) as float32 values. A product of
     two bf16 values is exact in float32, so the float32 matmul is the
-    bf16 product with float32 accumulation."""
-    acc = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
-    return F.relu(acc + b.float()).to(torch.bfloat16).float()
+    bf16 product with float32 accumulation. With `exact` the pre-activation
+    is summed in float64 and rounded to float32 once, so that e > 0 follows
+    its exact sign, as in the backward kernel: a float32 sum in another
+    order may put an element within its rounding error of 0 on the other
+    side, and the mask then moves all of that element's de."""
+    if exact:
+        acc = (x.to(torch.bfloat16).double() @ w.to(torch.bfloat16).double()
+               + b.double()).float()
+    else:
+        acc = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float() \
+            + b.float()
+    return F.relu(acc).to(torch.bfloat16).float()
 
 
 def _windows(ep: torch.Tensor, ho: int, wo: int, stride: int):
@@ -89,11 +99,12 @@ def expand_dw_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def expand_dw_reference_backward(x, w, b, k, g, stride: int):
     """Plain PyTorch backward at the kernel's rounding points: the cotangent
-    g (N,Ho,Wo,Ce) → (dx in x's dtype, dW′, db′, dk in float32)."""
+    g (N,Ho,Wo,Ce) → (dx in x's dtype, dW′, db′, dk in float32). The mask
+    e > 0 follows the exact pre-activation's sign (`_expand`)."""
     n, h, wd, c_in = x.shape
     ce = w.shape[1]
     ho, wo = _out_size(h, stride), _out_size(wd, stride)
-    e = _expand(x, w, b)
+    e = _expand(x, w, b, exact=True)
     gf = g.float()
     kf = k.float()
     dep = torch.zeros((n, h + 2, wd + 2, ce), dtype=torch.float32,
@@ -121,8 +132,8 @@ def _library() -> ctypes.CDLL:
         p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         lib.mbconv_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.mbconv_forward.restype = i
-        lib.mbconv_backward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                        i, i, i, i, i, p]
+        lib.mbconv_backward.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
+                                        i, i, i, i, i, i, p]
         lib.mbconv_backward.restype = i
         lib.mbconv_bwd_groups.argtypes = [i, i, i, i, i, i, i]
         lib.mbconv_bwd_groups.restype = i
@@ -221,6 +232,7 @@ def expand_dw_backward(x, w, b, k, g, stride: int):
     wb = w.to(torch.bfloat16).contiguous()
     bf = b.float().contiguous()
     kf = k.float().contiguous()
+    wn = torch.linalg.vector_norm(wb, dim=0, dtype=torch.float32)
     _check_smem(lib, lib.mbconv_bwd_smem(c_in, stride), "backward")
     dev = x.device.index or 0
     groups = lib.mbconv_bwd_groups(n, h, wd, c_in, ce, stride, dev)
@@ -236,8 +248,8 @@ def expand_dw_backward(x, w, b, k, g, stride: int):
     dk = torch.zeros((3, 3, ce), **zeros)
     _check(lib, lib.mbconv_backward(
         x.data_ptr(), wb.data_ptr(), bf.data_ptr(), kf.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), None if part is None else part.data_ptr(),
-        dw_.data_ptr(), db.data_ptr(), dk.data_ptr(), n, h, wd, c_in, ce,
+        wn.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        None if part is None else part.data_ptr(), dw_.data_ptr(), db.data_ptr(), dk.data_ptr(), n, h, wd, c_in, ce,
         stride, groups, dev, _stream(x)), "backward")
     expand_dw_backward.launches += 1
     return dx, dw_, db, dk

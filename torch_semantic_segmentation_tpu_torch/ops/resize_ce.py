@@ -195,6 +195,10 @@ def _library() -> ctypes.CDLL:
             getattr(lib, name).restype = i
         lib.resize_ce_bwd_smem.argtypes = [i, i, i, i]
         lib.resize_ce_bwd_smem.restype = z
+        lib.resize_ce_bwd_span_tiles.argtypes = [i, i, i]
+        lib.resize_ce_bwd_span_tiles.restype = i
+        lib.resize_ce_bwd_mma_smem.argtypes = [i, i, i]
+        lib.resize_ce_bwd_mma_smem.restype = z
         lib.resize_ce_fwd_smem.argtypes = [i, i]
         lib.resize_ce_fwd_smem.restype = z
         lib.resize_ce_smem_limit.argtypes = []
@@ -246,14 +250,88 @@ def _source_span(taps: _Taps, lo: np.ndarray, hi: np.ndarray):
     return np.array(tlo, np.int64), np.array(thi, np.int64)
 
 
+_TILE = 16   # low-res columns of an mma tile (the m of m16n8k16)
+
+
+def _fragments(a: np.ndarray) -> np.ndarray:
+    """A (16, 16·ks) of bf16 values as mma.sync.m16n8k16's A fragments:
+    (ks, 32 lanes, 4) uint32, two bf16 a word, the lower k in the low half.
+    Lane l holds rows g = l // 4 and g + 8, columns 2(l % 4) + {0, 1} and
+    the same + 8, of each 16-column k step."""
+    ks = a.shape[1] // 16
+    lane = np.arange(32)
+    g, q = lane // 4, 2 * (lane % 4)
+    rows = np.stack([g, g + 8, g, g + 8], axis=1)             # (32, 4)
+    cols = np.stack([q, q, q + 8, q + 8], axis=1)
+    k = 16 * np.arange(ks)[:, None, None] + cols[None]        # (ks, 32, 4)
+    bits = a.astype(np.float32).view(np.uint32) >> 16
+    lo = bits[rows[None], k]
+    hi = bits[rows[None], k + 1]
+    return (lo | (hi << 16)).astype(np.uint32)
+
+
+class _MmaSchedule(tp.NamedTuple):
+    tail: np.ndarray      # int32, appended to the int table (mma_tables)
+    js: int               # low-res columns of a span (16 · its tiles)
+    tmax: int             # low-res columns a span's W taps read, at most
+    ocmax: int            # rows of the staged cotangent: a span's output
+                          # columns and every tile's k range
+
+
+def _mma_schedule(w: int, ow: int, align_corners: bool, span_tiles: int,
+                  head: int = 0) -> _MmaSchedule:
+    """The tables of K1's backward (csrc/resize_ce.cu::mma_tables) for spans
+    of `span_tiles` 16-wide column tiles, after `head` ints of the table.
+
+    Per tile: the output columns [k0, k1) that touch its 16 low-res
+    columns, rounded up to k steps of 16, and A, the tile's dense block of
+    the transposed bf16 interpolation matrix (A[m, k] = the tap of output
+    column k0 + k on low-res column 16·tile + m), as mma fragments. Per
+    span: its output columns and the low-res columns their taps read."""
+    cols = _taps(w, ow, align_corners)
+    first, last = _touching(cols, w)
+    nt = -(-w // _TILE)
+    k0, k1 = _ranges(first, last, w, _TILE)
+    ks = np.where(k1 > k0, -(-(k1 - k0) // 16), 0)
+    frags, offs, off = [], [], 0
+    for t in range(nt):
+        a = np.zeros((_TILE, 16 * ks[t]), np.float32)
+        q = np.arange(k0[t], k0[t] + 16 * ks[t])
+        q = q[q < ow]
+        for idx, wt in ((cols.lo, cols.wlo), (cols.hi, cols.whi)):
+            m = idx[q] - _TILE * t
+            inside = (m >= 0) & (m < _TILE) & (wt[q] != 0)
+            np.add.at(a, (m[inside], q[inside] - k0[t]), wt[q][inside])
+        frags.append(_fragments(a))
+        offs.append(off)
+        off += frags[-1].size
+    js = _TILE * span_tiles
+    oc0, oc1 = _ranges(first, last, w, js)
+    tlo, thi = _source_span(cols, oc0, oc1)
+    used = np.nonzero(ks)[0]
+    ocmax = max([1, int((oc1 - oc0).max())]
+                + [int(k0[t] - oc0[t // span_tiles] + 16 * ks[t])
+                   for t in used])
+    tmax = max(int((thi - tlo).max()) + 1, 1)
+    index = np.concatenate([k0, ks, offs, oc0, oc1, tlo, thi])
+    pad = np.zeros(-(head + len(index)) % 4, np.int32)
+    words = (np.concatenate([f.reshape(-1) for f in frags])
+             if off else np.zeros(0, np.uint32))
+    tail = np.concatenate([index.astype(np.int32), pad,
+                           words.view(np.int32)])
+    return _MmaSchedule(tail, js, tmax, ocmax)
+
+
 class _Plan(tp.NamedTuple):
     itab: np.ndarray   # int32 tables, in the order of csrc/resize_ce.cu::tables
     ftab: np.ndarray   # float32 tables
-    js: int            # low-res columns a backward block owns
+    js: int            # low-res columns a K3 backward block owns
     tmax_fwd: int
     tmax_bwd: int
     ocmax: int
     fwd_blocks: int
+    mma_tmax: int      # K1's backward: low-res columns a span reads
+    mma_ocmax: int     # and rows of its staged cotangent
 
 
 @functools.lru_cache(maxsize=None)
@@ -298,10 +376,21 @@ def _plan(h: int, w: int, oh: int, ow: int, c: int,
     itab = np.concatenate([rows.lo, rows.hi, cols.lo, cols.hi, f_tlo, f_thi,
                            band_o0, band_o1, oc0, oc1, tlo, thi, c_first,
                            c_last]).astype(np.int32)
+    # K1's backward walks the output rows in order with a sliding pair of
+    # low-res rows: their taps must ascend and span at most two rows
+    if np.any(np.diff(rows.lo) < 0) or np.any(rows.hi - rows.lo > 1):
+        raise ValueError("resize_ce kernel: the row taps do not ascend")
+    mma = _mma_schedule(w, ow, align_corners,
+                        lib.resize_ce_bwd_span_tiles(c, w, ow), len(itab))
+    if lib.resize_ce_bwd_mma_smem(c, mma.tmax, mma.ocmax) > limit:
+        raise ValueError(f"resize_ce kernel: C={c} at {w} -> {ow} columns "
+                         "exceeds the backward block's shared memory")
+    itab = np.concatenate([itab, mma.tail])
     ftab = np.concatenate([rows.wlo, rows.whi, cols.wlo, cols.whi]
                           ).astype(np.float32)
     fwd_blocks = len(f_lo) * -(-oh // fwd_rows)
-    return _Plan(itab, ftab, js, tmax_fwd, tmax_bwd, ocmax, fwd_blocks)
+    return _Plan(itab, ftab, js, tmax_fwd, tmax_bwd, ocmax, fwd_blocks,
+                 mma.tmax, mma.ocmax)
 
 
 @functools.lru_cache(maxsize=None)
@@ -412,7 +501,7 @@ def resize_ce_backward(logits: torch.Tensor, labels: torch.Tensor,
         logits.data_ptr(), labels.data_ptr(), _LABEL_KINDS[labels.dtype],
         cw.data_ptr(), logz.data_ptr(), scale.data_ptr(), itab.data_ptr(),
         ftab.data_ptr(), dx.data_ptr(), n, h, w, c, oh, ow, plan.js,
-        plan.tmax_bwd, plan.ocmax, logits.device.index or 0,
+        plan.mma_tmax, plan.mma_ocmax, logits.device.index or 0,
         _stream(logits)), "backward")
     resize_ce_backward.launches += 1
     return dx
