@@ -132,6 +132,11 @@ UNET_BATCH, UNET_CROP, UNET_LR = 8, 768, 0.045
 DEEPLAB_BATCH, DEEPLAB_CROP, DEEPLAB_LR = 16, 768, 0.01
 K3_PATH = (DEEPLAB_BATCH, DEEPLAB_CROP // 16, DEEPLAB_CROP // 16, NUM_CLASSES,
            DEEPLAB_CROP, DEEPLAB_CROP)
+# ragged x16 (n, h, w, c, oh, ow), K3's ratio: W under one 16-column tile,
+# C of 66 (three class groups) and of 3, W over two of K3's phase-A spans
+K3_RAGGED = ((2, 6, 5, 19, 96, 80), (1, 7, 9, 66, 112, 144),
+             (1, 3, 2, 3, 48, 32), (1, 4, 90, 19, 64, 1440),
+             (2, 5, 21, 66, 80, 336))
 OHEM_THRESH, OHEM_MIN_KEPT = 0.7, 100_000
 EVAL_BATCHES = 4
 # the eval step's K6 launches a batch: in eval mode no block routes to K2,
@@ -599,10 +604,11 @@ def check_upsample_concat() -> dict:
 
 def check_resize_ce_map() -> dict:
     """K3, the per-pixel map's forward and backward, against the plain
-    version at K1's ragged shapes and at the DeepLab OHEM path's shape, with
-    K1's bars (the map's mean at 1e-4 relative, each element within 1e-5
-    of the map's scale; logz and d(logits) within BF16_TOL of scale);
-    times at the path's shape."""
+    version at K1's ragged shapes, at its own x16 ones and at the DeepLab
+    OHEM path's shape, with K1's bars (the map's mean at 1e-4 relative,
+    each element within 1e-5 of the map's scale; logz and d(logits) within
+    BF16_TOL of scale); at the path, a second backward launch gives the
+    same bits; times at the path's shape."""
     import torch
     import torch.nn.functional as F
     from torch_semantic_segmentation_tpu_torch.ops import resize_ce as rce
@@ -636,11 +642,17 @@ def check_resize_ce_map() -> dict:
             fail(f"resize_ce_map {name} disagrees with its plain version")
         return merr, derr, (logits, labels, logz, ct)
 
-    for i, (n, h, w, c, oh, ow) in enumerate(K1_RAGGED):
+    for i, (n, h, w, c, oh, ow) in enumerate(K1_RAGGED + K3_RAGGED):
         compare(n, h, w, c, oh, ow, 900 + i, "ragged")
     n, h, w, c, oh, ow = K3_PATH
     merr, derr, (logits, labels, logz, ct) = compare(n, h, w, c, oh, ow, 11,
                                                      "path")
+    dx = rce.resize_ce_map_backward(logits, labels, logz, ct)
+    if not torch.equal(rce.resize_ce_map_backward(logits, labels, logz, ct),
+                       dx):
+        fail("resize_ce_map backward: two launches at the path differ")
+    print("resize_ce_map path: two backward launches give the same bits",
+          flush=True)
     fwd_ms = cuda_ms(lambda: rce.resize_ce_map_forward(logits, labels))
     bwd_ms = cuda_ms(lambda: rce.resize_ce_map_backward(logits, labels, logz,
                                                         ct))

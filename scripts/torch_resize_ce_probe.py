@@ -6,24 +6,38 @@ beside each, as `chip_smoke.check_resize_ce` and `check_resize_ce_map` time
 it:
 
     python3 scripts/torch_resize_ce_probe.py [--root DIR]
-        [--variants k1b_no_wpass]
+        [--variants k1b_no_wpass,k3b_no_wpass,...]
 
 `--root` names the checkout whose port package is timed (default: this
 one), so that two commits can be compared on one card in one command
 (e.g. a `git archive` of the parent under the ignored `_chipcheck/`, run
-as parent, change, change, parent). Variant, built from a patched copy of
-the checkout's `csrc/resize_ce.cu` and timed through the same wrapper:
-- `k1b_no_wpass`: K1's backward without its transposed W pass and the
-  accumulation of the transposed H pass (d(logits) is then wrong); what
-  is left is the H pass, the exponentials and the walk over the rows.
+as parent, change, change, parent). A variant is built from a patched copy
+of the checkout's `csrc/resize_ce.cu` and timed through the same wrapper.
+Each names the kernel it patches, one name for each design that kernel
+has had; the design the source defines is patched, every one of its
+(text, replacement) pairs inside that kernel's body, and the probe stops
+when the body lacks one (never patching another kernel):
+- `k1b_no_wpass`: K1's backward (`resize_ce_bwd_mma`) without its banded
+  products and its H sum (d(logits) is then wrong); what is left is the
+  staging, the H pass, the exponentials and the walk over the rows.
+- `k3b_no_wpass`: K3's backward without its transposed W pass: the
+  gather's loop and `s_acc` update (`resize_ce_bwd`, before the two-phase
+  design), or phase A's products and dw stores (`resize_ce_map_bwd_w`).
+- `k3b_fast_exp`: phase A's exponentials by `__expf` (what exact
+  exponentials cost there).
+- `k3b_one_kstep`, `k3b_no_dw_store`: phase A's products over one k step
+  of each tile, or without their dw stores (what the products' loop and
+  their stores cost; d(logits) is then wrong).
 
 Prints the card, what ptxas reported for each kernel instance of
-`resize_ce.cu` (registers, spills, shared memory), the backward's launch
-geometry from the plan, then one line per kernel: ms a launch on CUDA
-events (the median of 3 runs of 20 launches), the same from a CUDA graph
-of 20 launches (without the wrapper's host time), the library call's ms
-and the error against the plain version; a digest of K3's outputs (equal
-digests: equal bits); then one JSON line. Needs a CUDA card and nvcc.
+`resize_ce.cu` (registers, spills, shared memory), K1's and K3's plans,
+then one line per kernel: ms a launch on CUDA events (the median of 3 runs
+of 20 launches), the same from a CUDA graph of 20 launches (without the
+wrapper's host time), the library call's ms and the error against the
+plain version; digests of K1's outputs (loss, S2, logz, d(logits)), of
+K3's forward's (loss map, logz) and of K3's d(logits): equal digests,
+equal bits; what one K3 backward allocates; its time by kernel from
+torch.profiler; then one JSON line. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -32,37 +46,100 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import sys
 from pathlib import Path
 
+import numpy as np
 from torch_fwd_probe import ptxas_lines
 from torch_mbconv_bwd_probe import graph_ms
 
 HERE = Path(__file__).resolve().parent.parent
 
-# variant: the (text, its replacement) pairs tried in turn on the source;
-# the first whose text is found is applied (one pair for each kernel design)
+# variant: {kernel: its (text, replacement) pairs}, one kernel name for each
+# design the kernel has had
 VARIANTS = {
-    "k1b_no_wpass": (
-        # the gather design: skip the W-pass loop and the s_acc update
-        ("    if (!top && !bot) continue;\n", "    continue;\n"),
-        # the banded-product design: skip the products and the H sum
-        ("    if (has_unit) {  // the banded product, then the transposed H "
-         "pass\n", "    if (false) {\n"),
-    ),
+    "k1b_no_wpass": {
+        # K1's banded products and the H sum
+        "resize_ce_bwd_mma": (
+            ("    if (has_unit) {  // the banded product, then the transposed H "
+             "pass\n", "    if (false) {\n"),),
+    },
+    "k3b_no_wpass": {
+        # the gather: the W-pass loop and the s_acc update
+        "resize_ce_bwd": (("    if (!top && !bot) continue;\n",
+                           "    continue;\n"),),
+        # phase A: the products and the dw stores
+        "resize_ce_map_bwd_w": (
+            ("    if (has_unit) {  // the products\n", "    if (false) {\n"),),
+    },
+    "k3b_fast_exp": {
+        # phase A's exponentials by the approximate __expf
+        "resize_ce_map_bwd_w": (("expf(y0 - lz)", "__expf(y0 - lz)"),
+                                ("expf(y1 - lz)", "__expf(y1 - lz)")),
+    },
+    "k3b_one_kstep": {
+        # phase A's products over one k step of each tile, not all
+        "resize_ce_map_bwd_w": (
+            ("  const int ks = has_unit ? mt.tile_ks[tile] : 0;\n",
+             "  const int ks = has_unit ? min(mt.tile_ks[tile], 1) : 0;\n"),),
+    },
+    "k3b_no_dw_store": {
+        # phase A's products kept, their dw stores skipped (all but NaNs)
+        "resize_ce_map_bwd_w": (("        if (j >= w) continue;\n",
+                                 "        if (j >= w || c0[0] == c0[0]) continue;\n"),),
+    },
 }
+# the kernel each variant's time is taken of
+TIMED = {"k1b_no_wpass": "K1 bwd", "k3b_no_wpass": "K3 bwd",
+         "k3b_fast_exp": "K3 bwd", "k3b_one_kstep": "K3 bwd",
+         "k3b_no_dw_store": "K3 bwd"}
+
+
+def kernel_body(src: str, name: str) -> tuple[int, int] | None:
+    """[start, end) of the body of the __global__ function `name` in `src`,
+    braces included; None where the source defines no such kernel."""
+    m = re.search(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                  + re.escape(name) + r"\s*\(", src)
+    if m is None:
+        return None
+    depth, i = 0, m.end()
+    while True:            # the parameter list's closing parenthesis
+        depth += {"(": 1, ")": -1}.get(src[i], 0)
+        if depth < 0:
+            break
+        i += 1
+    start = src.index("{", i)
+    depth = 0
+    for j in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[j], 0)
+        if depth == 0:
+            return start, j + 1
+    raise SystemExit(f"{name}: unbalanced braces")
+
+
+def patched(src: str, variant: str) -> str:
+    """`src` with the variant's pairs applied inside its kernel's body."""
+    designs = VARIANTS[variant]
+    found = {k: kernel_body(src, k) for k in designs}
+    found = {k: v for k, v in found.items() if v is not None}
+    if len(found) != 1:
+        raise SystemExit(f"{variant}: resize_ce.cu defines {sorted(found)} "
+                         f"of its kernels {sorted(designs)}; one expected")
+    (kernel, (start, end)), = found.items()
+    body = src[start:end]
+    for old, new in designs[kernel]:
+        if body.count(old) != 1:
+            raise SystemExit(f"{variant}: {kernel} holds {body.count(old)} "
+                             f"copies of {old!r}, one expected")
+        body = body.replace(old, new)
+    return src[:start] + body + src[end:]
 
 
 def build_variant(kernels, variant: str):
     import ctypes
     import subprocess
-    src = (kernels.CSRC / "resize_ce.cu").read_text()
-    for old, new in VARIANTS[variant]:
-        if old in src:
-            src = src.replace(old, new)
-            break
-    else:
-        raise SystemExit(f"{variant}: resize_ce.cu has none of its texts")
+    src = patched((kernels.CSRC / "resize_ce.cu").read_text(), variant)
     cu = kernels.BUILD_DIR / "probe" / f"resize_ce-{variant}.cu"
     cu.parent.mkdir(parents=True, exist_ok=True)
     cu.write_text(src)
@@ -72,6 +149,27 @@ def build_variant(kernels, variant: str):
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed for {variant}:\n{proc.stderr}")
     return ctypes.CDLL(str(so))
+
+
+def kernel_ms(fn, iters: int = 10) -> dict:
+    """ms a call of each resize_ce kernel that `fn` launches, from
+    torch.profiler's device times ({} where the trace has none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"resize_ce_\w+", e.key)
+        us = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if m and us:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + us / 1e3 / iters
+    return out
 
 
 def digest(*tensors) -> str:
@@ -89,6 +187,10 @@ def main() -> int:
     ap.add_argument("--variants", default="")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
+    variants = list(filter(None, args.variants.split(",")))
+    for v in variants:
+        if v not in VARIANTS:
+            raise SystemExit(f"unknown variant {v}; known: {sorted(VARIANTS)}")
     sys.path.insert(0, str(HERE))
     sys.path.insert(0, root)
 
@@ -107,113 +209,140 @@ def main() -> int:
     print("ptxas resize_ce:\n  " + "\n  ".join(ptxas_lines(kernels,
                                                             "resize_ce")),
           flush=True)
-    rows, sums = [], {}
+    rows, sums, digests, timed = [], {}, {}, {}
 
-    n, h, w, c, oh, ow = chip_smoke.K1_PATH
-    plan = rce._plan(h, w, oh, ow, c, False)
-    print("K1 plan: " + ", ".join(
-        f"{k}={v}" for k, v in plan._asdict().items()
-        if k not in ("itab", "ftab")), flush=True)
-    logits, labels, cw = chip_smoke.resize_ce_inputs(n, h, w, c, oh, ow, 7,
-                                                     True)
-    loss, s2, logz = rce.resize_ce_forward(logits, labels, cw)
+    def plan_line(name, n, h, w, c, oh, ow):
+        plan = rce._plan(h, w, oh, ow, c, False)
+        print(f"{name} plan: " + ", ".join(
+            f"{k}={v}" for k, v in plan._asdict().items()
+            if not isinstance(v, (np.ndarray, torch.Tensor))), flush=True)
+
+    def library_rows(shape, fns, err, errscale):
+        for name, fn, lib_ms in fns:
+            e = err if name.endswith("bwd") else None
+            r = dict(kernel=name, shape=list(shape),
+                     ms=chip_smoke.cuda_ms(fn, reps=3), graph_ms=graph_ms(fn),
+                     library_ms=lib_ms, err=e,
+                     scale=None if e is None else errscale)
+            rows.append(r)
+            n, h, w, c, oh, ow = shape
+            print(f"{name} ({n},{h},{w},{c})->({oh},{ow}): ms {r['ms']:.4f} "
+                  f"(graph {r['graph_ms']}) library {lib_ms:.4f}"
+                  + ("" if e is None
+                     else f"; d(logits) err {e:.3g} of {errscale:.3g}"),
+                  flush=True)
+
+    def library_pair(logits, labels, shape, **ce):
+        """The library call's forward and backward ms: F.interpolate then
+        F.cross_entropy, and its backward (for the cotangent `ct` of a
+        map)."""
+        _, _, _, _, oh, ow = shape
+        ct = ce.pop("ct", None)
+        lab = labels.long()
+        lg = logits.detach().permute(0, 3, 1, 2).requires_grad_(True)
+
+        def library():
+            up = F.interpolate(lg, size=(oh, ow), mode="bilinear",
+                               align_corners=False)
+            return F.cross_entropy(up.float(), lab, ignore_index=255, **ce)
+
+        with torch.no_grad():
+            lib_fwd = chip_smoke.library_ms(library, iters=5)
+        out = library()
+        lib_bwd = chip_smoke.library_ms(
+            lambda: torch.autograd.grad(out, lg, ct, retain_graph=True),
+            iters=5)
+        return lib_fwd, lib_bwd
+
+    # K1 at FastSCNN's training shape
+    k1_shape = chip_smoke.K1_PATH
+    n, h, w, c, oh, ow = k1_shape
+    plan_line("K1", *k1_shape)
+    logits1, labels1, cw = chip_smoke.resize_ce_inputs(n, h, w, c, oh, ow, 7,
+                                                       True)
+    loss, s2, logz1 = rce.resize_ce_forward(logits1, labels1, cw)
     scale = (0.7 / s2).reshape(1)
 
+    def k1_fwd():
+        return rce.resize_ce_forward(logits1, labels1, cw)
+
     def k1_bwd():
-        return rce.resize_ce_backward(logits, labels, cw, logz, scale)
+        return rce.resize_ce_backward(logits1, labels1, cw, logz1, scale)
 
-    def k1_err():
-        dx, ref = k1_bwd(), rce.resize_ce_reference_backward(
-            logits, labels, cw, logz, scale)
-        return (float((dx.float() - ref.float()).abs().max()),
-                float(ref.float().abs().max()))
+    dx1 = k1_bwd()
+    ref1 = rce.resize_ce_reference_backward(logits1, labels1, cw, logz1, scale)
+    err1 = float((dx1.float() - ref1.float()).abs().max())
+    scale1 = float(ref1.float().abs().max())
+    digests["K1"] = digest(loss, s2, logz1, dx1)
+    del ref1, dx1
+    lib_fwd, lib_bwd = library_pair(logits1, labels1, k1_shape, weight=cw)
+    library_rows(k1_shape, (("K1 fwd", k1_fwd, lib_fwd),
+                                  ("K1 bwd", k1_bwd, lib_bwd)),
+                 err1, scale1)
+    timed["K1 bwd"] = k1_bwd
 
-    lab = labels.long()
-    lg = logits.detach().permute(0, 3, 1, 2).requires_grad_(True)
+    # K3 at DeepLab's OHEM shape, int32 labels as `augment_batch` gives them
+    k3_shape = chip_smoke.K3_PATH
+    n, h, w, c, oh, ow = k3_shape
+    plan_line("K3", *k3_shape)
+    logits3, labels3, _ = chip_smoke.resize_ce_inputs(n, h, w, c, oh, ow, 11,
+                                                      False)
+    labels3 = labels3.to(torch.int32)
+    ct = torch.randn((n, oh, ow), generator=torch.Generator(
+        device="cuda").manual_seed(11), device="cuda") * 1e-5
+    lmap, logz3 = rce.resize_ce_map_forward(logits3, labels3)
 
-    def k1_library():
-        up = F.interpolate(lg, size=(oh, ow), mode="bilinear",
-                           align_corners=False)
-        return F.cross_entropy(up.float(), lab, weight=cw, ignore_index=255)
+    def k3_fwd():
+        return rce.resize_ce_map_forward(logits3, labels3)
 
-    with torch.no_grad():
-        lib_fwd = chip_smoke.library_ms(k1_library, iters=5)
-    out = k1_library()
-    lib_bwd = chip_smoke.library_ms(
-        lambda: torch.autograd.grad(out, lg, retain_graph=True), iters=5)
-    del out
-    err, errscale = k1_err()
-    fwd = lambda: rce.resize_ce_forward(logits, labels, cw)  # noqa: E731
-    for name, fn, lib_ms, e in (("K1 fwd", fwd, lib_fwd, None),
-                                ("K1 bwd", k1_bwd, lib_bwd, err)):
-        r = dict(kernel=name, shape=[n, h, w, c, oh, ow],
-                 ms=chip_smoke.cuda_ms(fn, reps=3), graph_ms=graph_ms(fn),
-                 library_ms=lib_ms, err=e,
-                 scale=None if e is None else errscale)
-        rows.append(r)
-        print(f"{name} ({n},{h},{w},{c})->({oh},{ow}): ms {r['ms']:.4f} "
-              f"(graph {r['graph_ms']}) library {lib_ms:.4f}"
-              + ("" if e is None
-                 else f"; d(logits) err {e:.3g} of {errscale:.3g}"),
-              flush=True)
+    def k3_bwd():
+        return rce.resize_ce_map_backward(logits3, labels3, logz3, ct)
+
+    dx3 = k3_bwd()
+    ref3 = rce.resize_ce_map_reference_backward(logits3, labels3, logz3, ct)
+    err3 = float((dx3.float() - ref3.float()).abs().max())
+    scale3 = float(ref3.float().abs().max())
+    digests["K3 fwd"] = digest(lmap, logz3)
+    digests["K3 bwd"] = digest(dx3)
+    del ref3, dx3
+    lib_fwd, lib_bwd = library_pair(logits3, labels3, k3_shape, ct=ct,
+                                    reduction="none")
+    library_rows(k3_shape, (("K3 fwd", k3_fwd, lib_fwd),
+                                  ("K3 bwd", k3_bwd, lib_bwd)),
+                 err3, scale3)
+    timed["K3 bwd"] = k3_bwd
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k3_bwd()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    print(f"digests: K1's outputs {digests['K1']}, K3's forward's "
+          f"{digests['K3 fwd']}, K3's d(logits) {digests['K3 bwd']}; one K3 "
+          f"backward allocates at most {peak} bytes above what was live",
+          flush=True)
+    phases = kernel_ms(k3_bwd)
+    print("K3 bwd by kernel (torch.profiler, ms a call): " + (", ".join(
+        f"{k} {v:.4f}" for k, v in phases.items()) or "not measured"),
+        flush=True)
 
     real_load = kernels.load
-    for v in filter(None, args.variants.split(",")):
+    for v in variants:
         lib = build_variant(kernels, v)
         kernels.load = lambda name, _lib=lib: (
             _lib if name == "resize_ce" else real_load(name))
-        r = dict(kernel="K1 bwd", variant=v,
-                 ms=chip_smoke.cuda_ms(k1_bwd, reps=3),
-                 graph_ms=graph_ms(k1_bwd))
+        fn = timed[TIMED[v]]
+        r = dict(kernel=TIMED[v], variant=v, ms=chip_smoke.cuda_ms(fn, reps=3),
+                 graph_ms=graph_ms(fn))
         rows.append(r)
-        print(f"K1 bwd {v}: ms {r['ms']:.4f} (graph {r['graph_ms']})",
+        print(f"{TIMED[v]} {v}: ms {r['ms']:.4f} (graph {r['graph_ms']})",
               flush=True)
         kernels.load = real_load
-    del logits, labels, cw, logz, lg, lab
-
-    n, h, w, c, oh, ow = chip_smoke.K3_PATH
-    logits, labels, _ = chip_smoke.resize_ce_inputs(n, h, w, c, oh, ow, 11,
-                                                    False)
-    labels = labels.to(torch.int32)
-    ct = torch.randn((n, oh, ow), generator=torch.Generator(
-        device="cuda").manual_seed(11), device="cuda") * 1e-5
-    lmap, logz = rce.resize_ce_map_forward(logits, labels)
-    dx = rce.resize_ce_map_backward(logits, labels, logz, ct)
-    dref = rce.resize_ce_map_reference_backward(logits, labels, logz, ct)
-    k3_err = float((dx.float() - dref.float()).abs().max())
-    k3_digest = digest(lmap, logz, dx)
-    lab = labels.long()
-    lg = logits.detach().permute(0, 3, 1, 2).requires_grad_(True)
-
-    def k3_library():
-        up = F.interpolate(lg, size=(oh, ow), mode="bilinear",
-                           align_corners=False)
-        return F.cross_entropy(up.float(), lab, ignore_index=255,
-                               reduction="none")
-
-    with torch.no_grad():
-        lib_fwd = chip_smoke.library_ms(k3_library, iters=5)
-    out = k3_library()
-    lib_bwd = chip_smoke.library_ms(
-        lambda: torch.autograd.grad(out, lg, ct, retain_graph=True), iters=5)
-    del out
-    fwd = lambda: rce.resize_ce_map_forward(logits, labels)  # noqa: E731
-    bwd = lambda: rce.resize_ce_map_backward(  # noqa: E731
-        logits, labels, logz, ct)
-    for name, fn, lib_ms in (("K3 fwd", fwd, lib_fwd),
-                             ("K3 bwd", bwd, lib_bwd)):
-        r = dict(kernel=name, shape=[n, h, w, c, oh, ow],
-                 ms=chip_smoke.cuda_ms(fn, reps=3), graph_ms=graph_ms(fn),
-                 library_ms=lib_ms)
-        rows.append(r)
-        print(f"{name} ({n},{h},{w},{c})->({oh},{ow}): ms {r['ms']:.4f} "
-              f"(graph {r['graph_ms']}) library {lib_ms:.4f}", flush=True)
-    print(f"K3 d(logits) err {k3_err:.3g}; outputs digest {k3_digest}",
-          flush=True)
     for r in rows:
         if "variant" not in r:
             sums[r["kernel"]] = r["ms"]
-    print(json.dumps({"root": root, "ms": sums, "k3_digest": k3_digest,
+    print(json.dumps({"root": root, "ms": sums, "digests": digests,
+                      "k3_bwd_peak_bytes": peak, "k3_bwd_kernels": phases,
                       "rows": rows}))
     return 0
 

@@ -249,11 +249,16 @@ def test_mbconv_autograd_and_wrapper_checks(cuda):
 # (n, h, w, c, oh, ow, align_corners): OW off 128, C of 3, 19 and 66; then
 # shapes whose backward crosses spans and bands: x8 with 3 spans and 3
 # bands, both ragged; C of 66 (three class groups); a non-integer ratio
-# with align_corners; x8 where K3's spans (31 columns) outnumber K1's (32)
+# with align_corners; x8 with four 16-column tiles; then x16, K3's ratio on
+# DeepLab's path: ragged, W under one tile, C of 66 with align_corners, C
+# of 3, and W over two of K3's phase-A spans
 RESIZE_CE_CASES = [(2, 8, 12, 19, 64, 96, False), (1, 5, 7, 3, 40, 56, True),
                    (2, 6, 20, 66, 48, 160, False), (1, 16, 16, 19, 128, 128, True),
                    (2, 19, 70, 19, 152, 560, False), (1, 13, 37, 66, 104, 296, False),
-                   (1, 12, 20, 19, 100, 170, True), (1, 16, 64, 19, 128, 512, False)]
+                   (1, 12, 20, 19, 100, 170, True), (1, 16, 64, 19, 128, 512, False),
+                   (2, 6, 5, 19, 96, 80, False), (1, 7, 9, 66, 112, 144, True),
+                   (1, 3, 2, 3, 48, 32, False), (1, 4, 90, 19, 64, 1440, False),
+                   (2, 5, 21, 66, 80, 336, False)]
 
 
 @pytest.mark.cuda
@@ -431,6 +436,9 @@ def test_resize_ce_map_kernels_match_plain_version(cuda, n, h, w, c, oh, ow,
     torch.cuda.synchronize()
     assert dx.dtype == torch.bfloat16 and dx.shape == logits.shape
     _bf16_close(dx, ref)
+    # no atomics: a second launch gives the same bits
+    assert torch.equal(
+        resize_ce.resize_ce_map_backward(logits, labels, logz, ct, ac), dx)
 
 
 @pytest.mark.cuda

@@ -46,10 +46,14 @@ def _data(lshape, yshape, *, seed=0, weights=False, scale=2.0):
     return logits, labels, cw
 
 
-@pytest.mark.parametrize("align_corners", [False, True])
-def test_map_plain_version_matches_jax_kernel(align_corners):
-    logits, labels, _ = _data(LSHAPE, YSHAPE)
-    ct = np.random.default_rng(1).normal(size=(LSHAPE[0], *YSHAPE)).astype(
+# the even shape both ways, and x16 (K3's ratio on DeepLab's path) with
+# W over one 16-column tile and neither side a multiple of 128
+@pytest.mark.parametrize("align_corners,lshape,yshape", [
+    (False, LSHAPE, YSHAPE), (True, LSHAPE, YSHAPE),
+    (False, (1, 5, 21, 19), (80, 336))], ids=["False", "True", "x16-ragged"])
+def test_map_plain_version_matches_jax_kernel(align_corners, lshape, yshape):
+    logits, labels, _ = _data(lshape, yshape)
+    ct = np.random.default_rng(1).normal(size=(lshape[0], *yshape)).astype(
         np.float32)
     lj = jnp.asarray(logits, jnp.bfloat16)
     fn = functools.partial(prce.per_pixel_resize_ce,

@@ -56,15 +56,25 @@
 // in the band and dropped if it is a neighbour's. No shared-memory gather, no
 // atomics: deterministic. Two barriers a row.
 //
-// K3's backward (resize_ce_bwd<L, true>) gathers instead: a block owns a band
-// of BWD_ROWS low-res rows and a span of JS low-res columns, forms the
-// cotangent of the output columns its span touches in shared memory, and each
-// (column, class) item sums over the ~16 output columns that touch its column
-// with a tap lookup each (five shared loads a visit), then accumulates the
-// transposed H pass into its band in shared memory. On K1's shape that gather
-// was 0.69 of 1.27 ms on an H100 80GB HBM3 at 700 W
-// (scripts/torch_resize_ce_probe.py, variant k1b_no_wpass); the banded
-// products replace it.
+// K3's backward runs in two launches, as the Pallas kernel runs its two
+// transposed passes. Phase A (resize_ce_map_bwd_w) is parallel over output
+// rows: a block owns (image, MAP_ROWS output rows, span of 16-column tiles,
+// class group) and, for each of its rows, forms the H pass of the two x
+// rows, the cotangent bf16(valid * ct * (exp(y - logz) - onehot)) in shared
+// memory, and the transposed W pass on the tensor cores as K1's backward
+// forms it (the same host-built A fragments, read from the table each row;
+// a warp a (column tile, class tile) unit, the block as many warps as it
+// has units, at least 8); the result, rounded to bf16 as the plain version
+// and the Pallas kernel round it, goes to a bf16 scratch dw (N,OH,w,C).
+// Phase B (resize_ce_map_bwd_h), one thread a (image, low-res row, pair of
+// (column, class) elements), sums the transposed H pass over the output
+// rows that touch its row, ascending, in float32, and writes d(logits).
+// Every output row is computed once: no band overlap, no serial walk over
+// the rows, no atomics (deterministic). The scratch is this design's
+// choice, not the work: at DeepLab's path it is 22.4 MB, written once and
+// read about twice (mostly from L2). There phase A takes most of the time:
+// its exponentials as the forward's, plus the products, which sit between
+// two barriers on each row's path.
 //
 // Bound on this card: the exponentials. At (8,128,256,19) -> (8,1024,2048)
 // the forward moves about 60 MB (logits 10 MB, uint8 labels 17 MB, the bf16
@@ -83,6 +93,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -97,13 +109,13 @@ __device__ __forceinline__ float round_bf16(float v) {
 }
 
 // Interpolation tables, computed on the host (ops/resize_ce.py::_plan), in
-// two flat arrays; the order of the pieces is fixed on both sides.
+// two flat arrays; the order of the pieces is fixed on both sides, and the
+// layout depends only on the sizes.
 struct Tables {
   const int *row_lo, *row_hi, *col_lo, *col_hi;        // (OH), (OH), (OW), (OW)
   const int *fspan_tlo, *fspan_thi;                    // forward spans
-  const int *band_o0, *band_o1;                        // backward bands
-  const int *bspan_oc0, *bspan_oc1, *bspan_tlo, *bspan_thi;  // backward spans
-  const int *col_oc0, *col_oc1;                        // (w)
+  const int *band_o0, *band_o1;                        // K1's backward bands
+  const int *row_o0, *row_o1;  // (h): the output rows [o0, o1) touching a row
   const float *row_wlo, *row_whi, *col_wlo, *col_whi;
   const int* tail;  // K1's backward tables (mma_tables), after the pieces above
   int tail_off;     // the tail's offset in the int table, in ints
@@ -111,10 +123,10 @@ struct Tables {
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-Tables tables(const int* it, const float* ft, int h, int w, int oh, int ow, int js) {
+Tables tables(const int* it, const float* ft, int h, int w, int oh, int ow) {
   Tables t;
   const int* const it0 = it;
-  const int nfs = cdiv(ow, FWD_SPAN), nb = cdiv(h, BWD_ROWS), nbs = cdiv(w, js);
+  const int nfs = cdiv(ow, FWD_SPAN), nb = cdiv(h, BWD_ROWS);
   t.row_lo = it; it += oh;
   t.row_hi = it; it += oh;
   t.col_lo = it; it += ow;
@@ -123,12 +135,8 @@ Tables tables(const int* it, const float* ft, int h, int w, int oh, int ow, int 
   t.fspan_thi = it; it += nfs;
   t.band_o0 = it; it += nb;
   t.band_o1 = it; it += nb;
-  t.bspan_oc0 = it; it += nbs;
-  t.bspan_oc1 = it; it += nbs;
-  t.bspan_tlo = it; it += nbs;
-  t.bspan_thi = it; it += nbs;
-  t.col_oc0 = it; it += w;
-  t.col_oc1 = it; it += w;
+  t.row_o0 = it; it += h;
+  t.row_o1 = it; it += h;
   t.tail = it;
   t.tail_off = int(it - it0);
   t.row_wlo = ft; ft += oh;
@@ -223,93 +231,6 @@ resize_ce_fwd(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
   }
 }
 
-template <typename L, bool MAP>
-__global__ void __launch_bounds__(THREADS)
-resize_ce_bwd(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
-              const float* __restrict__ cw, const __nv_bfloat16* __restrict__ logz,
-              const float* __restrict__ scale_ptr, const float* __restrict__ ct, Tables tb,
-              __nv_bfloat16* __restrict__ dx, int h, int w, int c, int oh, int ow, int js,
-              int tmax, int ocmax) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_cw = smem;                          // c
-  float* s_t = s_cw + c;                       // tmax * c
-  float* s_d = s_t + tmax * c;                 // ocmax * c: the cotangent, bf16 values
-  float* s_wl = s_d + ocmax * c;               // ocmax each: W taps of the span's columns
-  float* s_wh = s_wl + ocmax;
-  int* s_jl = reinterpret_cast<int*>(s_wh + ocmax);
-  int* s_jh = s_jl + ocmax;
-  float* s_acc = reinterpret_cast<float*>(s_jh + ocmax);  // BWD_ROWS * js * c
-  const int span = blockIdx.x, band = blockIdx.y, img = blockIdx.z;
-  const int r0 = band * BWD_ROWS, j0 = span * js;
-  const int oc0 = tb.bspan_oc0[span], noc = tb.bspan_oc1[span] - oc0;
-  const int tlo = tb.bspan_tlo[span], ntc = tb.bspan_thi[span] - tlo + 1;
-  float scale = 0.f;  // g / S2
-  if constexpr (!MAP) {
-    scale = *scale_ptr;
-    for (int i = threadIdx.x; i < c; i += THREADS) s_cw[i] = cw[i];
-  }
-  for (int i = threadIdx.x; i < noc; i += THREADS) {
-    s_jl[i] = tb.col_lo[oc0 + i];
-    s_jh[i] = tb.col_hi[oc0 + i];
-    s_wl[i] = tb.col_wlo[oc0 + i];
-    s_wh[i] = tb.col_whi[oc0 + i];
-  }
-  for (int i = threadIdx.x; i < BWD_ROWS * js * c; i += THREADS) s_acc[i] = 0.f;
-  const __nv_bfloat16* xn = x + size_t(img) * h * w * c;
-  const int o_end = tb.band_o1[band];
-  for (int o = tb.band_o0[band]; o < o_end; ++o) {
-    const int hl = tb.row_lo[o], hh = tb.row_hi[o];
-    const float a = tb.row_wlo[o], b = tb.row_whi[o];
-    __syncthreads();  // s_t and s_d of the previous row are consumed
-    h_pass(xn, s_t, w, c, hl, hh, a, b, tlo, ntc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < noc; i += THREADS) {
-      const size_t px = (size_t(img) * oh + o) * ow + oc0 + i;
-      const long long lab = static_cast<long long>(labels[px]);
-      const float lz = __bfloat162float(logz[px]);
-      float gw = 0.f;
-      if (lab >= 0 && lab < c) gw = MAP ? ct[px] : s_cw[lab] * scale;
-      const float* t0 = s_t + (s_jl[i] - tlo) * c;
-      const float* t1 = s_t + (s_jh[i] - tlo) * c;
-      const float wl = s_wl[i], wh = s_wh[i];
-      float* d = s_d + i * c;
-      for (int k = 0; k < c; ++k) {
-        float y = wl * t0[k] + wh * t1[k];
-        y = fminf(fmaxf(y, -CLIP), CLIP);
-        const float p = expf(y - lz);
-        d[k] = round_bf16(gw * (p - (lab == k ? 1.f : 0.f)));
-      }
-    }
-    __syncthreads();
-    // transposed W pass for the block's own columns, then the transposed H
-    // pass into the band; each thread keeps the same (column, class) items
-    const bool top = hl >= r0 && hl < r0 + BWD_ROWS;
-    const bool bot = b != 0.f && hh >= r0 && hh < r0 + BWD_ROWS;
-    if (!top && !bot) continue;
-    for (int i = threadIdx.x; i < js * c; i += THREADS) {
-      const int j = j0 + i / c;
-      if (j >= w) break;
-      const int k = i % c;
-      float sum = 0.f;
-      const int e = tb.col_oc1[j] - oc0;
-      for (int q = tb.col_oc0[j] - oc0; q < e; ++q) {
-        const float wt = (s_jl[q] == j ? s_wl[q] : 0.f) + (s_jh[q] == j ? s_wh[q] : 0.f);
-        sum += wt * s_d[q * c + k];
-      }
-      const float dwv = round_bf16(sum);
-      if (top) s_acc[(hl - r0) * js * c + i] += a * dwv;
-      if (bot) s_acc[(hh - r0) * js * c + i] += b * dwv;
-    }
-  }
-  __syncthreads();
-  const int ncols = min(js, w - j0);
-  for (int rr = 0; rr < BWD_ROWS && r0 + rr < h; ++rr) {
-    __nv_bfloat16* dst = dx + ((size_t(img) * h + r0 + rr) * w + j0) * c;
-    for (int i = threadIdx.x; i < ncols * c; i += THREADS)
-      dst[i] = __float2bfloat16(s_acc[rr * js * c + i]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K1's backward on the tensor cores. A block owns (image, band of BWD_ROWS
 // low-res rows, span of `js` low-res columns in 16-wide tiles, group of gt
@@ -362,7 +283,9 @@ struct MmaSmem {
   }
 };
 
-// The tail of the int table (ops/resize_ce.py::_mma_schedule): per 16-wide
+// The tables of a backward's W pass on the tensor cores
+// (ops/resize_ce.py::_mma_schedule), at `tail_off` ints into their int
+// table (K1's after the pieces of `Tables`, K3's a table of its own): per 16-wide
 // column tile its first output column, its k steps and the offset of its A
 // fragments; per span its output columns [oc0, oc1) and the low-res columns
 // [tlo, thi] their W taps read; then, from a 16-byte boundary, the A
@@ -373,9 +296,9 @@ struct MTables {
   const unsigned* frags;
 };
 
-MTables mma_tables(const Tables& tb, int w, int js) {
+MTables mma_tables(const int* tail, int tail_off, int w, int js) {
   const int nt = cdiv(w, 16), ns = cdiv(w, js);
-  const int* it = tb.tail;
+  const int* it = tail;
   MTables m;
   m.tile_k0 = it; it += nt;
   m.tile_ks = it; it += nt;
@@ -384,7 +307,7 @@ MTables mma_tables(const Tables& tb, int w, int js) {
   m.span_oc1 = it; it += ns;
   m.span_tlo = it; it += ns;
   m.span_thi = it; it += ns;
-  const int off = tb.tail_off + 3 * nt + 4 * ns;
+  const int off = tail_off + 3 * nt + 4 * ns;
   it += (4 - off % 4) % 4;
   m.frags = reinterpret_cast<const unsigned*>(it);
   return m;
@@ -422,19 +345,19 @@ __device__ __forceinline__ int lead(size_t p0, bool vec) {
   return vec ? int(p0 % (16 / sizeof(T))) : 0;
 }
 
-// src[p0, p0 + count) into dst: by cp.async in 16-byte pieces from the
-// boundary below p0 where `vec` (src aligned), the piece past the end
-// zero-filled; else by plain loads.
+// src[p0, p0 + count) into dst, by a block of `nthreads` threads: by
+// cp.async in 16-byte pieces from the boundary below p0 where `vec` (src
+// aligned), the piece past the end zero-filled; else by plain loads.
 template <typename T>
 __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, size_t p0, int count,
-                                      bool vec) {
+                                      bool vec, int nthreads = THREADS) {
   constexpr int PER = 16 / sizeof(T);
   if (!vec) {
-    for (int i = threadIdx.x; i < count; i += THREADS) dst[i] = src[p0 + i];
+    for (int i = threadIdx.x; i < count; i += nthreads) dst[i] = src[p0 + i];
     return;
   }
   const int e0 = lead<T>(p0, vec), nel = e0 + count;
-  for (int i = threadIdx.x; i < cdiv(nel, PER); i += THREADS)
+  for (int i = threadIdx.x; i < cdiv(nel, PER); i += nthreads)
     cp_async16(dst + PER * i, src + (p0 - e0) + PER * i,
                int(sizeof(T)) * min(PER, nel - PER * i));
 }
@@ -628,12 +551,256 @@ resize_ce_bwd_mma(const __nv_bfloat16* __restrict__ x, const L* __restrict__ lab
   }
 }
 
-size_t fwd_smem(int c, int tmax) { return sizeof(float) * (32 + c + size_t(tmax) * c); }
+// ---------------------------------------------------------------------------
+// K3's backward, phase A: the transposed W pass of each output row. A block
+// owns (image, MAP_ROWS output rows, span of `stiles` 16-wide column tiles,
+// group of gt class tiles of 8) and has max(MMA_WARPS, stiles * gt) warps,
+// so that each (column tile, class tile) unit has a warp of its own. Each
+// row's two x rows, labels, logz and cotangent map are staged by cp.async
+// while the row before it is computed.
 
-size_t bwd_smem(int c, int js, int tmax, int ocmax) {
-  return sizeof(float) * (c + size_t(tmax) * c + size_t(ocmax) * c + 4 * size_t(ocmax) +
-                          size_t(BWD_ROWS) * js * c);
+constexpr int MAP_ROWS = 8;        // output rows a phase-A block takes
+constexpr int MAP_MAX_WARPS = 16;  // (column tile, class tile) units a block, at most
+constexpr size_t MAP_D_BUDGET = 64 * 1024;  // bytes of staged cotangent a span, about
+
+// Column tiles of 16 a phase-A span takes: as many as the warps and the
+// staged cotangent (about 16 ow / w rows a tile) allow.
+inline int map_span_tiles(int c, int w, int ow) {
+  const int gt = class_group_tiles(c), ld = gt % 2 ? 8 * gt : 8 * gt + 8;
+  int st = std::min(cdiv(w, 16), MAP_MAX_WARPS / gt);
+  while (st > 1 && (size_t(16) * st * ow / w + 32) * ld * 2 > MAP_D_BUDGET) --st;
+  return st;
 }
+
+inline int map_warps(int c, int w, int ow) {
+  return std::max(MMA_WARPS, map_span_tiles(c, w, ow) * class_group_tiles(c));
+}
+
+// The shared memory of phase A, in bytes: the span's column taps (two
+// offsets and the two bf16 weights a column), the H-pass row (float32
+// holding bf16, each column's classes padded to pairs), two buffers each of
+// the two staged x rows, of the row's labels (`lsize` bytes a label), logz
+// and cotangent map, all staged from a 16-byte boundary; the cotangent
+// (bf16, `ld` a row as in MmaSmem).
+struct MapSmem {
+  int ld, xe, le, ze, ce;
+  size_t jl, jh, wt, t, x, lab, lz, ct, d, total;
+  __host__ __device__ MapSmem(int c, int gt, int tmax, int ocmax, int lsize) {
+    ld = gt % 2 ? 8 * gt : 8 * gt + 8;
+    xe = 8 * cdiv(tmax * c + 7, 8);          // bf16 elements a staged x row
+    le = int(a16(size_t(lsize) * ocmax + 16));  // bytes a staged label row
+    ze = 8 * cdiv(ocmax + 7, 8);             // bf16 elements a staged logz row
+    ce = 4 * cdiv(ocmax + 3, 4);             // floats a staged cotangent-map row
+    jl = 0;
+    jh = a16(jl + 4 * size_t(ocmax));
+    wt = a16(jh + 4 * size_t(ocmax));
+    t = a16(wt + 4 * size_t(ocmax));
+    x = a16(t + 4 * size_t(tmax) * 8 * gt);
+    lab = a16(x + 2 * 2 * size_t(xe) * 2);
+    lz = a16(lab + 2 * size_t(le));
+    ct = a16(lz + 2 * size_t(ze) * 2);
+    d = a16(ct + 2 * size_t(ce) * 4);
+    total = a16(d + 2 * size_t(ocmax) * ld);
+  }
+};
+
+template <typename L>
+__global__ void __launch_bounds__(32 * MAP_MAX_WARPS, 2)
+resize_ce_map_bwd_w(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
+                    const __nv_bfloat16* __restrict__ logz, const float* __restrict__ ct,
+                    Tables tb, MTables mt, __nv_bfloat16* __restrict__ dw, int h, int w,
+                    int c, int oh, int ow, int stiles, int tmax, int ocmax, int gt, bool vec) {
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const MapSmem sm(c, gt, tmax, ocmax, int(sizeof(L)));
+  int* s_jl = reinterpret_cast<int*>(smem + sm.jl);
+  int* s_jh = reinterpret_cast<int*>(smem + sm.jh);
+  __nv_bfloat162* s_wt = reinterpret_cast<__nv_bfloat162*>(smem + sm.wt);
+  float* s_t = reinterpret_cast<float*>(smem + sm.t);
+  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + sm.x);
+  L* s_lab = reinterpret_cast<L*>(smem + sm.lab);
+  __nv_bfloat16* s_lz = reinterpret_cast<__nv_bfloat16*>(smem + sm.lz);
+  float* s_ct = reinterpret_cast<float*>(smem + sm.ct);
+  __nv_bfloat16* s_d = reinterpret_cast<__nv_bfloat16*>(smem + sm.d);
+  const int ld = sm.ld, xe = sm.xe, le = sm.le / int(sizeof(L)), ze = sm.ze, ce = sm.ce;
+
+  const int nthreads = blockDim.x;
+  const int ngroups = cdiv(cdiv(c, 8), gt);
+  const int span = blockIdx.x / ngroups, cg0 = (blockIdx.x % ngroups) * gt * 8;
+  const int ng = min(gt * 8, c - cg0);  // classes of this group
+  const int img = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int oc0 = mt.span_oc0[span], noc = mt.span_oc1[span] - oc0;
+  const int tlo = mt.span_tlo[span], ntc = mt.span_thi[span] - tlo + 1;
+  const int ngp = ng + (ng & 1);  // s_t's row: the group's classes, padded to pairs
+  for (int i = tid; i < noc; i += nthreads) {
+    s_jl[i] = (tb.col_lo[oc0 + i] - tlo) * ngp;
+    s_jh[i] = (tb.col_hi[oc0 + i] - tlo) * ngp;
+    s_wt[i] = __floats2bfloat162_rn(tb.col_wlo[oc0 + i], tb.col_whi[oc0 + i]);  // exact
+  }
+  // rows past the span's columns stay zero: A weighs them 0, and 0 times a
+  // stale NaN would not be 0 (a class past the group's reaches only its own
+  // product column, which is not stored)
+  for (int i = tid; i < ocmax * ld / 8; i += nthreads)
+    reinterpret_cast<uint4*>(s_d)[i] = make_uint4(0u, 0u, 0u, 0u);
+
+  // output row o's two x rows, labels, logz and cotangent map into `buf`
+  auto x_at = [&](int r) { return ((size_t(img) * h + r) * w + tlo) * c; };
+  auto stage_row = [&](int o, int buf) {
+    stage(s_x + 2 * buf * xe, x, x_at(tb.row_lo[o]), ntc * c, vec, nthreads);
+    stage(s_x + (2 * buf + 1) * xe, x, x_at(tb.row_hi[o]), ntc * c, vec, nthreads);
+    const size_t px = (size_t(img) * oh + o) * ow + oc0;
+    stage(s_lab + buf * le, labels, px, noc, vec, nthreads);
+    stage(s_lz + buf * ze, logz, px, noc, vec, nthreads);
+    stage(s_ct + buf * ce, ct, px, noc, vec, nthreads);
+    cp_async_commit();
+  };
+
+  // this warp's (column tile, class tile) unit, the same for every row (a
+  // block has a warp for each unit): its k steps, A's fragments in the
+  // table and the first row of its k range in the staged cotangent
+  const int tile = span * stiles + warp % stiles, ctl = warp / stiles;
+  const bool has_unit = warp < stiles * gt && tile < cdiv(w, 16) && ctl < cdiv(ng, 8);
+  const int ks = has_unit ? mt.tile_ks[tile] : 0;
+  const uint4* fr =
+      reinterpret_cast<const uint4*>(mt.frags + (has_unit ? mt.tile_frag[tile] : 0)) + lane;
+  const __nv_bfloat16* bp =
+      s_d + size_t((has_unit ? mt.tile_k0[tile] : oc0) - oc0 + (lane & 15)) * ld + ctl * 8;
+  const int o_begin = int(blockIdx.y) * MAP_ROWS, o_end = min(o_begin + MAP_ROWS, oh);
+  stage_row(o_begin, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int o = o_begin; o < o_end; ++o) {
+    const int buf = (o - o_begin) & 1;
+    if (o + 1 < o_end) stage_row(o + 1, buf ^ 1);
+    // the H pass: s_t[j][k] = bf16(a x[hl][tlo + j][cg0 + k] + b x[hh][...]),
+    // 0 in the pad
+    {
+      const float a = tb.row_wlo[o], b = tb.row_whi[o];
+      const __nv_bfloat16* x0 =
+          s_x + 2 * buf * xe + lead<__nv_bfloat16>(x_at(tb.row_lo[o]), vec) + cg0;
+      const __nv_bfloat16* x1 =
+          s_x + (2 * buf + 1) * xe + lead<__nv_bfloat16>(x_at(tb.row_hi[o]), vec) + cg0;
+      for (int i = tid; i < ntc * ngp; i += nthreads) {
+        const int j = i / ngp, k = i - j * ngp;
+        s_t[i] = k < ng ? round_bf16(a * __bfloat162float(x0[j * c + k]) +
+                                     b * __bfloat162float(x1[j * c + k]))
+                        : 0.f;
+      }
+    }
+    __syncthreads();  // s_t is written; the previous row's products have read s_d
+    // the cotangent bf16(valid ct (exp(y - logz) - onehot)), one thread an
+    // output column q, the group's classes in pairs
+    {
+      const size_t px = (size_t(img) * oh + o) * ow + oc0;
+      const L* lab_row = s_lab + buf * le + lead<L>(px, vec);
+      const __nv_bfloat16* lz_row = s_lz + buf * ze + lead<__nv_bfloat16>(px, vec);
+      const float* ct_row = s_ct + buf * ce + lead<float>(px, vec);
+      for (int q = tid; q < noc; q += nthreads) {
+        const long long lab = static_cast<long long>(lab_row[q]);
+        const bool valid = lab >= 0 && lab < c;
+        const float gw = valid ? ct_row[q] : 0.f;
+        const float lz = __bfloat162float(lz_row[q]);
+        const int kl = valid ? int(lab) - cg0 : -1;
+        const float2* t0 = reinterpret_cast<const float2*>(s_t + s_jl[q]);
+        const float2* t1 = reinterpret_cast<const float2*>(s_t + s_jh[q]);
+        const float2 wt = __bfloat1622float2(s_wt[q]);
+        __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(s_d + size_t(q) * ld);
+        for (int kp = 0; kp < ngp / 2; ++kp) {
+          const float2 u = t0[kp], v = t1[kp];
+          const float y0 = fminf(fmaxf(wt.x * u.x + wt.y * v.x, -CLIP), CLIP);
+          const float y1 = fminf(fmaxf(wt.x * u.y + wt.y * v.y, -CLIP), CLIP);
+          const float d0 = gw * (expf(y0 - lz) - (kl == 2 * kp ? 1.f : 0.f));
+          const float d1 = gw * (expf(y1 - lz) - (kl == 2 * kp + 1 ? 1.f : 0.f));
+          d[kp] = __floats2bfloat162_rn(d0, d1);
+        }
+      }
+    }
+    cp_async_wait_all();  // the next row's staging has landed
+    __syncthreads();
+    if (has_unit) {  // the products
+      // dw (16 low-res columns x 8 classes) = A d over the tile's k range,
+      // float32 sums of exact bf16 products, the even and the odd k steps
+      // in two chains; four steps' loads issued before their products
+      float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+      int s = 0;
+      for (; s + 3 < ks; s += 4) {
+        uint4 a[4];
+        unsigned b[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = __ldg(fr + 32 * (s + i));
+          ldsm_x2_trans(b[i][0], b[i][1], bp + size_t(16 * (s + i)) * ld);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (i % 2) mma_bf16(c1, a[i], b[i][0], b[i][1]);
+          else mma_bf16(c0, a[i], b[i][0], b[i][1]);
+        }
+      }
+      for (; s < ks; ++s) {
+        unsigned b0, b1;
+        ldsm_x2_trans(b0, b1, bp + size_t(16 * s) * ld);
+        if (s % 2) mma_bf16(c1, __ldg(fr + 32 * s), b0, b1);
+        else mma_bf16(c0, __ldg(fr + 32 * s), b0, b1);
+      }
+      // rows ja and ja + 8 of the tile, classes kq and kq + 1, in bf16
+      __nv_bfloat16* dst = dw + (size_t(img) * oh + o) * w * c;
+      const int ja = tile * 16 + (lane >> 2), kq = cg0 + ctl * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = ja + 8 * r;
+        if (j >= w) continue;
+        if (kq < c) dst[size_t(j) * c + kq] = __float2bfloat16(c0[2 * r] + c1[2 * r]);
+        if (kq + 1 < c)
+          dst[size_t(j) * c + kq + 1] = __float2bfloat16(c0[2 * r + 1] + c1[2 * r + 1]);
+      }
+    }
+  }
+}
+
+// K3's backward, phase B: the transposed H pass. One thread a (image, low-res
+// row i, pair of elements e, e + 1 of the row's w * c): dx = the float32 sum
+// over the output rows o that touch row i, ascending, of Wh[o, i] dw[o],
+// rounded to bf16. Wh[o, i] is one tap: the two taps of a row are distinct
+// rows, or the second weighs 0.
+__global__ void __launch_bounds__(THREADS)
+resize_ce_map_bwd_h(const __nv_bfloat16* __restrict__ dw, Tables tb,
+                    __nv_bfloat16* __restrict__ dx, int n, int h, int wc, int oh) {
+  const int half = cdiv(wc, 2);
+  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= (long long)n * h * half) return;
+  const int e = 2 * int(idx % half);
+  const int i = int(idx / half % h), img = int(idx / half / h);
+  const bool two = e + 1 < wc, vec = wc % 2 == 0;
+  const __nv_bfloat16* src = dw + size_t(img) * oh * wc + e;
+  float s0 = 0.f, s1 = 0.f;
+  const int o1 = tb.row_o1[i];
+  for (int o = tb.row_o0[i]; o < o1; ++o) {
+    const float wt = tb.row_lo[o] == i ? tb.row_wlo[o] : tb.row_hi[o] == i ? tb.row_whi[o] : 0.f;
+    const __nv_bfloat16* p = src + size_t(o) * wc;
+    float v0, v1 = 0.f;
+    if (vec) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+      v0 = v.x;
+      v1 = v.y;
+    } else {
+      v0 = __bfloat162float(p[0]);
+      if (two) v1 = __bfloat162float(p[1]);
+    }
+    s0 += wt * v0;
+    s1 += wt * v1;
+  }
+  __nv_bfloat16* q = dx + (size_t(img) * h + i) * wc + e;
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(q) = __floats2bfloat162_rn(s0, s1);
+  } else {
+    q[0] = __float2bfloat16(s0);
+    if (two) q[1] = __float2bfloat16(s1);
+  }
+}
+
+size_t fwd_smem(int c, int tmax) { return sizeof(float) * (32 + c + size_t(tmax) * c); }
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -641,12 +808,13 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               int(bytes));
 }
 
-// One argument pack for both kernels of either variant; a launch reads the
-// pointers its variant uses (K1: cw, partial, scale; K3: loss_map, ct).
+// One argument pack for the kernels of either variant; a launch reads the
+// pointers its variant uses (K1: cw, partial, scale; K3: loss_map, ct, and in
+// the backward wtab and the scratch dw).
 struct Args {
-  const void *x, *labels, *cw, *logz_in, *scale, *ct;
-  void *partial, *loss_map, *logz, *dx;
-  int n, h, w, c, oh, ow, js, tmax, ocmax;
+  const void *x, *labels, *cw, *logz_in, *scale, *ct, *wtab;
+  void *partial, *loss_map, *logz, *dx, *dw;
+  int n, h, w, c, oh, ow, tmax, ocmax;
 };
 
 template <typename L, bool MAP>
@@ -664,25 +832,7 @@ int launch_fwd(const Args& a, const Tables& tb, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <typename L, bool MAP>
-int launch_bwd(const Args& a, const Tables& tb, cudaStream_t stream) {
-  const size_t smem = bwd_smem(a.c, a.js, a.tmax, a.ocmax);
-  if (smem > SMEM_LIMIT) return int(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(resize_ce_bwd<L, MAP>, smem);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid(cdiv(a.w, a.js), cdiv(a.h, BWD_ROWS), a.n);
-  resize_ce_bwd<L, MAP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.x), static_cast<const L*>(a.labels),
-      static_cast<const float*>(a.cw), static_cast<const __nv_bfloat16*>(a.logz_in),
-      static_cast<const float*>(a.scale), static_cast<const float*>(a.ct), tb,
-      static_cast<__nv_bfloat16*>(a.dx), a.h, a.w, a.c, a.oh, a.ow, a.js, a.tmax,
-      a.ocmax);
-  return int(cudaGetLastError());
-}
-
-// Dispatch on the label type and the direction; `backward` picks the kernel.
-// K1's backward: `a.js` is K3's span (the layout of the tables before the
-// tail), a.tmax and a.ocmax are this kernel's (ops/resize_ce.py::_plan).
+// K1's backward; a.tmax and a.ocmax are its span's (ops/resize_ce.py::_plan).
 template <typename L>
 int launch_bwd_mma(const Args& a, const Tables& tb, cudaStream_t stream) {
   const int gt = class_group_tiles(a.c), js = 16 * span_tiles(a.c, a.w, a.ow);
@@ -696,26 +846,54 @@ int launch_bwd_mma(const Args& a, const Tables& tb, cudaStream_t stream) {
   resize_ce_bwd_mma<L><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), static_cast<const L*>(a.labels),
       static_cast<const float*>(a.cw), static_cast<const __nv_bfloat16*>(a.logz_in),
-      static_cast<const float*>(a.scale), tb, mma_tables(tb, a.w, js),
+      static_cast<const float*>(a.scale), tb, mma_tables(tb.tail, tb.tail_off, a.w, js),
       static_cast<__nv_bfloat16*>(a.dx), a.h, a.w, a.c, a.oh, a.ow, js, a.tmax, a.ocmax,
       gt, vec);
   return int(cudaGetLastError());
 }
 
-// The backward's kernel: K1's on the tensor cores, K3's the gather.
+// K3's backward: phase A into the scratch dw, then phase B; a.tmax and
+// a.ocmax are phase A's span's, its tables the int table a.wtab.
+template <typename L>
+int launch_map_bwd(const Args& a, const Tables& tb, cudaStream_t stream) {
+  const int gt = class_group_tiles(a.c), st = map_span_tiles(a.c, a.w, a.ow);
+  const size_t smem = MapSmem(a.c, gt, a.tmax, a.ocmax, int(sizeof(L))).total;
+  if (smem > SMEM_LIMIT) return int(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(resize_ce_map_bwd_w<L>, smem);
+  if (err != cudaSuccess) return int(err);
+  const bool vec = (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.labels) |
+                    reinterpret_cast<uintptr_t>(a.logz_in) |
+                    reinterpret_cast<uintptr_t>(a.ct)) % 16 == 0;
+  const dim3 grid(cdiv(a.w, 16 * st) * cdiv(cdiv(a.c, 8), gt), cdiv(a.oh, MAP_ROWS), a.n);
+  __nv_bfloat16* dw = static_cast<__nv_bfloat16*>(a.dw);
+  resize_ce_map_bwd_w<L><<<grid, 32 * map_warps(a.c, a.w, a.ow), smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x), static_cast<const L*>(a.labels),
+      static_cast<const __nv_bfloat16*>(a.logz_in), static_cast<const float*>(a.ct), tb,
+      mma_tables(static_cast<const int*>(a.wtab), 0, a.w, 16 * st), dw, a.h, a.w, a.c,
+      a.oh, a.ow, st, a.tmax, a.ocmax, gt, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const long long items = (long long)a.n * a.h * cdiv(a.w * a.c, 2);
+  resize_ce_map_bwd_h<<<unsigned((items + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      dw, tb, static_cast<__nv_bfloat16*>(a.dx), a.n, a.h, a.w * a.c, a.oh);
+  return int(cudaGetLastError());
+}
+
+// The backward's kernels: K1's on the tensor cores, K3's two phases.
 template <typename L, bool MAP>
 int launch_backward(const Args& a, const Tables& tb, cudaStream_t stream) {
-  if constexpr (MAP) return launch_bwd<L, true>(a, tb, stream);
+  if constexpr (MAP) return launch_map_bwd<L>(a, tb, stream);
   else return launch_bwd_mma<L>(a, tb, stream);
 }
 
+// Dispatch on the label type and the direction.
 template <bool MAP>
 int run(const Args& a, int label_kind, bool backward, const void* itab, const void* ftab,
         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   const Tables tb = tables(static_cast<const int*>(itab), static_cast<const float*>(ftab),
-                           a.h, a.w, a.oh, a.ow, a.js);
+                           a.h, a.w, a.oh, a.ow);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (label_kind) {
     case 0: return backward ? launch_backward<uint8_t, MAP>(a, tb, s) : launch_fwd<uint8_t, MAP>(a, tb, s);
@@ -734,37 +912,38 @@ extern "C" {
 int resize_ce_fwd_rows() { return FWD_ROWS; }
 int resize_ce_fwd_span() { return FWD_SPAN; }
 int resize_ce_bwd_rows() { return BWD_ROWS; }
-int resize_ce_threads() { return THREADS; }
 size_t resize_ce_fwd_smem(int c, int tmax) { return fwd_smem(c, tmax); }
-size_t resize_ce_bwd_smem(int c, int js, int tmax, int ocmax) {
-  return bwd_smem(c, js, tmax, ocmax);
-}
 size_t resize_ce_smem_limit() { return SMEM_LIMIT; }
 // K1's backward: the column tiles of 16 of its spans, and its shared memory.
 int resize_ce_bwd_span_tiles(int c, int w, int ow) { return span_tiles(c, w, ow); }
 size_t resize_ce_bwd_mma_smem(int c, int tmax, int ocmax) {
   return MmaSmem(c, class_group_tiles(c), tmax, ocmax).total;
 }
+// K3's backward, phase A: the same.
+int resize_ce_map_bwd_span_tiles(int c, int w, int ow) { return map_span_tiles(c, w, ow); }
+size_t resize_ce_map_bwd_smem(int c, int tmax, int ocmax) {
+  return MapSmem(c, class_group_tiles(c), tmax, ocmax, 8).total;  // 8-byte labels at most
+}
 
 // label_kind: 0 uint8, 1 int32, 2 int64. Launch on `stream`; returns the
 // launch's cudaError_t (0 on success).
 int resize_ce_forward(const void* x, const void* labels, int label_kind, const void* cw,
                       const void* itab, const void* ftab, void* partial, void* logz,
-                      int n, int h, int w, int c, int oh, int ow, int js, int tmax,
-                      int device, void* stream) {
+                      int n, int h, int w, int c, int oh, int ow, int tmax, int device,
+                      void* stream) {
   Args a{};
   a.x = x; a.labels = labels; a.cw = cw; a.partial = partial; a.logz = logz;
-  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.js = js; a.tmax = tmax;
+  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.tmax = tmax;
   return run<false>(a, label_kind, false, itab, ftab, device, stream);
 }
 
 int resize_ce_backward(const void* x, const void* labels, int label_kind, const void* cw,
                        const void* logz, const void* scale, const void* itab,
                        const void* ftab, void* dx, int n, int h, int w, int c, int oh,
-                       int ow, int js, int tmax, int ocmax, int device, void* stream) {
+                       int ow, int tmax, int ocmax, int device, void* stream) {
   Args a{};
   a.x = x; a.labels = labels; a.cw = cw; a.logz_in = logz; a.scale = scale; a.dx = dx;
-  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.js = js; a.tmax = tmax;
+  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.tmax = tmax;
   a.ocmax = ocmax;
   return run<false>(a, label_kind, true, itab, ftab, device, stream);
 }
@@ -772,22 +951,26 @@ int resize_ce_backward(const void* x, const void* labels, int label_kind, const 
 // K3: the loss map (N,OH,OW) float32 and logz (N,OH,OW) bf16.
 int resize_ce_map_forward(const void* x, const void* labels, int label_kind,
                           const void* itab, const void* ftab, void* loss_map, void* logz,
-                          int n, int h, int w, int c, int oh, int ow, int js, int tmax,
-                          int device, void* stream) {
+                          int n, int h, int w, int c, int oh, int ow, int tmax, int device,
+                          void* stream) {
   Args a{};
   a.x = x; a.labels = labels; a.loss_map = loss_map; a.logz = logz;
-  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.js = js; a.tmax = tmax;
+  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.tmax = tmax;
   return run<true>(a, label_kind, false, itab, ftab, device, stream);
 }
 
-// K3's backward: d(logits) from the cotangent map ct (N,OH,OW) float32.
+// K3's backward: d(logits) from the cotangent map ct (N,OH,OW) float32, through
+// the scratch dw (N,OH,w,C) bf16; wtab is phase A's int table, tmax and
+// ocmax its spans' most source columns and staged rows.
 int resize_ce_map_backward(const void* x, const void* labels, int label_kind,
                            const void* logz, const void* ct, const void* itab,
-                           const void* ftab, void* dx, int n, int h, int w, int c, int oh,
-                           int ow, int js, int tmax, int ocmax, int device, void* stream) {
+                           const void* ftab, const void* wtab, void* dw, void* dx, int n,
+                           int h, int w, int c, int oh, int ow, int tmax, int ocmax,
+                           int device, void* stream) {
   Args a{};
-  a.x = x; a.labels = labels; a.logz_in = logz; a.ct = ct; a.dx = dx;
-  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.js = js; a.tmax = tmax;
+  a.x = x; a.labels = labels; a.logz_in = logz; a.ct = ct; a.wtab = wtab; a.dw = dw;
+  a.dx = dx;
+  a.n = n; a.h = h; a.w = w; a.c = c; a.oh = oh; a.ow = ow; a.tmax = tmax;
   a.ocmax = ocmax;
   return run<true>(a, label_kind, true, itab, ftab, device, stream);
 }

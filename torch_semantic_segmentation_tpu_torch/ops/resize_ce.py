@@ -44,7 +44,6 @@ from torch_semantic_segmentation_tpu_torch.ops.upsample import _interp_matrix
 
 _CLIP = 80.0
 _LABEL_KINDS = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
-_MAX_SPAN = 32   # low-res columns a backward block owns, at most
 
 
 class _Taps(tp.NamedTuple):
@@ -190,26 +189,29 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         for name in ("resize_ce_fwd_rows", "resize_ce_fwd_span",
-                     "resize_ce_bwd_rows", "resize_ce_threads"):
+                     "resize_ce_bwd_rows"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
-        lib.resize_ce_bwd_smem.argtypes = [i, i, i, i]
-        lib.resize_ce_bwd_smem.restype = z
-        lib.resize_ce_bwd_span_tiles.argtypes = [i, i, i]
-        lib.resize_ce_bwd_span_tiles.restype = i
+        for name in ("resize_ce_bwd_span_tiles",
+                     "resize_ce_map_bwd_span_tiles"):
+            getattr(lib, name).argtypes = [i, i, i]
+            getattr(lib, name).restype = i
         lib.resize_ce_bwd_mma_smem.argtypes = [i, i, i]
         lib.resize_ce_bwd_mma_smem.restype = z
+        lib.resize_ce_map_bwd_smem.argtypes = [i, i, i]
+        lib.resize_ce_map_bwd_smem.restype = z
         lib.resize_ce_fwd_smem.argtypes = [i, i]
         lib.resize_ce_fwd_smem.restype = z
         lib.resize_ce_smem_limit.argtypes = []
         lib.resize_ce_smem_limit.restype = z
-        lib.resize_ce_forward.argtypes = [p, p, i, p, p, p, p, p] + [i] * 9 + [p]
+        lib.resize_ce_forward.argtypes = [p, p, i, p, p, p, p, p] + [i] * 8 + [p]
         lib.resize_ce_forward.restype = i
-        lib.resize_ce_backward.argtypes = [p, p, i, p, p, p, p, p, p] + [i] * 10 + [p]
+        lib.resize_ce_backward.argtypes = [p, p, i, p, p, p, p, p, p] + [i] * 9 + [p]
         lib.resize_ce_backward.restype = i
-        lib.resize_ce_map_forward.argtypes = [p, p, i, p, p, p, p] + [i] * 9 + [p]
+        lib.resize_ce_map_forward.argtypes = [p, p, i, p, p, p, p] + [i] * 8 + [p]
         lib.resize_ce_map_forward.restype = i
-        lib.resize_ce_map_backward.argtypes = [p, p, i, p, p, p, p, p] + [i] * 10 + [p]
+        lib.resize_ce_map_backward.argtypes = ([p, p, i, p, p, p, p, p, p, p]
+                                               + [i] * 9 + [p])
         lib.resize_ce_map_backward.restype = i
         lib.resize_ce_error_string.argtypes = [i]
         lib.resize_ce_error_string.restype = ctypes.c_char_p
@@ -280,8 +282,9 @@ class _MmaSchedule(tp.NamedTuple):
 
 def _mma_schedule(w: int, ow: int, align_corners: bool, span_tiles: int,
                   head: int = 0) -> _MmaSchedule:
-    """The tables of K1's backward (csrc/resize_ce.cu::mma_tables) for spans
-    of `span_tiles` 16-wide column tiles, after `head` ints of the table.
+    """The tables of a backward's W pass on the tensor cores
+    (csrc/resize_ce.cu::mma_tables: K1's, and phase A of K3's) for spans of
+    `span_tiles` 16-wide column tiles, after `head` ints of the table.
 
     Per tile: the output columns [k0, k1) that touch its 16 low-res
     columns, rounded up to k steps of 16, and A, the tile's dense block of
@@ -325,22 +328,22 @@ def _mma_schedule(w: int, ow: int, align_corners: bool, span_tiles: int,
 class _Plan(tp.NamedTuple):
     itab: np.ndarray   # int32 tables, in the order of csrc/resize_ce.cu::tables
     ftab: np.ndarray   # float32 tables
-    js: int            # low-res columns a K3 backward block owns
     tmax_fwd: int
-    tmax_bwd: int
-    ocmax: int
     fwd_blocks: int
     mma_tmax: int      # K1's backward: low-res columns a span reads
     mma_ocmax: int     # and rows of its staged cotangent
+    wtab: np.ndarray   # K3's backward, phase A: its int table (mma_tables)
+    map_tmax: int      # and the same two of its spans
+    map_ocmax: int
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(h: int, w: int, oh: int, ow: int, c: int,
           align_corners: bool) -> _Plan:
-    """The launch geometry and the interpolation tables of both kernels."""
+    """The launch geometry and the interpolation tables of the kernels."""
     lib = _library()
     fwd_rows, fwd_span = lib.resize_ce_fwd_rows(), lib.resize_ce_fwd_span()
-    bwd_rows, threads = lib.resize_ce_bwd_rows(), lib.resize_ce_threads()
+    bwd_rows = lib.resize_ce_bwd_rows()
     limit = lib.resize_ce_smem_limit()
     rows, cols = _taps(h, oh, align_corners), _taps(w, ow, align_corners)
     # forward: the low-res columns each span of output columns reads
@@ -350,32 +353,13 @@ def _plan(h: int, w: int, oh: int, ow: int, c: int,
     if lib.resize_ce_fwd_smem(c, tmax_fwd) > limit:
         raise ValueError(f"resize_ce kernel: C={c} with {tmax_fwd} source "
                          "columns a block exceeds the shared memory")
-    # backward: the output rows that touch each band of low-res rows, the
-    # output columns that touch each low-res column and each span of them
+    # backward: the output rows that touch each low-res row (K3's phase B)
+    # and each band of them (K1)
     r_first, r_last = _touching(rows, h)
     band_o0, band_o1 = _ranges(r_first, r_last, h, bwd_rows)
-    c_first, c_last = _touching(cols, w)
-    best = None
-    for js in range(min(_MAX_SPAN, w), 0, -1):
-        oc0, oc1 = _ranges(c_first, c_last, w, js)
-        tlo, thi = _source_span(cols, oc0, oc1)
-        ocmax = max(int((oc1 - oc0).max()), 1)
-        tmax = max(int((thi - tlo).max()) + 1, 1)
-        if lib.resize_ce_bwd_smem(c, js, tmax, ocmax) > limit:
-            continue
-        cand = (js, oc0, oc1, tlo, thi, tmax, ocmax)
-        if best is None:
-            best = cand
-        if ocmax <= threads:   # every output column of a span in one pass
-            best = cand
-            break
-    if best is None:
-        raise ValueError(f"resize_ce kernel: C={c} exceeds the backward "
-                         "block's shared memory")
-    js, oc0, oc1, tlo, thi, tmax_bwd, ocmax = best
     itab = np.concatenate([rows.lo, rows.hi, cols.lo, cols.hi, f_tlo, f_thi,
-                           band_o0, band_o1, oc0, oc1, tlo, thi, c_first,
-                           c_last]).astype(np.int32)
+                           band_o0, band_o1, r_first, r_last]
+                          ).astype(np.int32)
     # K1's backward walks the output rows in order with a sliding pair of
     # low-res rows: their taps must ascend and span at most two rows
     if np.any(np.diff(rows.lo) < 0) or np.any(rows.hi - rows.lo > 1):
@@ -386,19 +370,24 @@ def _plan(h: int, w: int, oh: int, ow: int, c: int,
         raise ValueError(f"resize_ce kernel: C={c} at {w} -> {ow} columns "
                          "exceeds the backward block's shared memory")
     itab = np.concatenate([itab, mma.tail])
+    wmap = _mma_schedule(w, ow, align_corners,
+                         lib.resize_ce_map_bwd_span_tiles(c, w, ow))
+    if lib.resize_ce_map_bwd_smem(c, wmap.tmax, wmap.ocmax) > limit:
+        raise ValueError(f"resize_ce kernel: C={c} at {w} -> {ow} columns "
+                         "exceeds the map backward block's shared memory")
     ftab = np.concatenate([rows.wlo, rows.whi, cols.wlo, cols.whi]
                           ).astype(np.float32)
     fwd_blocks = len(f_lo) * -(-oh // fwd_rows)
-    return _Plan(itab, ftab, js, tmax_fwd, tmax_bwd, ocmax, fwd_blocks,
-                 mma.tmax, mma.ocmax)
+    return _Plan(itab, ftab, tmax_fwd, fwd_blocks, mma.tmax, mma.ocmax,
+                 wmap.tail, wmap.tmax, wmap.ocmax)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(h: int, w: int, oh: int, ow: int, c: int,
                    align_corners: bool, device: str):
     plan = _plan(h, w, oh, ow, c, align_corners)
-    return (torch.from_numpy(plan.itab).to(device),
-            torch.from_numpy(plan.ftab).to(device))
+    return tuple(torch.from_numpy(t).to(device)
+                 for t in (plan.itab, plan.ftab, plan.wtab))
 
 
 def _check_cuda_inputs(logits, labels, cw=None):
@@ -457,7 +446,7 @@ def resize_ce_forward(logits: torch.Tensor, labels: torch.Tensor,
     oh, ow = labels.shape[1], labels.shape[2]
     key = (h, w, oh, ow, c, bool(align_corners))
     plan = _plan(*key)
-    itab, ftab = _device_tables(*key, str(logits.device))
+    itab, ftab, _ = _device_tables(*key, str(logits.device))
     partial = torch.empty((n * plan.fwd_blocks, 2), dtype=torch.float32,
                           device=logits.device)
     logz = torch.empty((n, oh, ow), dtype=torch.bfloat16, device=logits.device)
@@ -465,7 +454,7 @@ def resize_ce_forward(logits: torch.Tensor, labels: torch.Tensor,
     _check(lib, lib.resize_ce_forward(
         logits.data_ptr(), labels.data_ptr(), _LABEL_KINDS[labels.dtype],
         cw.data_ptr(), itab.data_ptr(), ftab.data_ptr(), partial.data_ptr(),
-        logz.data_ptr(), n, h, w, c, oh, ow, plan.js, plan.tmax_fwd,
+        logz.data_ptr(), n, h, w, c, oh, ow, plan.tmax_fwd,
         logits.device.index or 0, _stream(logits)), "forward")
     resize_ce_forward.launches += 1
     sums = partial.sum(dim=0)
@@ -493,14 +482,14 @@ def resize_ce_backward(logits: torch.Tensor, labels: torch.Tensor,
     _check_map(logz, (n, oh, ow), torch.bfloat16, logits.device, "logz")
     key = (h, w, oh, ow, c, bool(align_corners))
     plan = _plan(*key)
-    itab, ftab = _device_tables(*key, str(logits.device))
+    itab, ftab, _ = _device_tables(*key, str(logits.device))
     scale = scale.to(device=logits.device, dtype=torch.float32).reshape(1)
     dx = torch.empty_like(logits)
     lib = _library()
     _check(lib, lib.resize_ce_backward(
         logits.data_ptr(), labels.data_ptr(), _LABEL_KINDS[labels.dtype],
         cw.data_ptr(), logz.data_ptr(), scale.data_ptr(), itab.data_ptr(),
-        ftab.data_ptr(), dx.data_ptr(), n, h, w, c, oh, ow, plan.js,
+        ftab.data_ptr(), dx.data_ptr(), n, h, w, c, oh, ow,
         plan.mma_tmax, plan.mma_ocmax, logits.device.index or 0,
         _stream(logits)), "backward")
     resize_ce_backward.launches += 1
@@ -523,7 +512,7 @@ def resize_ce_map_forward(logits: torch.Tensor, labels: torch.Tensor,
     oh, ow = labels.shape[1], labels.shape[2]
     key = (h, w, oh, ow, c, bool(align_corners))
     plan = _plan(*key)
-    itab, ftab = _device_tables(*key, str(logits.device))
+    itab, ftab, _ = _device_tables(*key, str(logits.device))
     loss_map = torch.empty((n, oh, ow), dtype=torch.float32,
                            device=logits.device)
     logz = torch.empty((n, oh, ow), dtype=torch.bfloat16, device=logits.device)
@@ -531,7 +520,7 @@ def resize_ce_map_forward(logits: torch.Tensor, labels: torch.Tensor,
     _check(lib, lib.resize_ce_map_forward(
         logits.data_ptr(), labels.data_ptr(), _LABEL_KINDS[labels.dtype],
         itab.data_ptr(), ftab.data_ptr(), loss_map.data_ptr(), logz.data_ptr(),
-        n, h, w, c, oh, ow, plan.js, plan.tmax_fwd, logits.device.index or 0,
+        n, h, w, c, oh, ow, plan.tmax_fwd, logits.device.index or 0,
         _stream(logits)), "map forward")
     resize_ce_map_forward.launches += 1
     return loss_map, logz
@@ -557,14 +546,17 @@ def resize_ce_map_backward(logits: torch.Tensor, labels: torch.Tensor,
     _check_map(ct, (n, oh, ow), torch.float32, logits.device, "the cotangent")
     key = (h, w, oh, ow, c, bool(align_corners))
     plan = _plan(*key)
-    itab, ftab = _device_tables(*key, str(logits.device))
+    itab, ftab, wtab = _device_tables(*key, str(logits.device))
+    # phase A's transposed W pass, rounded to bf16, for phase B to sum
+    dw = torch.empty((n, oh, w, c), dtype=torch.bfloat16, device=logits.device)
     dx = torch.empty_like(logits)
     lib = _library()
     _check(lib, lib.resize_ce_map_backward(
         logits.data_ptr(), labels.data_ptr(), _LABEL_KINDS[labels.dtype],
         logz.data_ptr(), ct.data_ptr(), itab.data_ptr(), ftab.data_ptr(),
-        dx.data_ptr(), n, h, w, c, oh, ow, plan.js, plan.tmax_bwd, plan.ocmax,
-        logits.device.index or 0, _stream(logits)), "map backward")
+        wtab.data_ptr(), dw.data_ptr(), dx.data_ptr(), n, h, w, c, oh, ow,
+        plan.map_tmax, plan.map_ocmax, logits.device.index or 0,
+        _stream(logits)), "map backward")
     resize_ce_map_backward.launches += 1
     return dx
 
