@@ -118,13 +118,15 @@ def kernel_body(src: str, name: str) -> tuple[int, int] | None:
     raise SystemExit(f"{name}: unbalanced braces")
 
 
-def patched(src: str, variant: str) -> str:
-    """`src` with the variant's pairs applied inside its kernel's body."""
-    designs = VARIANTS[variant]
+def patched(src: str, variant: str, variants: dict = VARIANTS,
+            source: str = "resize_ce.cu") -> str:
+    """`src` (the text of `source`) with the variant's pairs applied inside
+    its kernel's body."""
+    designs = variants[variant]
     found = {k: kernel_body(src, k) for k in designs}
     found = {k: v for k, v in found.items() if v is not None}
     if len(found) != 1:
-        raise SystemExit(f"{variant}: resize_ce.cu defines {sorted(found)} "
+        raise SystemExit(f"{variant}: {source} defines {sorted(found)} "
                          f"of its kernels {sorted(designs)}; one expected")
     (kernel, (start, end)), = found.items()
     body = src[start:end]

@@ -19,8 +19,15 @@ wrappers run the plain versions:
   both, while a port that kept the bf16-rounded kernel of the unrouted
   conv reads 8.6e-2 to 0.27 apart from the routed JAX module on every
   gradient (a probe on this file's inputs);
-- the routing predicate's truth table.
+- the routing predicate's truth table;
+- the plain forward and the plain stride-2 dx pinned bit for bit to the
+  Hopper kernel's order of products and sums (a numpy float32 loop);
+- the variants of `scripts/torch_dw_bwd_probe.py`, each patching only
+  inside the kernel it names.
 """
+
+import difflib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +47,7 @@ from torch_semantic_segmentation_tpu_torch.models.fastscnn import (
 from torch_semantic_segmentation_tpu_torch.ops import conv as tconv
 from torch_semantic_segmentation_tpu_torch.ops import depthwise
 
+from tests.test_torch_resize_ce_map_bwd import _kernel_lines, _variants
 from tests.torch_port_util import randomize_bn
 
 torch.set_num_threads(2)
@@ -175,6 +183,72 @@ def test_plain_forward_is_the_kernels_sum_bit_for_bit(c, stride, dtype):
     want = _bf16_round(acc) if dtype == torch.bfloat16 else acc
     assert got.dtype == dtype and got.shape == want.shape
     np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("c", [c for c, s in PINNED_CASES if s == 2])
+def test_plain_stride2_dx_is_the_kernels_sum_bit_for_bit(c, dtype):
+    """The stride-2 dx of `depthwise3x3_reference_backward` against a numpy
+    float32 loop in the Hopper kernel's order: each input pixel sums the
+    taps (dh, dw) whose output pixel lies in the image, dh outer and dw
+    inner, from 0, each product and each sum rounded to float32 on its own,
+    one rounding to x's type at the end. Even H and odd W, so that taps fall
+    past the image at both ends. The card's test holds the kernel to the
+    plain version with `torch.equal`; this pins the plain version to that
+    order."""
+    dtype = getattr(torch, dtype)
+    n, h, w = 2, 10, 11
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    rng = np.random.default_rng(c)
+    xt = torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(
+        np.float32)).to(dtype)
+    gt = torch.from_numpy(rng.normal(size=(n, ho, wo, c)).astype(
+        np.float32)).to(dtype)
+    k = rng.normal(size=(3, 3, c)).astype(np.float32) * 0.5
+    got, _ = depthwise.depthwise3x3_reference_backward(
+        xt, torch.from_numpy(k), gt, 2)
+    g = gt.float().numpy()
+    acc = np.zeros((n, h, w, c), np.float32)
+    for dh in range(3):
+        for dw in range(3):
+            # input row r = 2 i + dh - 1 of output row i, inside the image
+            i = np.array([i for i in range(ho) if 0 <= 2 * i + dh - 1 < h])
+            j = np.array([j for j in range(wo) if 0 <= 2 * j + dw - 1 < w])
+            r, q = np.ix_(2 * i + dh - 1, 2 * j + dw - 1)
+            prod = np.multiply(g[:, i][:, :, j], k[dh, dw], dtype=np.float32)
+            acc[:, r, q] = np.add(acc[:, r, q], prod, dtype=np.float32)
+    want = _bf16_round(acc) if dtype == torch.bfloat16 else acc
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+ROOT = Path(__file__).resolve().parent.parent
+DW_CU = ROOT / "torch_semantic_segmentation_tpu_torch" / "csrc" / "depthwise.cu"
+DW_PROBE = ROOT / "scripts" / "torch_dw_bwd_probe.py"
+
+
+@pytest.mark.parametrize("variant", ["k6b_no_dk", "k6b_no_dx"])
+def test_probe_variant_patches_only_its_kernel(variant):
+    """Each variant of `scripts/torch_dw_bwd_probe.py` names one kernel that
+    `depthwise.cu` defines and changes lines inside that kernel's body only,
+    each of its texts found once (a probe that patched another kernel would
+    time the wrong one)."""
+    src = DW_CU.read_text()
+    designs = _variants(DW_PROBE)[variant]
+    defined = {k: _kernel_lines(src, k) for k in designs}
+    defined = {k: v for k, v in defined.items() if v is not None}
+    assert len(defined) == 1, f"{variant}: kernels defined {defined}"
+    (kernel, (first, last)), = defined.items()
+    out = src
+    for old, new in designs[kernel]:
+        assert src.count(old) == 1, f"{variant}: {old!r} not once in the file"
+        out = out.replace(old, new)
+    changed = [i for tag, i1, i2, _, _ in difflib.SequenceMatcher(
+        None, src.splitlines(), out.splitlines()).get_opcodes()
+        if tag != "equal" for i in range(i1, max(i2, i1 + 1))]
+    assert changed, f"{variant} changes nothing"
+    assert all(first < i <= last for i in changed), (
+        f"{variant}: lines {changed} outside {kernel} ({first}-{last})")
 
 
 def test_learning_to_downsample_train_bf16_matches_routed_jax(monkeypatch):

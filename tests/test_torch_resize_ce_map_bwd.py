@@ -119,10 +119,10 @@ def test_two_phase_schedule_matches_plain_backward(n, h, w, c, oh, ow, ac,
     _close(dx.to(torch.bfloat16).float(), want.float(), D_TOL)
 
 
-def _variants() -> dict:
-    """VARIANTS of the probe script, read as text (the script imports the
+def _variants(probe: Path = PROBE) -> dict:
+    """VARIANTS of a probe script, read as text (the script imports the
     card's tooling)."""
-    for node in ast.parse(PROBE.read_text()).body:
+    for node in ast.parse(probe.read_text()).body:
         if (isinstance(node, ast.Assign)
                 and getattr(node.targets[0], "id", None) == "VARIANTS"):
             return ast.literal_eval(node.value)

@@ -10,15 +10,20 @@
 // sum; the output is rounded once to x's type.
 //
 // Backward from dy (N,Ho,Wo,C) in x's type:
-// - dx, stride 1: the forward of dy with the kernel flipped (the caller flips k).
-// - dx, stride 2: gather form. Each input pixel sums the dy taps whose
-//   (h+1-dh)/2 and (w+1-dw)/2 are whole and in range, dh outer and dw inner, in
-//   float32, rounded once to dy's type. No atomics.
-// - dk: the sum over every output pixel of the shifted x times dy, in float32.
-//   Each block of dw_dk_partial_kernel sums the (9, C) of one range of output
-//   pixels in a fixed order and writes it to its row of a (blocks, 9, C) float32
-//   scratch that the caller allocates; dw_dk_reduce_kernel sums the rows in a
-//   fixed order. So dk is the same, bit for bit, from launch to launch.
+// - stride 2, dx and dk in one kernel (dw_bwd_s2_kernel), one pass over x and
+//   dy. Each input pixel (r, q) sums the dy taps whose (r+1-dh)/2 and
+//   (q+1-dw)/2 are whole and in range, dh outer and dw inner, in float32 with
+//   each product and sum rounded on its own, rounded once to x's type: the
+//   plain version's scatter adds the same products in the same order from 0.
+//   dk is a float32 sum over every output pixel of the shifted x times dy;
+//   each block keeps its own sums and writes them to its row of a
+//   (blocks, 9, C) float32 scratch that the caller allocates, and
+//   dw_dk_reduce_kernel sums the rows in a fixed order. The blocks and the
+//   tiles each one walks are fixed by the card, so dk is the same, bit for
+//   bit, from launch to launch. No atomics.
+// - stride 1: dx is the forward of dy with the kernel flipped (the caller
+//   flips k); dk from dw_dk_partial_kernel, each block summing the (9, C) of
+//   one range of output pixels into its scratch row, then dw_dk_reduce_kernel.
 //
 // Replaces the JAX package's TPU kernels in ops/pallas_dw.py: _make_s2_fwd
 // (pl.pallas_call in _dw_s2_fwd_call, :405), _make_s1_fwd (_dw_s1_fwd_call,
@@ -47,11 +52,26 @@
 // once a run. Index math is 32-bit. One kernel, templated on the type and the
 // stride, takes the stride-1 forward and so the stride-1 dx too.
 //
-// Backward: one thread per (pixel, group of 8 channels), neighbouring threads
-// on neighbouring channel groups, so that a warp reads contiguous bytes of each
-// tap's row; 16-byte loads of bf16 (two of them for float32) where C % 8 == 0
-// and the tensors are 16-byte aligned, a masked scalar tail otherwise. The taps
-// that neighbouring pixels share come from the L1 and L2 caches.
+// Stride-2 backward design: the forward's tiles and staging, with two staged
+// tensors. A tile of th output rows by tw output columns over all channels
+// stages x rows 2*i0-1 .. 2*(i0+th)-1 (the columns likewise) and dy rows
+// i0 .. i0+th (one halo row below, one halo column right), zero-filled
+// outside the image and past C, and writes dx for the input rows and columns
+// 2*i0 .. 2*(i0+th)-1. A unit is one output pixel and 4 channels: dk's nine
+// products of x with its dy, and the 2 x 2 quad of dx pixels that read it,
+// which between them take each of the nine taps once (one, two, two and
+// four taps by parity). A thread keeps its 4 channels' nine dk sums in
+// registers over every tile of its block; the taps of every channel sit in
+// shared memory beside the buffers. With the taps in registers too (72
+// floats a thread) ptxas spilled 108-164 bytes at the 128 registers that two
+// blocks of 256 threads an SM allow, and FastSCNN's two LDS convs took
+// 0.58 ms against 0.33 on an H100 SXM (CUDA graph times at
+// `scripts/torch_dw_bwd_probe.py`'s shapes); 8 channels a thread, as the
+// forward takes, would need 144 floats. The tile is chosen on
+// the host as the forward's is; persistent blocks walk the tiles with two
+// buffers; at the end each channel's lanes are summed in a fixed tree in
+// shared memory. Bound on this card: memory (x and dy read once, dx written
+// once: 0.60 GB at FastSCNN's ds1 conv, 0.18 ms at 3.35 TB/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,23 +80,29 @@
 
 namespace {
 
-constexpr int VEC = 8;                 // channels a thread
+constexpr int VEC = 8;                 // channels a thread: the forward, the stride-1 dk
+constexpr int BV = 4;                  // channels a thread: the stride-2 backward
 constexpr int THREADS = 256;
+constexpr int BWD_THREADS = 512;       // the stride-2 backward's widest block (C = MAX_C)
 constexpr int MAX_C = THREADS * VEC;   // dk: every channel group of a pixel in one block
-constexpr int DK_MAX_BLOCKS = 1056;    // dk scratch rows: 8 blocks on each of 132 SMs
-constexpr long long MAX_GRID = 1 << 20;
+constexpr int DK_MAX_BLOCKS = 1056;    // stride-1 dk scratch rows: 8 blocks on each of 132 SMs
+
+template <int V>
+__device__ __forceinline__ void widen(const void* raw, float v[V]) {
+  const __nv_bfloat162* h2 = static_cast<const __nv_bfloat162*>(raw);
+#pragma unroll
+  for (int e = 0; e < V / 2; ++e) {
+    const float2 f = __bfloat1622float2(h2[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p, int valid,
                                       bool vec, float v[VEC]) {
   if (vec && valid == VEC) {
     const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int e = 0; e < VEC / 2; ++e) {
-      const float2 f = __bfloat1622float2(h2[e]);
-      v[2 * e] = f.x;
-      v[2 * e + 1] = f.y;
-    }
+    widen<VEC>(&raw, v);
   } else {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) v[e] = e < valid ? __bfloat162float(p[e]) : 0.f;
@@ -96,37 +122,69 @@ __device__ __forceinline__ void load8(const float* __restrict__ p, int valid, bo
   }
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* __restrict__ p, int valid, bool vec,
-                                       const float v[VEC]) {
-  if (vec && valid == VEC) {
-    __nv_bfloat162 packed[VEC / 2];
+// V (4 or 8) channels to device memory: one 8- or 16-byte store of bf16 (one
+// or two 16-byte stores of float32) where `vec` and all V lie in C, masked
+// scalar stores otherwise.
+template <int V>
+__device__ __forceinline__ void store_v(__nv_bfloat16* __restrict__ p, int valid, bool vec,
+                                        const float v[V]) {
+  if (vec && valid == V) {
+    __nv_bfloat162 packed[V / 2];
 #pragma unroll
-    for (int e = 0; e < VEC / 2; ++e)
+    for (int e = 0; e < V / 2; ++e)
       packed[e] = __float22bfloat162_rn(make_float2(v[2 * e], v[2 * e + 1]));
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(packed);
+    if constexpr (V == 8)
+      *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(packed);
+    else
+      *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(packed);
   } else {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
+    for (int e = 0; e < V; ++e)
       if (e < valid) p[e] = __float2bfloat16(v[e]);
   }
 }
 
-__device__ __forceinline__ void store8(float* __restrict__ p, int valid, bool vec,
-                                       const float v[VEC]) {
-  if (vec && valid == VEC) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+template <int V>
+__device__ __forceinline__ void store_v(float* __restrict__ p, int valid, bool vec,
+                                        const float v[V]) {
+  if (vec && valid == V) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
   } else {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
+    for (int e = 0; e < V; ++e)
       if (e < valid) p[e] = v[e];
   }
 }
 
 // acc += a * b, element by element, the product and the sum each rounded to float32
-__device__ __forceinline__ void madd8(float acc[VEC], const float a[VEC], const float b[VEC]) {
+template <int V>
+__device__ __forceinline__ void madd_v(float acc[V], const float a[V], const float b[V]) {
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(a[e], b[e]));
+  for (int e = 0; e < V; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(a[e], b[e]));
+}
+
+// V channels of a staged pixel as float (8 or 16 bytes of bf16, 16 or 32 of float32).
+template <int V>
+__device__ __forceinline__ void lds_v(const __nv_bfloat16* p, float v[V]) {
+  if constexpr (V == 8) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    widen<V>(&raw, v);
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    widen<V>(&raw, v);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void lds_v(const float* p, float v[V]) {
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q) {
+    const float4 a = reinterpret_cast<const float4*>(p)[q];
+    v[4 * q] = a.x; v[4 * q + 1] = a.y; v[4 * q + 2] = a.z; v[4 * q + 3] = a.w;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -144,20 +202,24 @@ __device__ __forceinline__ void madd8(float acc[VEC], const float a[VEC], const 
 // Outputs a unit, along W: 4 at stride 1, 2 at stride 2 (more units a
 // tile, and a thread's 16 accumulators leave room under 128 registers).
 __host__ __device__ constexpr int run_of(int s) { return s == 2 ? 2 : 4; }
-// Output rows a tile at most: a tile of few rows reads long contiguous
-// segments of each input row, which the card streams faster than the short
-// segments of a square tile that stages fewer halo pixels
-// (`scripts/torch_fwd_probe.py --variants k6_tall` times the two).
+// Output rows a tile at most, forward and stride-2 backward: a tile of few
+// rows reads long contiguous segments of each input row, which the card
+// streams faster than the short segments of a square tile that stages fewer
+// halo pixels (`scripts/torch_fwd_probe.py --variants k6_tall` times the two).
 constexpr int FWD_MAX_ROWS = 4;
-constexpr size_t FWD_SMEM_TWO = 110 * 1024;   // two blocks share an SM below this
-constexpr size_t FWD_SMEM_MAX = 232448;       // 227 KB, Hopper's per-block maximum
-constexpr size_t FWD_SMEM_CAPS[2][2] = {      // (a buffer, buffers) in order of preference
-    {FWD_SMEM_TWO / 2, 2}, {FWD_SMEM_MAX, 1}};
+constexpr size_t SMEM_TWO = 110 * 1024;        // two blocks share an SM below this
+constexpr size_t SMEM_MAX = 232448;            // 227 KB, Hopper's per-block maximum
+constexpr size_t SMEM_CAPS[2][2] = {           // (a buffer, buffers) in order of preference
+    {SMEM_TWO / 2, 2}, {SMEM_MAX, 1}};
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 template <typename T>
@@ -171,63 +233,40 @@ __device__ __forceinline__ float from_float<float>(float v) {
   return v;
 }
 
-// Eight channels of a staged pixel (16 bytes of bf16, 32 of float32) as float.
-__device__ __forceinline__ void lds8(const __nv_bfloat16* p, float v[VEC]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < VEC / 2; ++e) {
-    const float2 f = __bfloat1622float2(h2[e]);
-    v[2 * e] = f.x;
-    v[2 * e + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void lds8(const float* p, float v[VEC]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// Tile `tile` of the image's (n, ty, tx) tiles: input rows gy0 .. gy0+rh-1,
-// columns gx0 .. gx0+rw-1, into `buf` (rows `pitch` bytes apart), zero outside
-// the image and past C. A row's pixels are contiguous in x, so its 16-byte
-// pieces are too: cp.async where `vec`, plain loads otherwise.
-template <typename T, int S>
-__device__ __forceinline__ void dw_stage_tile(const T* __restrict__ x, unsigned char* buf,
-                                              int tile, int h, int w, int c, int th, int tw,
-                                              int tiles_x, int tiles_y, int pitch, bool vec) {
+// Rows gy0 .. gy0+rh-1, columns gx0 .. gx0+rw-1 of image n of src (h, w, c)
+// into `buf` (rows `pitch` bytes apart), zero outside the image and past C
+// (each pixel padded to a multiple of 8 channels). A row's pixels are
+// contiguous in src, so its 16-byte pieces are too: cp.async where `vec` (the
+// caller commits the group), plain loads otherwise.
+template <typename T>
+__device__ __forceinline__ void dw_stage_tile(const T* __restrict__ src, unsigned char* buf,
+                                              int n, int gy0, int gx0, int rh, int rw, int h,
+                                              int w, int c, int pitch, bool vec) {
   const int cp = (c + VEC - 1) / VEC * VEC;      // staged channels (C padded to 8)
-  const int rh = S * (th - 1) + 3, rw = S * (tw - 1) + 3;
-  const int n = tile / (tiles_x * tiles_y);
-  const int gy0 = S * (tile / tiles_x % tiles_y) * th - 1;
-  const int gx0 = S * (tile % tiles_x) * tw - 1;
   if (vec) {
     const int ppp = cp * int(sizeof(T)) / 16;    // pieces a pixel
     const int row_pieces = rw * ppp, first = gx0 * ppp, last = w * ppp;
     for (int r = 0; r < rh; ++r) {
       const int gy = gy0 + r;
       const bool row_in = gy >= 0 && gy < h;
-      const unsigned char* src =
-          reinterpret_cast<const unsigned char*>(x + (size_t(n) * h + (row_in ? gy : 0)) * w * c);
+      const unsigned char* row = reinterpret_cast<const unsigned char*>(
+          src + (size_t(n) * h + (row_in ? gy : 0)) * w * c);
       for (int p = threadIdx.x; p < row_pieces; p += blockDim.x) {
         const bool in = row_in && first + p >= 0 && first + p < last;
-        cp_async16(buf + r * pitch + p * 16, in ? src + (ptrdiff_t(first) + p) * 16 : src, in);
+        cp_async16(buf + r * pitch + p * 16, in ? row + (ptrdiff_t(first) + p) * 16 : row, in);
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::);
   } else {
     const T zero = from_float<T>(0.f);
     for (int r = 0; r < rh; ++r) {
       const int gy = gy0 + r;
       const bool row_in = gy >= 0 && gy < h;
-      const T* src = x + (size_t(n) * h + (row_in ? gy : 0)) * w * c;
+      const T* row = src + (size_t(n) * h + (row_in ? gy : 0)) * w * c;
       T* dst = reinterpret_cast<T*>(buf + r * pitch);
       for (int i = threadIdx.x; i < rw * cp; i += blockDim.x) {
         const int col = i / cp, ch = i - col * cp;
         const int gx = gx0 + col;
-        dst[i] = (row_in && gx >= 0 && gx < w && ch < c) ? src[size_t(gx) * c + ch] : zero;
+        dst[i] = (row_in && gx >= 0 && gx < w && ch < c) ? row[size_t(gx) * c + ch] : zero;
       }
     }
   }
@@ -256,15 +295,19 @@ dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ k, T* __restric
 #pragma unroll
   for (int t = 0; t < 9; ++t) load8(k + t * c + c0, valid, vec, kv[t]);
 
+  auto stage = [&](int t, unsigned char* buf) {
+    dw_stage_tile(x, buf, t / (tiles_x * tiles_y), S * (t / tiles_x % tiles_y) * th - 1,
+                  S * (t % tiles_x) * tw - 1, S * (th - 1) + 3, S * (tw - 1) + 3, h, w, c,
+                  pitch, vec);
+    if (vec) cp_async_commit();
+  };
   int tile = blockIdx.x;
-  if (tile < tiles)
-    dw_stage_tile<T, S>(x, smem, tile, h, w, c, th, tw, tiles_x, tiles_y, pitch, vec);
+  if (tile < tiles) stage(tile, smem);
   for (int i = 0; tile < tiles; ++i, tile += gridDim.x) {
     const int next = tile + gridDim.x;
     const unsigned char* buf = smem + (two && (i & 1) ? bytes : 0);
     if (two && next < tiles) {
-      dw_stage_tile<T, S>(x, smem + ((i & 1) ? 0 : bytes), next, h, w, c, th, tw, tiles_x,
-                          tiles_y, pitch, vec);
+      stage(next, smem + ((i & 1) ? 0 : bytes));
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -288,11 +331,11 @@ dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ k, T* __restric
 #pragma unroll
         for (int col = 0; col < S * (RUN - 1) + 3; ++col) {
           float xv[VEC];
-          lds8(reinterpret_cast<const T*>(base + dh * pitch + col * pb), xv);
+          lds_v<VEC>(reinterpret_cast<const T*>(base + dh * pitch + col * pb), xv);
 #pragma unroll
           for (int j = 0; j < RUN; ++j) {
             const int dw = col - S * j;          // this pixel's column tap for output j
-            if (dw >= 0 && dw < 3) madd8(acc[j], xv, kv[dh * 3 + dw]);
+            if (dw >= 0 && dw < 3) madd_v<VEC>(acc[j], xv, kv[dh * 3 + dw]);
           }
         }
       }
@@ -300,65 +343,202 @@ dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ k, T* __restric
         T* row = y + (size_t(img) * ho + oy) * wo * c + c0;
 #pragma unroll
         for (int j = 0; j < RUN; ++j)
-          if (oxs + j < wo) store8(row + size_t(oxs + j) * c, valid, vec, acc[j]);
+          if (oxs + j < wo) store_v<VEC>(row + size_t(oxs + j) * c, valid, vec, acc[j]);
       }
     }
     __syncthreads();  // the buffer is free for the tile after next
-    if (!two && next < tiles)
-      dw_stage_tile<T, S>(x, smem, next, h, w, c, th, tw, tiles_x, tiles_y, pitch, vec);
+    if (!two && next < tiles) stage(next, smem);
   }
 }
 
-// dx of the stride-2 conv, gather form: a thread per (input pixel, channel group).
+// ---------------------------------------------------------------------------
+// Stride-2 backward: dx and dk in one pass over tiles of th x tw outputs (the
+// design in the header). Persistent blocks as in the forward; a buffer holds
+// the tile's 2*th+1 x rows (`pitch` bytes apart) and then its th+1 dy rows
+// (`dpitch` apart), and the taps of every channel follow the buffers. Thread
+// t takes channel group g = t % G (G = C/4 rounded up) and the outputs
+// t / G + i * (blockDim.x / G) of each tile, row fastest. `uni` holds values
+// uniform over the launch, worked out on the host: the kernel reads them
+// from the constant bank and keeps no register for them (derived in the
+// kernel, they spilled).
+struct BwdUniform {
+  int img, ty, tx;  // gridDim.x as (images, tile rows, tile columns)
+  int lanes;        // blockDim.x / G: the threads of a channel group
+  int pb, xbytes;   // bytes of a staged pixel; of the staged x rows (dy's follow)
+  int tr, tc;       // lanes as (output rows, output columns) of a tile
+};
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-dw_dx_s2_kernel(const T* __restrict__ dy, const float* __restrict__ k, T* __restrict__ dx,
-                int h, int w, int c, int ho, int wo, long long total, bool vec) {
-  const int groups = (c + VEC - 1) / VEC;
-  for (long long t = blockIdx.x * (long long)THREADS + threadIdx.x; t < total;
-       t += (long long)gridDim.x * THREADS) {
-    const int g = int(t % groups);
-    const long long p = t / groups;
-    const int q = int(p % w);
-    const int r = int((p / w) % h);
-    const long long b = p / ((long long)w * h);
-    const int c0 = g * VEC;
-    const int valid = min(VEC, c - c0);
-    float acc[VEC];
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+dw_bwd_s2_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ k,
+                 T* __restrict__ dx, float* __restrict__ scratch, int n, int h, int w, int c,
+                 int ho, int wo, int th, int tw, int tiles_x, int tiles_y, int pitch, int dpitch,
+                 int bytes, bool two, bool vec, BwdUniform uni) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int groups = (c + BV - 1) / BV;
+  const int pb = uni.pb, xbytes = uni.xbytes;
+  const int tiles = tiles_x * tiles_y * n;
+  const int lane = threadIdx.x / groups;
+  const int g = threadIdx.x % groups;
+  const int c0 = g * BV;
+  const int valid = min(BV, c - c0);
+  float dk[9][BV];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  for (int t = 0; t < 9; ++t)
 #pragma unroll
-    for (int dh = 0; dh < 3; ++dh) {
-      const int a = r + 1 - dh;        // = 2 i for the output row i that reads row r
-      if (a < 0 || (a & 1)) continue;
-      const int i = a >> 1;
-      if (i >= ho) continue;
-      const T* row = dy + (b * ho + i) * (long long)wo * c + c0;
+    for (int e = 0; e < BV; ++e) dk[t][e] = 0.f;
+  // the nine taps of every channel (C padded to 4 with zeros), after the buffers
+  const int cw = groups * BV;
+  float* taps = reinterpret_cast<float*>(smem + (two ? 2 * bytes : bytes));
+  for (int j = threadIdx.x; j < 9 * cw; j += blockDim.x) {
+    const int t = j / cw, ch = j - t * cw;
+    taps[j] = ch < c ? k[t * c + ch] : 0.f;
+  }
+  const float* kt = taps + c0;
+  // acc += d * tap t of this thread's channels, each product and sum rounded
+  auto madd_tap = [&](float acc[BV], const float d[BV], int t) {
+    float kq[BV];
+    lds_v<BV>(kt + t * cw, kq);
+    madd_v<BV>(acc, d, kq);
+  };
+
+  // (image, tile row, tile column) of a tile. A block walks tiles b, b +
+  // gridDim.x, ...: each step adds the grid's three digits with a carry, so
+  // no tile pays a division; a thread's outputs in a tile (row fastest,
+  // lanes apart) likewise.
+  struct At {
+    int img, ty, tx;
+  };
+  auto advance = [&](At a) {
+    a.img += uni.img;
+    a.ty += uni.ty;
+    a.tx += uni.tx;
+    if (a.tx >= tiles_x) a.tx -= tiles_x, ++a.ty;
+    if (a.ty >= tiles_y) a.ty -= tiles_y, ++a.img;
+    return a;
+  };
+
+  auto stage = [&](At a, unsigned char* buf) {
+    dw_stage_tile(x, buf, a.img, 2 * a.ty * th - 1, 2 * a.tx * tw - 1, 2 * th + 1, 2 * tw + 1,
+                  h, w, c, pitch, vec);
+    dw_stage_tile(dy, buf + xbytes, a.img, a.ty * th, a.tx * tw, th + 1, tw + 1, ho, wo, c,
+                  dpitch, vec);
+    if (vec) cp_async_commit();
+  };
+  int tile = blockIdx.x;
+  At cur{tile / (tiles_x * tiles_y), tile / tiles_x % tiles_y, tile % tiles_x};
+  if (tile < tiles) stage(cur, smem);
+  const int tr0 = lane % th, tc0 = lane / th;   // the thread's first output of a tile
+  for (int i = 0; tile < tiles; ++i, tile += gridDim.x, cur = advance(cur)) {
+    const int next = tile + gridDim.x;
+    const unsigned char* buf = smem + (two && (i & 1) ? bytes : 0);
+    if (two && next < tiles) {
+      stage(advance(cur), smem + ((i & 1) ? 0 : bytes));
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();  // this tile's x and dy are in
+
+    const int oy0 = cur.ty * th, ox0 = cur.tx * tw;
+    for (int tr = tr0, tc = tc0; tc < tw; tr += uni.tr, tc += uni.tc) {
+      if (tr >= th) tr -= th, ++tc;
+      const int oy = oy0 + tr, ox = ox0 + tc;
+      if (tc >= tw || oy >= ho || ox >= wo) continue;
+      const unsigned char* xs = buf + 2 * tr * pitch + 2 * tc * pb + c0 * int(sizeof(T));
+      const unsigned char* ds = buf + xbytes + tr * dpitch + tc * pb + c0 * int(sizeof(T));
+      // dk: the nine x pixels around (2oy, 2ox) times dy (oy, ox), fused
+      // multiply-adds (dk is a float32 sum in its own order, held to the
+      // plain version by a tolerance, not bit for bit)
+      float d00[BV];
+      lds_v<BV>(reinterpret_cast<const T*>(ds), d00);
 #pragma unroll
-      for (int dw = 0; dw < 3; ++dw) {
-        const int u = q + 1 - dw;
-        if (u < 0 || (u & 1)) continue;
-        const int j = u >> 1;
-        if (j >= wo) continue;
-        float gv[VEC], kv[VEC];
-        load8(row + (long long)j * c, valid, vec, gv);
-        load8(k + (dh * 3 + dw) * c + c0, valid, vec, kv);
-        madd8(acc, gv, kv);
+      for (int t = 0; t < 9; ++t) {  // dk
+        float xv[BV];
+        lds_v<BV>(reinterpret_cast<const T*>(xs + (t / 3) * pitch + (t % 3) * pb), xv);
+#pragma unroll
+        for (int e = 0; e < BV; ++e) dk[t][e] = __fmaf_rn(xv[e], d00[e], dk[t][e]);
+      }
+      {  // dx: the quad (2oy, 2ox) .. (2oy + 1, 2ox + 1)
+        // dy at (oy, ox+1), (oy+1, ox), (oy+1, ox+1): zero past the image.
+        // Each pixel's taps in the plain version's (dh, dw) order from 0. A
+        // tap past the image reads a staged 0 and adds 0 * k: the sum keeps
+        // its bits (it is never -0) while k is finite.
+        float d01[BV], d10[BV], d11[BV];
+        lds_v<BV>(reinterpret_cast<const T*>(ds + pb), d01);
+        lds_v<BV>(reinterpret_cast<const T*>(ds + dpitch), d10);
+        lds_v<BV>(reinterpret_cast<const T*>(ds + dpitch + pb), d11);
+        const bool right = 2 * ox + 1 < w;
+        T* p = dx + ((size_t(cur.img) * h + 2 * oy) * w + 2 * ox) * c + c0;
+        float a[BV];
+#pragma unroll
+        for (int e = 0; e < BV; ++e) a[e] = 0.f;
+        madd_tap(a, d00, 4);
+        store_v<BV>(p, valid, vec, a);
+        if (right) {
+#pragma unroll
+          for (int e = 0; e < BV; ++e) a[e] = 0.f;
+          madd_tap(a, d01, 3);
+          madd_tap(a, d00, 5);
+          store_v<BV>(p + c, valid, vec, a);
+        }
+        if (2 * oy + 1 < h) {
+          p += w * c;
+#pragma unroll
+          for (int e = 0; e < BV; ++e) a[e] = 0.f;
+          madd_tap(a, d10, 1);
+          madd_tap(a, d00, 7);
+          store_v<BV>(p, valid, vec, a);
+          if (right) {
+#pragma unroll
+            for (int e = 0; e < BV; ++e) a[e] = 0.f;
+            madd_tap(a, d11, 0);
+            madd_tap(a, d10, 2);
+            madd_tap(a, d01, 6);
+            madd_tap(a, d00, 8);
+            store_v<BV>(p + c, valid, vec, a);
+          }
+        }
       }
     }
-    store8(dx + p * c + c0, valid, vec, acc);
+    __syncthreads();  // the buffer is free for the tile after next
+    if (!two && next < tiles) stage(advance(cur), smem);
+  }
+
+  // dk: each channel's lanes summed in a fixed tree through shared memory
+  // (free now: the loop ends with a barrier and no copy in flight), then the
+  // block's (9, C) row of the scratch.
+  float* red = reinterpret_cast<float*>(smem);   // (lanes, 9, G * BV)
+  const int width = 9 * cw;
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int e = 0; e < BV; ++e) red[lane * width + t * cw + c0 + e] = dk[t][e];
+  __syncthreads();
+  int top = 1;
+  while (top < uni.lanes) top <<= 1;
+  for (int s = top >> 1; s > 0; s >>= 1) {
+    for (int j = threadIdx.x; j < s * width; j += blockDim.x)
+      if (j / width + s < uni.lanes) red[j] += red[j + s * width];
+    __syncthreads();
+  }
+  float* out = scratch + size_t(blockIdx.x) * 9 * c;
+  for (int j = threadIdx.x; j < 9 * c; j += blockDim.x) {
+    const int t = j / c;
+    out[j] = red[t * cw + j - t * c];
   }
 }
 
-// dk, first pass: block b sums the nine taps of output pixels
+// ---------------------------------------------------------------------------
+// Stride-1 dk, first pass: block b sums the nine taps of pixels
 // [b * per_block, (b + 1) * per_block) and writes them to scratch[b] (9, C).
 // Thread t takes channel group t % groups and pixel lane t / groups; a lane walks
 // its pixels in order, then the lanes are summed in order through shared memory.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 dw_dk_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                     float* __restrict__ scratch, int h, int w, int c, int s, int ho,
-                     int wo, long long pixels, long long per_block, bool vec) {
+                     float* __restrict__ scratch, int h, int w, int c, long long pixels,
+                     long long per_block, bool vec) {
   __shared__ float red[THREADS * VEC];
   const int groups = (c + VEC - 1) / VEC;
   const int lanes = THREADS / groups;
@@ -376,23 +556,23 @@ dw_dk_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     for (int e = 0; e < VEC; ++e) acc[tap][e] = 0.f;
   if (active) {
     for (long long p = p0 + lane; p < p1; p += lanes) {
-      const int j = int(p % wo);
-      const int i = int((p / wo) % ho);
-      const long long b = p / ((long long)wo * ho);
+      const int j = int(p % w);
+      const int i = int((p / w) % h);
+      const long long b = p / ((long long)w * h);
       float gv[VEC];
       load8(dy + p * c + c0, valid, vec, gv);
 #pragma unroll
       for (int dh = 0; dh < 3; ++dh) {
-        const int r = s * i + dh - 1;
+        const int r = i + dh - 1;
         if (r < 0 || r >= h) continue;
         const T* row = x + (b * h + r) * (long long)w * c + c0;
 #pragma unroll
         for (int dw = 0; dw < 3; ++dw) {
-          const int q = s * j + dw - 1;
+          const int q = j + dw - 1;
           if (q < 0 || q >= w) continue;
           float xv[VEC];
           load8(row + (long long)q * c, valid, vec, xv);
-          madd8(acc[dh * 3 + dw], xv, gv);
+          madd_v<VEC>(acc[dh * 3 + dw], xv, gv);
         }
       }
     }
@@ -439,35 +619,38 @@ dw_dk_reduce_kernel(const float* __restrict__ scratch, float* __restrict__ dk, i
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-unsigned grid_for(long long total) {
-  long long blocks = (total + THREADS - 1) / THREADS;
-  return unsigned(blocks < MAX_GRID ? blocks : MAX_GRID);
-}
+int out_size(int n, int s) { return (n - 1) / s + 1; }
 
-// The forward's tile: th output rows by segs * RUN columns, `threads` a block
-// (a multiple of G), the staged row's byte stride, a buffer's bytes and the
-// number of buffers (two: the next tile loads under this one's taps).
-struct FwdTile {
-  int th, segs, threads, pitch;
+// Shared bytes of the stride-2 backward's taps: 9 x C float32, C padded to 4.
+size_t taps_bytes(int c) { return size_t(9) * ((c + BV - 1) / BV * BV) * sizeof(float); }
+
+// A kernel's tile: th output rows by tw output columns, `threads` a block (a
+// multiple of the channel groups), the byte stride of a staged x row (pitch)
+// and, in the stride-2 backward, of a staged dy row (dpitch), a buffer's
+// bytes and the number of buffers (two: the next tile loads under this one's
+// work).
+struct DwTile {
+  int th, tw, threads, pitch, dpitch;
   size_t bytes;
   int buffers;
 };
 
-// Shared-memory wavefronts of one 16-byte read by every warp of the block (a
-// quarter warp a wavefront when its 8 addresses fall in distinct 16-byte
-// bank groups): each thread's first unit reads at
-// S*tr*pitch + S*seg*RUN*pb + g*vb.
-long long fwd_wavefronts(int groups, int th, int threads, int s, int pitch, int pb, int vb) {
-  const int run = run_of(s);
+// Shared-memory wavefronts of one read of `ab` bytes (8 or 16) by every warp
+// of the block (128 / ab threads a wavefront when their addresses fall in
+// distinct ab-byte bank groups): each thread's first unit reads at
+// s*tr*pitch + s*col*run*pb + g*vb, with (tr, col) = (set % th, set / th).
+long long wavefronts(int groups, int th, int threads, int s, int run, int pitch, int pb, int vb,
+                     int ab) {
+  const int per = 128 / ab;
   long long total = 0;
-  for (int q = 0; q < threads; q += 8) {
-    int use[8] = {0}, worst = 0;
-    long long seen[8][8];
-    for (int t = q; t < q + 8 && t < threads; ++t) {
+  for (int q = 0; q < threads; q += per) {
+    int use[16] = {0}, worst = 0;
+    long long seen[16][16];
+    for (int t = q; t < q + per && t < threads; ++t) {
       const int set = t / groups, g = t % groups;
       const long long addr = (long long)s * (set % th) * pitch +
                              (long long)s * (set / th) * run * pb + (long long)g * vb;
-      const int bank = int((addr / 16) % 8);
+      const int bank = int((addr / ab) % per);
       bool dup = false;
       for (int i = 0; i < use[bank]; ++i) dup = dup || seen[bank][i] == addr;
       if (!dup) seen[bank][use[bank]++] = addr;
@@ -478,63 +661,83 @@ long long fwd_wavefronts(int groups, int th, int threads, int s, int pitch, int 
   return total;
 }
 
-// The tile that stages the fewest input pixels for each output of the
-// (ho, wo) image (times the share of idle threads in the last round of
-// units), within the first of FWD_SMEM_CAPS where one fits; the staged row
-// padded to the fewest bank conflicts. threads == 0: C too wide.
-FwdTile fwd_tile(int c, int esize, int s, int ho, int wo) {
-  const int groups = (c + VEC - 1) / VEC;
-  const int pb = groups * VEC * esize, vb = VEC * esize;
-  const int per_block = THREADS / groups * groups, run = run_of(s);
-  FwdTile best{0, 0, 0, 0, 0, 0};
+// The stride the fewest wavefronts read a staged row at: `base` padded by
+// 0..112 bytes, within `room` bytes for its `rows`.
+int padded_pitch(int base, int rows, size_t room, int groups, int th, int threads, int s,
+                 int run, int pb, int vb, int ab) {
+  long long fewest = -1;
+  int best = base;
+  for (int pad = 0; pad < 128; pad += 16) {
+    if (size_t(rows) * (base + pad) > room) break;
+    const long long waves = wavefronts(groups, th, threads, s, run, base + pad, pb, vb, ab);
+    if (fewest < 0 || waves < fewest) {
+      fewest = waves;
+      best = base + pad;
+    }
+  }
+  return best;
+}
+
+// The tile that stages the fewest pixels for each output of the (ho, wo)
+// image (times the share of idle threads in the last round of units), within
+// the first of SMEM_CAPS where one fits; each staged tensor's rows padded to
+// the fewest bank conflicts. The forward (bwd false) stages x, and a unit is
+// RUN outputs along W and 8 channels; the stride-2 backward stages x and dy
+// beside the taps (taps_bytes), and a unit is one output (with its quad of
+// dx) and 4 channels. threads == 0: C too wide.
+DwTile dw_tile(int c, int esize, int s, int ho, int wo, bool bwd) {
+  const int v = bwd ? BV : VEC, run = bwd ? 1 : run_of(s);
+  const int groups = (c + v - 1) / v;
+  const int pb = (c + VEC - 1) / VEC * VEC * esize, vb = v * esize, ab = bwd ? vb : 16;
+  const int per_block = groups <= THREADS ? THREADS / groups * groups
+                        : (bwd && groups <= BWD_THREADS ? groups : 0);
+  const int max_units = bwd ? 4 * per_block : 2 * THREADS;
+  const size_t reserve = bwd ? taps_bytes(c) : 0;
+  DwTile best{0, 0, 0, 0, 0, 0, 0};
   if (per_block == 0) return best;
   size_t cap = 0;
-  for (const auto& limit : FWD_SMEM_CAPS) {
-    cap = limit[0];
+  for (const auto& limit : SMEM_CAPS) {
+    cap = limit[0] - reserve / limit[1];        // a buffer's share
     double best_cost = 1e30;
     for (int th = 1; th <= FWD_MAX_ROWS; ++th)
       for (int segs = 1; segs <= 64; ++segs) {
-        const int units = groups * th * segs;
-        if (units > 2 * THREADS) break;
+        const int tw = segs * run, units = groups * th * segs;
+        if (units > max_units) break;
         const int threads = units < per_block ? units : per_block;
         const int rounds = (units + threads - 1) / threads;
-        const int rh = s * (th - 1) + 3, rw = s * (segs * run - 1) + 3;
-        const size_t bytes = size_t(rh) * rw * pb;
+        const int rw = s * (tw - 1) + 3;
+        const int staged = (s * (th - 1) + 3) * rw + (bwd ? (th + 1) * (tw + 1) : 0);
+        const size_t bytes = size_t(staged) * pb;
         if (bytes > cap) break;
-        const double tiles = double((ho + th - 1) / th) * ((wo + segs * run - 1) / (segs * run));
-        const double cost = tiles * rh * rw / (double(ho) * wo) * rounds * threads / units;
+        const double tiles = double((ho + th - 1) / th) * ((wo + tw - 1) / tw);
+        const double cost = tiles * staged / (double(ho) * wo) * rounds * threads / units;
         if (cost < best_cost - 1e-9) {
           best_cost = cost;
-          best = FwdTile{th, segs, threads, rw * pb, bytes, int(limit[1])};
+          best = DwTile{th, tw, threads, rw * pb, bwd ? (tw + 1) * pb : 0, bytes,
+                        int(limit[1])};
         }
       }
     if (best.threads) break;
   }
   if (!best.threads) return best;
-  const int rh = s * (best.th - 1) + 3;
-  long long fewest = -1;
-  const int base = best.pitch;
-  for (int pad = 0; pad < 128; pad += 16) {
-    if (size_t(rh) * (base + pad) > cap) break;
-    const long long waves =
-        fwd_wavefronts(groups, best.th, best.threads, s, base + pad, pb, vb);
-    if (fewest < 0 || waves < fewest) {
-      fewest = waves;
-      best.pitch = base + pad;
-    }
-  }
-  best.bytes = size_t(rh) * best.pitch;
+  const int rh = s * (best.th - 1) + 3, dh = bwd ? best.th + 1 : 0;
+  best.pitch = padded_pitch(best.pitch, rh, cap - size_t(dh) * best.dpitch, groups, best.th,
+                            best.threads, s, run, pb, vb, ab);
+  if (bwd)
+    best.dpitch = padded_pitch(best.dpitch, dh, cap - size_t(rh) * best.pitch, groups, best.th,
+                               best.threads, 1, 1, pb, vb, ab);
+  best.bytes = size_t(rh) * best.pitch + size_t(dh) * best.dpitch;
   return best;
 }
+
 
 template <typename T, int S>
 cudaError_t dw_fwd_launch(const void* x, const float* k, void* y, int n, int h, int w, int c,
                           int device, bool vec, cudaStream_t st) {
-  const int ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
-  const FwdTile t = fwd_tile(c, int(sizeof(T)), S, ho, wo);
+  const int ho = out_size(h, S), wo = out_size(w, S);
+  const DwTile t = dw_tile(c, int(sizeof(T)), S, ho, wo, false);
   if (!t.threads) return cudaErrorInvalidValue;
-  const int tw = t.segs * run_of(S);
-  const int tiles_x = (wo + tw - 1) / tw, tiles_y = (ho + t.th - 1) / t.th;
+  const int tiles_x = (wo + t.tw - 1) / t.tw, tiles_y = (ho + t.th - 1) / t.th;
   const long long tiles = (long long)tiles_x * tiles_y * n;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = t.bytes * t.buffers;
@@ -550,12 +753,73 @@ cudaError_t dw_fwd_launch(const void* x, const float* k, void* y, int n, int h, 
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long blocks = tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm;
   dw_fwd_kernel<T, S><<<unsigned(blocks), t.threads, smem, st>>>(
-      static_cast<const T*>(x), k, static_cast<T*>(y), n, h, w, c, ho, wo, t.th, t.segs,
-      tiles_x, tiles_y, t.pitch, int(t.bytes), t.buffers == 2, vec);
+      static_cast<const T*>(x), k, static_cast<T*>(y), n, h, w, c, ho, wo, t.th,
+      t.tw / run_of(S), tiles_x, tiles_y, t.pitch, int(t.bytes), t.buffers == 2, vec);
   return cudaGetLastError();
 }
 
-int out_size(int n, int s) { return (n - 1) / s + 1; }
+// The stride-2 backward's launch: its tile, the tile grid, the shared memory
+// a block (the buffers and the taps, or the dk tree's (threads, 9, 4) floats
+// if more), blocks an SM by the occupancy query, and the blocks (the
+// scratch's rows).
+struct BwdPlan {
+  DwTile t;
+  int tiles_x, tiles_y, per_sm;
+  long long tiles, blocks;
+  size_t smem;
+};
+
+template <typename T>
+cudaError_t bwd_s2_plan(int n, int h, int w, int c, int device, BwdPlan& p) {
+  const int ho = out_size(h, 2), wo = out_size(w, 2);
+  p = BwdPlan{};
+  p.t = dw_tile(c, int(sizeof(T)), 2, ho, wo, true);
+  if (!p.t.threads) return cudaErrorInvalidValue;
+  p.tiles_x = (wo + p.t.tw - 1) / p.t.tw;
+  p.tiles_y = (ho + p.t.th - 1) / p.t.th;
+  p.tiles = (long long)p.tiles_x * p.tiles_y * n;
+  if (p.tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t tree = size_t(p.t.threads) * 9 * BV * sizeof(float);
+  const size_t staged = p.t.bytes * p.t.buffers + taps_bytes(c);
+  p.smem = staged > tree ? staged : tree;
+  cudaError_t err = cudaFuncSetAttribute(dw_bwd_s2_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(p.smem));
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.per_sm, dw_bwd_s2_kernel<T>,
+                                                           p.t.threads, p.smem)) != cudaSuccess)
+    return err;
+  if (p.per_sm < 1) return cudaErrorInvalidConfiguration;
+  p.blocks = p.tiles < (long long)sms * p.per_sm ? p.tiles : (long long)sms * p.per_sm;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t dw_bwd_s2_launch(const void* x, const void* dy, const float* k, void* dx,
+                             float* scratch, long long rows, float* dk, int n, int h, int w,
+                             int c, int device, bool vec, cudaStream_t st) {
+  BwdPlan p;
+  cudaError_t err = bwd_s2_plan<T>(n, h, w, c, device, p);
+  if (err != cudaSuccess) return err;
+  if (p.blocks != rows) return cudaErrorInvalidValue;   // a scratch of another plan
+  const int lanes = p.t.threads / ((c + BV - 1) / BV), grid = int(p.blocks);
+  const BwdUniform uni{grid / (p.tiles_x * p.tiles_y), grid / p.tiles_x % p.tiles_y,
+                     grid % p.tiles_x, lanes,
+                     (c + VEC - 1) / VEC * VEC * int(sizeof(T)), (2 * p.t.th + 1) * p.t.pitch,
+                     lanes % p.t.th, lanes / p.t.th};
+  dw_bwd_s2_kernel<T><<<unsigned(p.blocks), p.t.threads, p.smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), k, static_cast<T*>(dx), scratch, n,
+      h, w, c, out_size(h, 2), out_size(w, 2), p.t.th, p.t.tw, p.tiles_x, p.tiles_y, p.t.pitch,
+      p.t.dpitch, int(p.t.bytes), p.t.buffers == 2, vec, uni);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int cols = 9 * c;
+  dw_dk_reduce_kernel<<<unsigned((cols + 31) / 32), dim3(32, RED_ROWS), 0, st>>>(
+      scratch, dk, int(p.blocks), cols);
+  return cudaGetLastError();
+}
 
 long long dk_blocks(long long pixels, int c) {
   const int lanes = THREADS / ((c + VEC - 1) / VEC);
@@ -590,44 +854,67 @@ int dw3x3_forward(const void* x, const void* k, void* y, int n, int h, int w, in
   return int(err);
 }
 
-// dx (N,H,W,C) of the stride-2 conv from dy (N,Ho,Wo,C); h and w are dx's.
-int dw3x3_dx_s2(const void* dy, const void* k, void* dx, int n, int h, int w, int c,
-                int is_bf16, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
+// Rows of the stride-2 backward's dk scratch (its blocks) for x (n, h, w, c),
+// 0 where x is empty; -1 where no plan fits (C too wide) or the query fails.
+// Where `plan` is not null it gets th, tw, threads, buffers, shared bytes a
+// block, blocks an SM and the staged x and dy rows' byte strides.
+long long dw3x3_backward_s2_plan(int n, int h, int w, int c, int is_bf16, int device,
+                                 int* plan) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
   if (n == 0 || h == 0 || w == 0 || c == 0) return 0;
-  const int ho = out_size(h, 2), wo = out_size(w, 2);
-  const long long total = (long long)n * h * w * ((c + VEC - 1) / VEC);
-  const bool vec = c % VEC == 0 && aligned16(dy) && aligned16(k) && aligned16(dx);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    dw_dx_s2_kernel<__nv_bfloat16><<<grid_for(total), THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(k),
-        static_cast<__nv_bfloat16*>(dx), h, w, c, ho, wo, total, vec);
-  else
-    dw_dx_s2_kernel<float><<<grid_for(total), THREADS, 0, st>>>(
-        static_cast<const float*>(dy), static_cast<const float*>(k), static_cast<float*>(dx),
-        h, w, c, ho, wo, total, vec);
-  return int(cudaGetLastError());
+  BwdPlan p;
+  const cudaError_t err = is_bf16 ? bwd_s2_plan<__nv_bfloat16>(n, h, w, c, device, p)
+                                  : bwd_s2_plan<float>(n, h, w, c, device, p);
+  if (err != cudaSuccess) return -1;
+  if (plan) {
+    const int v[8] = {p.t.th, p.t.tw, p.t.threads, p.t.buffers, int(p.smem), p.per_sm,
+                      p.t.pitch, p.t.dpitch};
+    for (int i = 0; i < 8; ++i) plan[i] = v[i];
+  }
+  return p.blocks;
 }
 
-// Rows of the dk scratch for a conv whose output has `pixels` pixels of c channels.
-long long dw3x3_dk_blocks(long long pixels, int c) { return dk_blocks(pixels, c); }
-
-// Channels the dk kernel takes at most.
-int dw3x3_max_channels() { return MAX_C; }
-
-// dk (3,3,C) float32 from x (N,H,W,C) and dy (N,Ho,Wo,C), through `scratch`
-// (dw3x3_dk_blocks(N*Ho*Wo, C), 9, C) float32.
-int dw3x3_dk(const void* x, const void* dy, void* scratch, void* dk, int n, int h, int w,
-             int c, int stride, int is_bf16, int device, void* stream) {
+// dx (N,H,W,C) in x's type and dk (3,3,C) float32 of the stride-2 conv from x
+// (N,H,W,C) and dy (N,Ho,Wo,C), k float32, through `scratch` (rows, 9, C)
+// float32 with rows = dw3x3_backward_s2_plan(...): two launches on `stream`.
+int dw3x3_backward_s2(const void* x, const void* dy, const void* k, void* dx, void* scratch,
+                      long long rows, void* dk, int n, int h, int w, int c, int is_bf16,
+                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  if ((stride != 1 && stride != 2) || c > MAX_C) return int(cudaErrorInvalidValue);
+  if (c > MAX_C) return int(cudaErrorInvalidValue);
   if (c == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ho = out_size(h, stride), wo = out_size(w, stride);
-  const long long pixels = (long long)n * ho * wo;
+  if (n == 0 || h == 0 || w == 0)
+    return int(cudaMemsetAsync(dk, 0, size_t(9) * c * sizeof(float), st));
+  const bool vec = c % VEC == 0 && aligned16(x) && aligned16(dy) && aligned16(k) &&
+                   aligned16(dx);
+  const float* kf = static_cast<const float*>(k);
+  float* sf = static_cast<float*>(scratch);
+  float* dkf = static_cast<float*>(dk);
+  err = is_bf16 ? dw_bwd_s2_launch<__nv_bfloat16>(x, dy, kf, dx, sf, rows, dkf, n, h, w, c,
+                                                  device, vec, st)
+                : dw_bwd_s2_launch<float>(x, dy, kf, dx, sf, rows, dkf, n, h, w, c, device,
+                                          vec, st);
+  return int(err);
+}
+
+// Rows of the stride-1 dk scratch for a conv whose output has `pixels` pixels of c channels.
+long long dw3x3_dk_blocks(long long pixels, int c) { return dk_blocks(pixels, c); }
+
+// Channels the kernels take at most.
+int dw3x3_max_channels() { return MAX_C; }
+
+// dk (3,3,C) float32 of the stride-1 conv from x (N,H,W,C) and dy (N,H,W,C),
+// through `scratch` (dw3x3_dk_blocks(N*H*W, C), 9, C) float32.
+int dw3x3_dk_s1(const void* x, const void* dy, void* scratch, void* dk, int n, int h, int w,
+                int c, int is_bf16, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  if (c > MAX_C) return int(cudaErrorInvalidValue);
+  if (c == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long pixels = (long long)n * h * w;
   if (pixels == 0) return int(cudaMemsetAsync(dk, 0, size_t(9) * c * sizeof(float), st));
   const long long blocks = dk_blocks(pixels, c);
   const long long per_block = (pixels + blocks - 1) / blocks;
@@ -635,11 +922,11 @@ int dw3x3_dk(const void* x, const void* dy, void* scratch, void* dk, int n, int 
   if (is_bf16)
     dw_dk_partial_kernel<__nv_bfloat16><<<unsigned(blocks), THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-        static_cast<float*>(scratch), h, w, c, stride, ho, wo, pixels, per_block, vec);
+        static_cast<float*>(scratch), h, w, c, pixels, per_block, vec);
   else
     dw_dk_partial_kernel<float><<<unsigned(blocks), THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dy),
-        static_cast<float*>(scratch), h, w, c, stride, ho, wo, pixels, per_block, vec);
+        static_cast<float*>(scratch), h, w, c, pixels, per_block, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   const int cols = 9 * c;
   dw_dk_reduce_kernel<<<unsigned((cols + 31) / 32), dim3(32, RED_ROWS), 0, st>>>(

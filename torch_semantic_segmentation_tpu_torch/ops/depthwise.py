@@ -16,14 +16,19 @@ Rounding points, those of the JAX package's routed path:
 - the nine-tap sum in float32, row tap outer, column tap inner; the output
   cast once to x's dtype;
 - dx in x's dtype: for stride 1 the forward of the cotangent with the
-  kernel flipped, for stride 2 the gather of the taps that read each input
-  pixel, in the same order;
+  kernel flipped, for stride 2 the sum of the taps that read each input
+  pixel in the same order, each product and sum rounded on its own;
 - dk a float32 sum over every output pixel, returned in k's dtype.
+
+On the card the stride-2 backward is one kernel that reads x and the
+cotangent once and writes dx and each block's dk sums, then a fixed-order
+sum of the blocks' rows (`csrc/depthwise.cu`, `dw_bwd_s2_kernel`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -102,10 +107,13 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dw3x3_forward.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-        lib.dw3x3_dx_s2.argtypes = [p, p, p, i, i, i, i, i, i, p]
-        lib.dw3x3_dk.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
-        for name in ("dw3x3_forward", "dw3x3_dx_s2", "dw3x3_dk"):
+        lib.dw3x3_backward_s2.argtypes = [p, p, p, p, p, ll, p, i, i, i, i,
+                                          i, i, p]
+        lib.dw3x3_dk_s1.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        for name in ("dw3x3_forward", "dw3x3_backward_s2", "dw3x3_dk_s1"):
             getattr(lib, name).restype = i
+        lib.dw3x3_backward_s2_plan.argtypes = [i, i, i, i, i, i, p]
+        lib.dw3x3_backward_s2_plan.restype = ll
         lib.dw3x3_dk_blocks.argtypes = [ll, i]
         lib.dw3x3_dk_blocks.restype = ll
         lib.dw3x3_max_channels.argtypes = []
@@ -148,6 +156,19 @@ def _launch_args(x: torch.Tensor) -> tuple[int, int, int]:
     return int(x.dtype == torch.bfloat16), x.device.index or 0, stream
 
 
+@functools.lru_cache(maxsize=64)
+def _s2_rows(n: int, h: int, w: int, c: int, is_bf16: int,
+             device: int) -> int:
+    """Rows of the stride-2 backward's dk scratch: its blocks, which the
+    card's occupancy fixes for a shape."""
+    rows = _library().dw3x3_backward_s2_plan(n, h, w, c, is_bf16, device,
+                                             None)
+    if rows < 0:
+        raise RuntimeError(f"depthwise backward: no launch plan for "
+                           f"{(n, h, w, c)}")
+    return rows
+
+
 def depthwise3x3_forward(x: torch.Tensor, k: torch.Tensor,
                          stride: int) -> torch.Tensor:
     """The forward: kernel on the card, `depthwise3x3_reference` on the
@@ -175,9 +196,10 @@ depthwise3x3_forward.launches = 0
 def depthwise3x3_backward(x: torch.Tensor, k: torch.Tensor, g: torch.Tensor,
                           stride: int):
     """The backward: (dx in x's dtype, dk (3,3,C) float32) from the
-    cotangent g; on the card the dx kernel (for stride 1 the forward kernel
-    with the kernel flipped) and the two dk kernels, deterministic; the
-    plain version on the CPU."""
+    cotangent g; the plain version on the CPU. On the card, stride 2: one
+    kernel for dx and the blocks' dk sums, then their sum; stride 1: the
+    forward kernel with the taps flipped for dx, then the two dk kernels.
+    dk is the same bit for bit from launch to launch."""
     if x.device.type == "cpu":
         return depthwise3x3_reference_backward(x, k, g, stride)
     if x.device.type != "cuda":
@@ -191,21 +213,27 @@ def depthwise3x3_backward(x: torch.Tensor, k: torch.Tensor, g: torch.Tensor,
                          f"{g.device}, expected {(n, ho, wo, c)} on {x.device}")
     g = g.to(x.dtype).contiguous()
     args = _launch_args(x)
+    kf = k.float().contiguous()
     dx = torch.empty_like(x)
-    if stride == 1:
-        kflip = k.float().flip(0, 1).contiguous()
-        err = lib.dw3x3_forward(g.data_ptr(), kflip.data_ptr(), dx.data_ptr(),
-                                n, h, w, c, 1, *args)
-    else:
-        kf = k.float().contiguous()
-        err = lib.dw3x3_dx_s2(g.data_ptr(), kf.data_ptr(), dx.data_ptr(),
-                              n, h, w, c, *args)
-    _check(lib, err, "dx")
-    blocks = lib.dw3x3_dk_blocks(n * ho * wo, c)
-    scratch = torch.empty((blocks, 9, c), dtype=torch.float32, device=x.device)
     dk = torch.empty((3, 3, c), dtype=torch.float32, device=x.device)
-    _check(lib, lib.dw3x3_dk(x.data_ptr(), g.data_ptr(), scratch.data_ptr(),
-                             dk.data_ptr(), n, h, w, c, stride, *args), "dk")
+    if stride == 2:
+        rows = _s2_rows(n, h, w, c, *args[:2])
+        scratch = torch.empty((rows, 9, c), dtype=torch.float32,
+                              device=x.device)
+        _check(lib, lib.dw3x3_backward_s2(
+            x.data_ptr(), g.data_ptr(), kf.data_ptr(), dx.data_ptr(),
+            scratch.data_ptr(), rows, dk.data_ptr(), n, h, w, c, *args),
+            "backward")
+    else:
+        kflip = kf.flip(0, 1).contiguous()
+        _check(lib, lib.dw3x3_forward(g.data_ptr(), kflip.data_ptr(),
+                                      dx.data_ptr(), n, h, w, c, 1, *args),
+               "dx")
+        scratch = torch.empty((lib.dw3x3_dk_blocks(n * h * w, c), 9, c),
+                              dtype=torch.float32, device=x.device)
+        _check(lib, lib.dw3x3_dk_s1(x.data_ptr(), g.data_ptr(),
+                                    scratch.data_ptr(), dk.data_ptr(),
+                                    n, h, w, c, *args), "dk")
     depthwise3x3_backward.launches += 1
     return dx, dk
 
