@@ -77,9 +77,12 @@ K5_PATH_CASES = (("ffm", 4, True, False), ("classifier.ds1", 1, True, True),
                  ("classifier.ds2", 1, True, True))
 K5_PATH_SHAPE = (SERVE_BATCH, SERVE_H // 8, SERVE_W // 8, 128, 128)
 # ragged shapes (n, h, w, c, co, d): tile edges, C off and on the 32-channel
-# chunk, Co off the 16-wide product tiles and above one 128-wide pass
+# chunk, Co off the 16-wide product tiles and above one 128-wide pass; then
+# C = Co = 128 off the bf16 kernel's 8 x 16 tile at d = 1 and 4 (its
+# compile-time instances) and at d = 2 (the runtime one)
 K5_RAGGED = ((2, 37, 45, 24, 40, 2), (1, 5, 70, 3, 5, 1), (2, 9, 33, 160, 72, 4),
-             (2, 9, 33, 64, 136, 4))
+             (2, 9, 33, 64, 136, 4), (2, 21, 35, 128, 128, 1),
+             (2, 19, 45, 128, 128, 4), (1, 13, 27, 128, 128, 2))
 BF16_TOL = 2.0 ** -6   # of max|plain|: two bf16 steps at the top of the range
 
 TRAIN_STEPS = 8

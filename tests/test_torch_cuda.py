@@ -79,6 +79,52 @@ def test_sepconv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         sepconv.fused_separable_conv(x, dwk.cpu(), dwb, pwk, pwb)
 
 
+# (n, h, w, c, co, d) for the bf16 kernel: C = Co = 128 at d = 1 and 4 (the
+# compile-time instances) on and off the 8 x 16 tile's edges; d = 2 and 3
+# (the runtime-d instance); C off the 32-channel chunk (40; 20, off the
+# 16-byte pieces); Co over one 128-wide group
+SEPCONV_BF16_CASES = [(2, 16, 32, 128, 128, 1), (2, 21, 35, 128, 128, 1),
+                      (2, 16, 32, 128, 128, 4), (2, 19, 45, 128, 128, 4),
+                      (1, 13, 27, 128, 128, 2), (1, 11, 37, 128, 128, 3),
+                      (2, 9, 33, 40, 128, 1), (1, 9, 17, 20, 56, 4),
+                      (1, 10, 18, 128, 200, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,co,d", SEPCONV_BF16_CASES)
+def test_sepconv_bf16_kernel_geometry(cuda, n, h, w, c, co, d):
+    x, dwk, dwb, pwk, pwb = _sepconv_inputs(8, h, w, c, co, cuda, n=n)
+    args = (x.bfloat16(), dwk, dwb, pwk.bfloat16(), pwb)
+    kw = dict(dilation=d, relu_out=d % 2 == 1)
+    before = sepconv.fused_separable_conv.launches
+    got = sepconv.fused_separable_conv(*args, **kw)
+    again = sepconv.fused_separable_conv(*args, **kw)
+    assert sepconv.fused_separable_conv.launches == before + 2
+    want = sepconv.separable_conv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+    assert torch.equal(got, again)   # two launches give the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+def test_sepconv_bf16_unaligned_x_runs_the_kernel(cuda, d):
+    """An x whose storage offset breaks 16-byte alignment goes to the
+    runtime instance (plain loads), never to the plain version."""
+    x, dwk, dwb, pwk, pwb = _sepconv_inputs(9, 12, 20, 128, 128, cuda)
+    store = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    xu = store[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+    args = (xu, dwk, dwb, pwk.bfloat16(), pwb)
+    before = sepconv.fused_separable_conv.launches
+    got = sepconv.fused_separable_conv(*args, dilation=d)
+    assert sepconv.fused_separable_conv.launches == before + 1
+    want = sepconv.separable_conv_reference(*args, dilation=d)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
 def _bf16_close(got, want, scale_of=None):
     """Within two bf16 steps of the largest |want| (sums in another order
     may round one step apart)."""

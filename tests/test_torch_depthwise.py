@@ -26,7 +26,6 @@ wrappers run the plain versions:
   inside the kernel it names.
 """
 
-import difflib
 from pathlib import Path
 
 import jax
@@ -47,7 +46,7 @@ from torch_semantic_segmentation_tpu_torch.models.fastscnn import (
 from torch_semantic_segmentation_tpu_torch.ops import conv as tconv
 from torch_semantic_segmentation_tpu_torch.ops import depthwise
 
-from tests.test_torch_resize_ce_map_bwd import _kernel_lines, _variants
+from tests.test_torch_resize_ce_map_bwd import check_variant
 from tests.torch_port_util import randomize_bn
 
 torch.set_num_threads(2)
@@ -233,22 +232,7 @@ def test_probe_variant_patches_only_its_kernel(variant):
     `depthwise.cu` defines and changes lines inside that kernel's body only,
     each of its texts found once (a probe that patched another kernel would
     time the wrong one)."""
-    src = DW_CU.read_text()
-    designs = _variants(DW_PROBE)[variant]
-    defined = {k: _kernel_lines(src, k) for k in designs}
-    defined = {k: v for k, v in defined.items() if v is not None}
-    assert len(defined) == 1, f"{variant}: kernels defined {defined}"
-    (kernel, (first, last)), = defined.items()
-    out = src
-    for old, new in designs[kernel]:
-        assert src.count(old) == 1, f"{variant}: {old!r} not once in the file"
-        out = out.replace(old, new)
-    changed = [i for tag, i1, i2, _, _ in difflib.SequenceMatcher(
-        None, src.splitlines(), out.splitlines()).get_opcodes()
-        if tag != "equal" for i in range(i1, max(i2, i1 + 1))]
-    assert changed, f"{variant} changes nothing"
-    assert all(first < i <= last for i in changed), (
-        f"{variant}: lines {changed} outside {kernel} ({first}-{last})")
+    check_variant(DW_CU, DW_PROBE, variant)
 
 
 def test_learning_to_downsample_train_bf16_matches_routed_jax(monkeypatch):

@@ -146,12 +146,13 @@ def _kernel_lines(src: str, name: str):
     return src.count("\n", 0, m.start()), src.count("\n", 0, end)
 
 
-@pytest.mark.parametrize("variant", ["k1b_no_wpass", "k3b_no_wpass",
-                                     "k3b_fast_exp", "k3b_one_kstep",
-                                     "k3b_no_dw_store"])
-def test_probe_variant_patches_only_its_kernel(variant):
-    src = CU.read_text()
-    designs = _variants()[variant]
+def check_variant(cu: Path, probe: Path, variant: str):
+    """The probe's variant names one kernel that `cu` defines and changes
+    lines inside that kernel's body only, each of its texts found once in
+    the file (a probe that patched another kernel would time the wrong
+    one)."""
+    src = cu.read_text()
+    designs = _variants(probe)[variant]
     defined = {k: _kernel_lines(src, k) for k in designs}
     defined = {k: v for k, v in defined.items() if v is not None}
     assert len(defined) == 1, f"{variant}: kernels defined {defined}"
@@ -166,3 +167,10 @@ def test_probe_variant_patches_only_its_kernel(variant):
     assert changed, f"{variant} changes nothing"
     assert all(first < i <= last for i in changed), (
         f"{variant}: lines {changed} outside {kernel} ({first}-{last})")
+
+
+@pytest.mark.parametrize("variant", ["k1b_no_wpass", "k3b_no_wpass",
+                                     "k3b_fast_exp", "k3b_one_kstep",
+                                     "k3b_no_dw_store"])
+def test_probe_variant_patches_only_its_kernel(variant):
+    check_variant(CU, PROBE, variant)

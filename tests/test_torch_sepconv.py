@@ -5,6 +5,8 @@ tensors and runs its plain version; the CUDA kernel itself is held against
 that plain version by tests/test_torch_cuda.py and chip_smoke.py.
 Tolerance 1e-5: float32 on both sides."""
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,11 +21,15 @@ from torch_semantic_segmentation_tpu_torch.ops import SeparableConv
 from torch_semantic_segmentation_tpu_torch.ops import sepconv
 from torch_semantic_segmentation_tpu_torch.ops.fold import fold_batchnorm
 
+from tests.test_torch_resize_ce_map_bwd import check_variant
 from tests.torch_port_util import carry_weights
 
 torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+ROOT = Path(__file__).resolve().parent.parent
+SEPCONV_CU = ROOT / "torch_semantic_segmentation_tpu_torch" / "csrc" / "sepconv.cu"
+SEPCONV_PROBE = ROOT / "scripts" / "torch_sepconv_probe.py"
 
 
 def _inputs(seed, h, w, c, co, n=2):
@@ -125,3 +131,49 @@ def test_library_path_keyed_on_source():
     assert p.parent == kernels.BUILD_DIR
     assert p == kernels.library_path("sepconv")
     assert p.name.startswith("libsepconv-")
+
+
+def test_folded_pair_keeps_its_kernel_weights():
+    """A folded pair makes its weights in the kernel's layouts once and
+    keeps them while its parameters are unchanged: the output equals the
+    fused conv with the weights laid out afresh, on every call, and after an
+    in-place update or `load_state_dict` it follows the new weights. Where
+    autograd records, the gradient reaches the parameters."""
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, 8, 12, 6)).astype(np.float32))
+    sep = SeparableConv(6, 10, 3).eval()
+    fold_batchnorm(sep)
+    dwc, pwc = sep.dw.conv, sep.pw.conv
+
+    def fresh():
+        return sepconv.fused_separable_conv(
+            x, dwc.weight.reshape(6, 3, 3).permute(1, 2, 0), dwc.bias,
+            pwc.weight.reshape(10, 6).t(), pwc.bias)
+
+    with torch.no_grad():
+        got = sep(x)
+        kept = sep.pw._sepconv_weights[2]
+        assert torch.equal(got, fresh())
+        assert torch.equal(sep(x), got)
+        assert sep.pw._sepconv_weights[2] is kept
+        pwc.weight.mul_(0.5)
+        assert torch.equal(sep(x), fresh())
+        assert sep.pw._sepconv_weights[2] is not kept
+        sep.load_state_dict({k: v * 2 for k, v in sep.state_dict().items()})
+        assert torch.equal(sep(x), fresh())
+    with torch.inference_mode():
+        served = sep(x)
+    with torch.no_grad():
+        assert torch.equal(served, fresh())
+        assert torch.equal(sep(x), served)
+    sep(x).sum().backward()
+    assert dwc.weight.grad is not None and pwc.weight.grad is not None
+    assert float(pwc.weight.grad.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("variant", ["k5_no_product", "k5_no_taps",
+                                     "k5_no_stage", "k5_no_store"])
+def test_probe_variant_patches_only_its_kernel(variant):
+    """Each variant of `scripts/torch_sepconv_probe.py` names one kernel
+    that `sepconv.cu` defines and changes lines inside its body only."""
+    check_variant(SEPCONV_CU, SEPCONV_PROBE, variant)

@@ -11,7 +11,10 @@ package's Pallas kernel `ops/pallas_sepconv.py::_kernel`.
 to it, with the JAX package's applicability rules: stride-1 3×3 depthwise
 with padding equal to its dilation, both convs with a bias, no BN left,
 ReLU or identity activations. On FastSCNN's serving path that is the
-Classifier's `ds1` and `ds2` and the FFM's dilated dw → `low_proj`.
+Classifier's `ds1` and `ds2` and the FFM's dilated dw → `low_proj`. The
+weights in the kernel's layouts are made once and kept on the pair while
+its parameters are unchanged (`_kernel_weights`), so a fused call there is
+one launch.
 """
 
 from __future__ import annotations
@@ -159,12 +162,41 @@ def fuse_conv_pair(dw, pw, x: torch.Tensor) -> torch.Tensor | None:
             or pwc.padding != (0, 0) or pwc.groups != 1):
         return None
     return fused_separable_conv(
-        x.contiguous(),
-        dwc.weight.reshape(c, 3, 3).permute(1, 2, 0),
-        dwc.bias,
-        pwc.weight.reshape(-1, c).t().to(x.dtype),
-        pwc.bias,
+        x.contiguous(), *_kernel_weights(dw, pw, x.dtype),
         stride=1, dilation=d,
         relu_mid=dw.act_name == "relu",
         relu_out=pw.act_name == "relu",
     )
+
+
+def _kernel_weights(dw, pw, dtype: torch.dtype) -> tuple:
+    """The pair's weights as the kernel takes them: dw taps (3,3,C) and
+    bias float32, pw (C,Co) in `dtype`, pw bias float32, all contiguous.
+
+    Made once and kept on `pw` for as long as the four parameters are the
+    same tensors with the same data and version: an in-place update, an
+    optimizer step, `load_state_dict` and `.to` each change one of these,
+    so the kept copy is never stale (an update through `.data` bypasses the
+    version counter and is not seen). Where autograd records through the
+    parameters they are made anew on every call, so gradients reach them."""
+    dwc, pwc = dw.conv, pw.conv
+    params = (dwc.weight, dwc.bias, pwc.weight, pwc.bias)
+    stamp = (dtype, tuple(t._version for t in params),
+             tuple(t.data_ptr() for t in params))
+    record = torch.is_grad_enabled() and any(t.requires_grad for t in params)
+    kept = getattr(pw, "_sepconv_weights", None)
+    if (not record and kept is not None and kept[0] == stamp
+            and all(a is b for a, b in zip(kept[1], params))):
+        return kept[2]
+    c = dwc.weight.shape[0]
+    # ordinary tensors even under inference_mode, so that a later call
+    # outside it may use them
+    with torch.inference_mode(False), torch.set_grad_enabled(record):
+        weights = (dwc.weight.reshape(c, 3, 3).permute(1, 2, 0).float()
+                   .contiguous(),
+                   dwc.bias.float().contiguous(),
+                   pwc.weight.reshape(-1, c).t().to(dtype).contiguous(),
+                   pwc.bias.float().contiguous())
+    if not record:
+        pw._sepconv_weights = (stamp, params, weights)
+    return weights
