@@ -92,9 +92,11 @@ K2_PER_STEP = 9
 K1_PATH = (SERVE_BATCH, SERVE_H // 8, SERVE_W // 8, NUM_CLASSES, SERVE_H,
            SERVE_W)
 # ragged (n, h, w, c, oh, ow): OW not a multiple of 128, C of 19, 3 and 66;
-# x8 across 3 backward spans and 3 bands, both ragged
+# x8 across 3 backward spans and 3 bands, both ragged; two forward spans
+# whose last run of 8 columns is ragged
 K1_RAGGED = ((2, 8, 12, 19, 64, 96), (1, 5, 7, 3, 40, 56),
-             (2, 6, 20, 66, 48, 160), (2, 19, 70, 19, 152, 560))
+             (2, 6, 20, 66, 48, 160), (2, 19, 70, 19, 152, 560),
+             (1, 4, 130, 19, 32, 1037))
 # K2 on the training path, the nine GFE blocks at b8:
 # (n, h, w, cin, ce, stride, blocks of this shape)
 K2_PATH = ((8, 128, 256, 64, 384, 2, 1), (8, 64, 128, 64, 384, 1, 2),
@@ -137,10 +139,11 @@ DEEPLAB_BATCH, DEEPLAB_CROP, DEEPLAB_LR = 16, 768, 0.01
 K3_PATH = (DEEPLAB_BATCH, DEEPLAB_CROP // 16, DEEPLAB_CROP // 16, NUM_CLASSES,
            DEEPLAB_CROP, DEEPLAB_CROP)
 # ragged x16 (n, h, w, c, oh, ow), K3's ratio: W under one 16-column tile,
-# C of 66 (three class groups) and of 3, W over two of K3's phase-A spans
+# C of 66 (three class groups) and of 3, W over two of K3's phase-A spans;
+# two forward spans whose last run is ragged, and a ragged last band
 K3_RAGGED = ((2, 6, 5, 19, 96, 80), (1, 7, 9, 66, 112, 144),
              (1, 3, 2, 3, 48, 32), (1, 4, 90, 19, 64, 1440),
-             (2, 5, 21, 66, 80, 336))
+             (2, 5, 21, 66, 80, 336), (1, 5, 66, 19, 84, 1050))
 OHEM_THRESH, OHEM_MIN_KEPT = 0.7, 100_000
 EVAL_BATCHES = 4
 # the eval step's K6 launches a batch: in eval mode no block routes to K2,

@@ -6,7 +6,7 @@ beside each, as `chip_smoke.check_resize_ce` and `check_resize_ce_map` time
 it:
 
     python3 scripts/torch_resize_ce_probe.py [--root DIR]
-        [--variants k1b_no_wpass,k3b_no_wpass,...]
+        [--variants k1b_no_wpass,k1f_no_exp,...]
 
 `--root` names the checkout whose port package is timed (default: this
 one), so that two commits can be compared on one card in one command
@@ -28,16 +28,25 @@ when the body lacks one (never patching another kernel):
 - `k3b_one_kstep`, `k3b_no_dw_store`: phase A's products over one k step
   of each tile, or without their dw stores (what the products' loop and
   their stores cost; d(logits) is then wrong).
+- `k1f_no_exp`, `k1f_no_hpass`, `k1f_no_store`: the forward (K1's and
+  K3's, one body: `resize_ce_fwd` before the run design,
+  `resize_ce_fwd_runs` since) with its exponentials replaced by an add,
+  without its H pass (and, since the run design, the staging of its x
+  rows; the buffer left as it is), or without its logz and loss-map
+  stores; each is timed at K1's and at K3's shape.
 
 Prints the card, what ptxas reported for each kernel instance of
-`resize_ce.cu` (registers, spills, shared memory), K1's and K3's plans,
+`resize_ce.cu` (registers, spills, shared memory), the forward's SASS
+opcode counts at C = 19 (cuobjdump), K1's and K3's plans,
 then one line per kernel: ms a launch on CUDA events (the median of 3 runs
 of 20 launches), the same from a CUDA graph of 20 launches (without the
 wrapper's host time), the library call's ms and the error against the
-plain version; digests of K1's outputs (loss, S2, logz, d(logits)), of
-K3's forward's (loss map, logz) and of K3's d(logits): equal digests,
-equal bits; what one K3 backward allocates; its time by kernel from
-torch.profiler; then one JSON line. Needs a CUDA card and nvcc.
+plain version; digests of each forward's outputs (K1: loss, S2, logz; K3:
+loss map, logz) and of each backward's d(logits), the backward fed the
+plain version's logz (and S2), so that its digest reads the backward
+alone: equal digests, equal bits; what one K3 backward allocates; its time
+by kernel from torch.profiler; then one JSON line. Needs a CUDA card and
+nvcc.
 """
 
 from __future__ import annotations
@@ -89,11 +98,46 @@ VARIANTS = {
         "resize_ce_map_bwd_w": (("        if (j >= w) continue;\n",
                                  "        if (j >= w || c0[0] == c0[0]) continue;\n"),),
     },
+    "k1f_no_exp": {
+        # the forward's exponentials replaced by an add (K1's and K3's: one
+        # body)
+        "resize_ce_fwd": (("      s += expf(y);\n", "      s += y;\n"),),
+        "resize_ce_fwd_runs": (
+            ("      if (4 * q + e < c) s += ex2_approx(LOG2E * logit(av[e], bv[e], "
+             "wl, wh));\n",
+             "      if (4 * q + e < c) s += logit(av[e], bv[e], wl, wh);\n"),),
+    },
+    "k1f_no_hpass": {
+        # the forward's H pass skipped, its buffer left as it is
+        "resize_ce_fwd": (
+            ("    h_pass(xn, s_t, w, c, tb.row_lo[o], tb.row_hi[o], "
+             "tb.row_wlo[o], tb.row_whi[o], tlo,\n           ntc);\n", ""),),
+        # (and its staging)
+        "resize_ce_fwd_runs": (
+            ("    if (!vec_x || (hl == staged_lo && hh == staged_hi)) return;\n",
+             "    return;\n"),
+            ("  h_row(o_begin, 0);\n", ""),
+            ("      h_row(o + 1, buf ^ 1);  // into the other buffer: no reader "
+             "waits on it\n", "")),
+    },
+    "k1f_no_store": {
+        # the forward's logz and loss-map stores skipped (all but NaNs)
+        "resize_ce_fwd": (
+            ("    logz[px] = __float2bfloat16(lz);\n",
+             "    if (lz != lz) logz[px] = __float2bfloat16(lz);\n"),
+            ("      loss_map[px] = wv * (lz - tl);\n",
+             "      if (tl != tl) loss_map[px] = wv * (lz - tl);\n")),
+        "resize_ce_fwd_runs": (
+            ("      if (vec_io) {\n",
+             "      if (lz[0] == lz[0]) {\n      } else if (vec_io) {\n"),),
+    },
 }
-# the kernel each variant's time is taken of
-TIMED = {"k1b_no_wpass": "K1 bwd", "k3b_no_wpass": "K3 bwd",
-         "k3b_fast_exp": "K3 bwd", "k3b_one_kstep": "K3 bwd",
-         "k3b_no_dw_store": "K3 bwd"}
+# the kernels each variant's time is taken of
+TIMED = {"k1b_no_wpass": ("K1 bwd",), "k3b_no_wpass": ("K3 bwd",),
+         "k3b_fast_exp": ("K3 bwd",), "k3b_one_kstep": ("K3 bwd",),
+         "k3b_no_dw_store": ("K3 bwd",), "k1f_no_exp": ("K1 fwd", "K3 fwd"),
+         "k1f_no_hpass": ("K1 fwd", "K3 fwd"),
+         "k1f_no_store": ("K1 fwd", "K3 fwd")}
 
 
 def kernel_body(src: str, name: str) -> tuple[int, int] | None:
@@ -174,6 +218,33 @@ def kernel_ms(fn, iters: int = 10) -> dict:
     return out
 
 
+def sass_counts(kernels, name: str, instances: tuple[str, ...]) -> dict:
+    """The SASS opcodes of each kernel instance whose mangled name holds
+    one of `instances`, counted from `cuobjdump -sass` of the built
+    `csrc/<name>.cu` ({} where the toolkit has no cuobjdump)."""
+    import collections
+    import subprocess
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(kernels.build(name).path)],
+                         capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((i for i in instances if i in m.group(1)), None)
+            if fn:
+                counts[fn] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                      line)
+        if m and fn:
+            counts[fn][m.group(1)] += 1
+    return {k: dict(total=sum(v.values()), **dict(v.most_common(12)))
+            for k, v in counts.items()}
+
+
 def digest(*tensors) -> str:
     import torch
     h = hashlib.sha256()
@@ -211,6 +282,12 @@ def main() -> int:
     print("ptxas resize_ce:\n  " + "\n  ".join(ptxas_lines(kernels,
                                                             "resize_ce")),
           flush=True)
+    # the forward's C = 19 instances: K1's with uint8 labels, K3's with
+    # int32 (the mangled template arguments)
+    sass = sass_counts(kernels, "resize_ce", ("fwd_runsIhLb0ELi19E",
+                                              "fwd_runsIiLb1ELi19E"))
+    for k, v in sass.items():
+        print(f"SASS {k}: {v}", flush=True)
     rows, sums, digests, timed = [], {}, {}, {}
 
     def plan_line(name, n, h, w, c, oh, ow):
@@ -275,13 +352,19 @@ def main() -> int:
     ref1 = rce.resize_ce_reference_backward(logits1, labels1, cw, logz1, scale)
     err1 = float((dx1.float() - ref1.float()).abs().max())
     scale1 = float(ref1.float().abs().max())
-    digests["K1"] = digest(loss, s2, logz1, dx1)
     del ref1, dx1
+    # the forward's bits; the backward's from the plain version's logz and
+    # S2, so that they read the backward alone
+    digests["K1 fwd"] = digest(loss, s2, logz1)
+    _, s2p, logzp = rce.resize_ce_reference(logits1, labels1, cw)
+    digests["K1 bwd"] = digest(rce.resize_ce_backward(
+        logits1, labels1, cw, logzp, (0.7 / s2p).reshape(1)))
+    del s2p, logzp
     lib_fwd, lib_bwd = library_pair(logits1, labels1, k1_shape, weight=cw)
     library_rows(k1_shape, (("K1 fwd", k1_fwd, lib_fwd),
                                   ("K1 bwd", k1_bwd, lib_bwd)),
                  err1, scale1)
-    timed["K1 bwd"] = k1_bwd
+    timed["K1 fwd"], timed["K1 bwd"] = k1_fwd, k1_bwd
 
     # K3 at DeepLab's OHEM shape, int32 labels as `augment_batch` gives them
     k3_shape = chip_smoke.K3_PATH
@@ -304,25 +387,26 @@ def main() -> int:
     ref3 = rce.resize_ce_map_reference_backward(logits3, labels3, logz3, ct)
     err3 = float((dx3.float() - ref3.float()).abs().max())
     scale3 = float(ref3.float().abs().max())
-    digests["K3 fwd"] = digest(lmap, logz3)
-    digests["K3 bwd"] = digest(dx3)
     del ref3, dx3
+    digests["K3 fwd"] = digest(lmap, logz3)
+    digests["K3 bwd"] = digest(rce.resize_ce_map_backward(
+        logits3, labels3, rce.resize_ce_map_reference(logits3, labels3)[1],
+        ct))
     lib_fwd, lib_bwd = library_pair(logits3, labels3, k3_shape, ct=ct,
                                     reduction="none")
     library_rows(k3_shape, (("K3 fwd", k3_fwd, lib_fwd),
                                   ("K3 bwd", k3_bwd, lib_bwd)),
                  err3, scale3)
-    timed["K3 bwd"] = k3_bwd
+    timed["K3 fwd"], timed["K3 bwd"] = k3_fwd, k3_bwd
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     k3_bwd()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - before
-    print(f"digests: K1's outputs {digests['K1']}, K3's forward's "
-          f"{digests['K3 fwd']}, K3's d(logits) {digests['K3 bwd']}; one K3 "
-          f"backward allocates at most {peak} bytes above what was live",
-          flush=True)
+    print("digests: " + ", ".join(f"{k} {v}" for k, v in digests.items())
+          + f"; one K3 backward allocates at most {peak} bytes above what "
+          "was live", flush=True)
     phases = kernel_ms(k3_bwd)
     print("K3 bwd by kernel (torch.profiler, ms a call): " + (", ".join(
         f"{k} {v:.4f}" for k, v in phases.items()) or "not measured"),
@@ -333,17 +417,19 @@ def main() -> int:
         lib = build_variant(kernels, v)
         kernels.load = lambda name, _lib=lib: (
             _lib if name == "resize_ce" else real_load(name))
-        fn = timed[TIMED[v]]
-        r = dict(kernel=TIMED[v], variant=v, ms=chip_smoke.cuda_ms(fn, reps=3),
-                 graph_ms=graph_ms(fn))
-        rows.append(r)
-        print(f"{TIMED[v]} {v}: ms {r['ms']:.4f} (graph {r['graph_ms']})",
-              flush=True)
+        for kernel in TIMED[v]:
+            fn = timed[kernel]
+            r = dict(kernel=kernel, variant=v,
+                     ms=chip_smoke.cuda_ms(fn, reps=3), graph_ms=graph_ms(fn))
+            rows.append(r)
+            print(f"{kernel} {v}: ms {r['ms']:.4f} (graph {r['graph_ms']})",
+                  flush=True)
         kernels.load = real_load
     for r in rows:
         if "variant" not in r:
             sums[r["kernel"]] = r["ms"]
     print(json.dumps({"root": root, "ms": sums, "digests": digests,
+                      "sass": sass,
                       "k3_bwd_peak_bytes": peak, "k3_bwd_kernels": phases,
                       "rows": rows}))
     return 0

@@ -297,14 +297,19 @@ def test_mbconv_autograd_and_wrapper_checks(cuda):
 # bands, both ragged; C of 66 (three class groups); a non-integer ratio
 # with align_corners; x8 with four 16-column tiles; then x16, K3's ratio on
 # DeepLab's path: ragged, W under one tile, C of 66 with align_corners, C
-# of 3, and W over two of K3's phase-A spans
+# of 3, and W over two of K3's phase-A spans; then off the forward's
+# geometry (runs of 8 columns a thread, spans of at most 128 runs, bands of
+# 8 rows): OW off the run, two spans whose last run is ragged, OW under one
+# run, a ragged last band on the vector paths (W C a multiple of 8, OW of 8)
 RESIZE_CE_CASES = [(2, 8, 12, 19, 64, 96, False), (1, 5, 7, 3, 40, 56, True),
                    (2, 6, 20, 66, 48, 160, False), (1, 16, 16, 19, 128, 128, True),
                    (2, 19, 70, 19, 152, 560, False), (1, 13, 37, 66, 104, 296, False),
                    (1, 12, 20, 19, 100, 170, True), (1, 16, 64, 19, 128, 512, False),
                    (2, 6, 5, 19, 96, 80, False), (1, 7, 9, 66, 112, 144, True),
                    (1, 3, 2, 3, 48, 32, False), (1, 4, 90, 19, 64, 1440, False),
-                   (2, 5, 21, 66, 80, 336, False)]
+                   (2, 5, 21, 66, 80, 336, False),
+                   (1, 6, 9, 19, 48, 70, False), (1, 4, 130, 19, 32, 1037, False),
+                   (1, 3, 2, 19, 24, 5, False), (2, 9, 40, 19, 76, 320, False)]
 
 
 @pytest.mark.cuda
@@ -338,6 +343,59 @@ def test_resize_ce_kernels_match_plain_version(cuda, n, h, w, c, oh, ow, ac,
     torch.cuda.synchronize()
     assert dx.dtype == torch.bfloat16 and dx.shape == logits.shape
     _bf16_close(dx, ref)
+
+
+def _resize_ce_inputs(seed, n, h, w, c, oh, ow, label_dtype, device):
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy((rng.normal(size=(n, h, w, c)) * 2).astype(
+        np.float32)).to(device).to(torch.bfloat16)
+    lab = rng.integers(0, c, (n, oh, ow))
+    lab[:, :3, :7] = 255
+    labels = torch.from_numpy(lab.astype(label_dtype)).to(device)
+    cw = torch.from_numpy(rng.uniform(0.5, 2.0, c).astype(np.float32)).to(device)
+    return logits, labels, cw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,oh,ow", [(2, 32, 64, 19, 256, 512),
+                                          (2, 9, 40, 19, 76, 320),
+                                          (1, 12, 20, 66, 100, 170)])
+def test_resize_ce_forwards_give_the_same_bits_twice(cuda, n, h, w, c, oh,
+                                                     ow):
+    """No atomics: a second launch of K1's forward gives the same loss, S2
+    and logz, and of K3's the same map and logz, bit for bit."""
+    logits, labels, cw = _resize_ce_inputs(8, n, h, w, c, oh, ow, "uint8",
+                                           cuda)
+    first = resize_ce.resize_ce_forward(logits, labels, cw)
+    second = resize_ce.resize_ce_forward(logits, labels, cw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    first = resize_ce.resize_ce_map_forward(logits, labels)
+    second = resize_ce.resize_ce_map_forward(logits, labels)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 19, 66])
+def test_resize_ce_forward_instances_run_the_kernel(cuda, c):
+    """C = 19 takes the unrolled instance, 3 and 66 the runtime one: each
+    launches the kernel (the counters move) and agrees with the plain
+    version."""
+    logits, labels, cw = _resize_ce_inputs(9, 2, 16, 32, c, 128, 256,
+                                           "int32", cuda)
+    f0 = resize_ce.resize_ce_forward.launches
+    m0 = resize_ce.resize_ce_map_forward.launches
+    loss, s2, logz = resize_ce.resize_ce_forward(logits, labels, cw)
+    loss_map, logz3 = resize_ce.resize_ce_map_forward(logits, labels)
+    assert resize_ce.resize_ce_forward.launches == f0 + 1
+    assert resize_ce.resize_ce_map_forward.launches == m0 + 1
+    want = resize_ce.resize_ce_reference(logits, labels, cw)
+    np.testing.assert_allclose(float(loss), float(want[0]), rtol=1e-5)
+    np.testing.assert_allclose(float(s2), float(want[1]), rtol=1e-6)
+    _bf16_close(logz, want[2])
+    assert torch.equal(logz, logz3)
+    want_map, _ = resize_ce.resize_ce_map_reference(logits, labels)
+    torch.testing.assert_close(loss_map, want_map, rtol=0,
+                               atol=1e-5 * float(want_map.abs().max()))
 
 
 @pytest.mark.cuda

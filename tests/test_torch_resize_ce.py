@@ -236,3 +236,17 @@ def test_labels_from_c_to_ignore_index(route, weights, label):
                         lg, jnp.asarray(labels), None if cw4 is None
                         else jnp.asarray(cw4), interpret=True))
         _assert_close(got, want)
+
+
+def test_clipped_exponentials_stay_above_flt_min():
+    """The card's forward takes its exponentials as ex2.approx.ftz of
+    y·log2(e) and logz by lg2.approx.ftz (csrc/resize_ce.cu). After the ±80
+    clip the least of them is exp(−80) ≈ 1.8e−35, a normal float32 above
+    FLT_MIN (1.18e−38), and so is a class sum of one such term: flushing
+    denormals to zero changes no value."""
+    tiny = np.finfo(np.float32).tiny
+    clip = np.float32(resize_ce._CLIP)
+    least = torch.exp(torch.tensor(-clip, dtype=torch.float32))
+    assert float(least) > tiny
+    assert np.exp2(-clip * np.float32(np.log2(np.e)), dtype=np.float32) > tiny
+    assert bool(torch.isfinite(torch.log(least)))

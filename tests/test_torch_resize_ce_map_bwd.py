@@ -171,6 +171,7 @@ def check_variant(cu: Path, probe: Path, variant: str):
 
 @pytest.mark.parametrize("variant", ["k1b_no_wpass", "k3b_no_wpass",
                                      "k3b_fast_exp", "k3b_one_kstep",
-                                     "k3b_no_dw_store"])
+                                     "k3b_no_dw_store", "k1f_no_exp",
+                                     "k1f_no_hpass", "k1f_no_store"])
 def test_probe_variant_patches_only_its_kernel(variant):
     check_variant(CU, PROBE, variant)

@@ -25,13 +25,27 @@
 // rounding points, is K1's; K1's forward compiles from the same code with MAP
 // false, while each has a backward of its own (below).
 //
-// Forward: one block per (image, band of FWD_ROWS output rows, span of
-// FWD_SPAN output columns), one thread per output column. For each output row
-// the block forms the H-pass row of the low-res columns its span reads, once,
-// in shared memory (float32 holding bf16 values); each thread then runs the
-// two W taps and the class loop, writes logz (bf16, the backward's residual)
-// and keeps its share of sum w (logz - y_label) and sum w. The block's two
-// sums go to `partial`; the caller adds them up (no atomics: deterministic).
+// Forward (resize_ce_fwd_runs): one block per (image, band of FWD_ROWS output
+// rows, span of output columns), one thread per run of FWD_RUN consecutive
+// output columns, at most FWD_MAX_THREADS runs a span (fwd_threads). For each
+// output row the block forms the H-pass row of the low-res columns its span
+// reads, once, in shared memory: float32 holding bf16 values, each column's
+// classes padded to fwd_pitch floats (an odd multiple of 4), so that a
+// thread reads a column's classes by 16-byte loads and the loads of 8
+// neighbouring columns fall on distinct banks. The row's two x rows are
+// staged by cp.async before the class loop of the row above, into 16-byte
+// chunks that the same thread turns into the H pass after the loop (no
+// barrier between the staging and its use), into the second of two H-pass
+// buffers: one barrier a row. Where x's rows do not share one alignment the
+// H pass reads global memory directly. Each thread then runs, per column of
+// its run, the two W taps and the class loop (unrolled at C = FWD_C, a
+// runtime loop over 4-class groups for any other C), exponentials by
+// ex2.approx of y log2(e); the label's logit is one more W-pass evaluation
+// after the loop, by the same operations, so it has the bits of the loop's
+// y. It loads the run's labels and stores its logz (bf16, the backward's
+// residual; K3: the loss map too) as vectors where the row allows, and keeps
+// its share of sum w (logz - y_label) and sum w. The block's two sums go to
+// `partial`; the caller adds them up (no atomics: deterministic).
 //
 // K1's backward (resize_ce_bwd_mma) computes both transposed passes as the
 // Pallas kernel does: the W pass as bf16 matrix products with float32 sums,
@@ -94,14 +108,19 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int FWD_ROWS = 8;
-constexpr int FWD_SPAN = THREADS;
+constexpr int FWD_ROWS = 8;            // output rows a forward block takes
+constexpr int FWD_RUN = 8;             // output columns a forward thread takes
+constexpr int FWD_MAX_THREADS = 128;   // runs a forward span takes, at most
+constexpr int FWD_C = 19;              // the class count of the unrolled instance
 constexpr int BWD_ROWS = 8;
 constexpr float CLIP = 80.f;
+constexpr float LOG2E = 1.44269504088896341f;
+constexpr float LN2 = 0.693147180559945309f;
 constexpr size_t SMEM_LIMIT = 232448;  // 227 KB, Hopper's per-block maximum
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -121,12 +140,20 @@ struct Tables {
   int tail_off;     // the tail's offset in the int table, in ints
 };
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Threads of a forward block: the fewest spans of at most FWD_MAX_THREADS
+// runs, balanced, in whole warps.
+inline int fwd_threads(int ow) {
+  const int runs = cdiv(ow, FWD_RUN), spans = cdiv(runs, FWD_MAX_THREADS);
+  return 32 * cdiv(cdiv(runs, spans), 32);
+}
+inline int fwd_span(int ow) { return FWD_RUN * fwd_threads(ow); }
 
 Tables tables(const int* it, const float* ft, int h, int w, int oh, int ow) {
   Tables t;
   const int* const it0 = it;
-  const int nfs = cdiv(ow, FWD_SPAN), nb = cdiv(h, BWD_ROWS);
+  const int nfs = cdiv(ow, fwd_span(ow)), nb = cdiv(h, BWD_ROWS);
   t.row_lo = it; it += oh;
   t.row_hi = it; it += oh;
   t.col_lo = it; it += ow;
@@ -146,14 +173,171 @@ Tables tables(const int* it, const float* ft, int h, int w, int oh, int ow) {
   return t;
 }
 
-// H-pass row: s_t[j][c] = bf16(a*x[hl][tlo+j][c] + b*x[hh][tlo+j][c]).
-__device__ __forceinline__ void h_pass(const __nv_bfloat16* __restrict__ xn, float* s_t,
-                                       int w, int c, int hl, int hh, float a, float b,
-                                       int tlo, int ntc) {
-  const __nv_bfloat16* r0 = xn + (size_t(hl) * w + tlo) * c;
-  const __nv_bfloat16* r1 = xn + (size_t(hh) * w + tlo) * c;
-  for (int i = threadIdx.x; i < ntc * c; i += THREADS)
-    s_t[i] = round_bf16(a * __bfloat162float(r0[i]) + b * __bfloat162float(r1[i]));
+__host__ __device__ constexpr size_t a16(size_t b) { return (b + 15) & ~size_t(15); }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The offset in dst of src[p0] staged by `stage`.
+template <typename T>
+__device__ __forceinline__ int lead(size_t p0, bool vec) {
+  return vec ? int(p0 % (16 / sizeof(T))) : 0;
+}
+
+// src[p0, p0 + count) into dst, by a block of `nthreads` threads: by
+// cp.async in 16-byte pieces from the boundary below p0 where `vec` (src
+// aligned), the piece past the end zero-filled; else by plain loads.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, size_t p0, int count,
+                                      bool vec, int nthreads = THREADS) {
+  constexpr int PER = 16 / sizeof(T);
+  if (!vec) {
+    for (int i = threadIdx.x; i < count; i += nthreads) dst[i] = src[p0 + i];
+    return;
+  }
+  const int e0 = lead<T>(p0, vec), nel = e0 + count;
+  for (int i = threadIdx.x; i < cdiv(nel, PER); i += nthreads)
+    cp_async16(dst + PER * i, src + (p0 - e0) + PER * i,
+               int(sizeof(T)) * min(PER, nel - PER * i));
+}
+
+// ---------------------------------------------------------------------------
+// The forward. After the clip, y >= -CLIP, so exp(y) >= exp(-80) = 1.8e-35,
+// above FLT_MIN (1.18e-38): ex2.approx.ftz and lg2.approx.ftz never meet a
+// denormal input or output here, and flushing them to zero changes no value.
+
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float lg2_approx(float v) {
+  float r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// y of one class: wl a + wh b (two exact products of bf16 values, rounded
+// once), clipped to +-CLIP.
+__device__ __forceinline__ float logit(float a, float b, float wl, float wh) {
+  return fminf(fmaxf(fmaf(wh, b, wl * a), -CLIP), CLIP);
+}
+
+// Floats a low-res column of the H-pass row: its classes padded to an odd
+// multiple of 4, so that 16-byte loads of 8 neighbouring columns fall on
+// distinct banks.
+__host__ __device__ constexpr int fwd_pitch(int c) { return 4 * (cdiv(c, 4) | 1); }
+
+// The forward's shared memory, in bytes: the block sum's 32 floats, the
+// class weights, two H-pass rows (tmax columns of fwd_pitch floats), the
+// two staged x rows (bf16, from a 16-byte boundary).
+struct FwdSmem {
+  int p, xe;
+  size_t cw, t, x, total;
+  __host__ __device__ FwdSmem(int c, int tmax) {
+    p = fwd_pitch(c);
+    xe = 8 * cdiv(tmax * c + 7, 8);  // bf16 elements a staged x row
+    cw = 4 * 32;
+    t = a16(cw + 4 * size_t(c));
+    x = a16(t + 2 * 4 * size_t(tmax) * p);
+    total = a16(x + 2 * 2 * size_t(xe));
+  }
+};
+
+// bf16 element i of a 16-byte chunk, as float.
+__device__ __forceinline__ float bf16_at(const uint4& u, int i) {
+  const unsigned v = i < 2 ? u.x : i < 4 ? u.y : i < 6 ? u.z : u.w;
+  return __uint_as_float(i % 2 ? v & 0xffff0000u : v << 16);
+}
+
+// The H-pass row dst[j * p + k] = bf16(a x0[j][k] + b x1[j][k]) of n = ntc * c
+// elements, from the two x rows staged by `stage` (lead elements before the
+// first), each thread from the chunks it staged itself.
+template <int CC>
+__device__ __forceinline__ void h_pass_staged(const __nv_bfloat16* s_x0,
+                                              const __nv_bfloat16* s_x1, float* dst, int lead,
+                                              int n, int c, int p, float a, float b) {
+  for (int q = threadIdx.x; q < cdiv(lead + n, 8); q += blockDim.x) {
+    const uint4 u0 = reinterpret_cast<const uint4*>(s_x0)[q];
+    const uint4 u1 = reinterpret_cast<const uint4*>(s_x1)[q];
+    const int e = 8 * q - lead;
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = round_bf16(fmaf(b, bf16_at(u1, i), a * bf16_at(u0, i)));
+    bool whole = false;
+    if constexpr (CC >= 8) {
+      whole = e >= 0 && e + 8 <= n;
+      if (whole) {  // a whole chunk crosses at most one column boundary
+        const int j = e / CC, k = e - j * CC;
+        float* d0 = dst + j * p + k;
+        float* d1 = d0 + (p - CC);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (k + i < CC) d0[i] = v[i];
+          else d1[i] = v[i];
+        }
+      }
+    }
+    if (!whole) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int ei = e + i, j = ei / c;
+        if (ei >= 0 && ei < n) dst[j * p + ei - j * c] = v[i];
+      }
+    }
+  }
+}
+
+// The same from global memory, where x's rows do not share one alignment.
+__device__ __forceinline__ void h_pass_direct(const __nv_bfloat16* __restrict__ x0,
+                                              const __nv_bfloat16* __restrict__ x1,
+                                              float* dst, int n, int c, int p, float a,
+                                              float b) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int j = i / c;
+    dst[j * p + i - j * c] =
+        round_bf16(fmaf(b, __bfloat162float(x1[i]), a * __bfloat162float(x0[i])));
+  }
+}
+
+// The class indices of a run's labels, -1 for a label outside [0, c) and
+// for a column past the row's end: one vector load where `vec`.
+template <typename L>
+__device__ __forceinline__ void run_labels(const L* __restrict__ p, bool vec, int cols, int c,
+                                           int out[FWD_RUN]) {
+  long long v[FWD_RUN];
+  if (vec) {
+    // the run in whole 16-, 8- or 4-byte words
+    constexpr int BYTES = FWD_RUN * int(sizeof(L));
+    using W = std::conditional_t<BYTES % 16 == 0, uint4,
+                                 std::conditional_t<BYTES % 8 == 0, uint2, unsigned>>;
+    union {
+      W w[BYTES / sizeof(W)];
+      L l[FWD_RUN];
+    } r;
+#pragma unroll
+    for (int k = 0; k < int(BYTES / sizeof(W)); ++k)
+      r.w[k] = __ldcs(reinterpret_cast<const W*>(p) + k);
+#pragma unroll
+    for (int i = 0; i < FWD_RUN; ++i) v[i] = r.l[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < FWD_RUN; ++i) v[i] = i < cols ? static_cast<long long>(p[i]) : -1;
+  }
+#pragma unroll
+  for (int i = 0; i < FWD_RUN; ++i) out[i] = v[i] >= 0 && v[i] < c ? int(v[i]) : -1;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 __device__ __forceinline__ float block_sum(float v, float* s_red) {
@@ -164,70 +348,155 @@ __device__ __forceinline__ float block_sum(float v, float* s_red) {
   __syncthreads();
   float s = 0.f;
   if (threadIdx.x == 0)
-    for (int i = 0; i < THREADS / 32; ++i) s += s_red[i];
+    for (int i = 0; i < int(blockDim.x) / 32; ++i) s += s_red[i];
   return s;
 }
 
-template <typename L, bool MAP>
-__global__ void __launch_bounds__(THREADS)
-resize_ce_fwd(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
-              const float* __restrict__ cw, Tables tb, float* __restrict__ partial,
-              float* __restrict__ loss_map, __nv_bfloat16* __restrict__ logz, int h,
-              int w, int c, int oh, int ow, int tmax) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_red = smem;              // THREADS / 32
-  float* s_cw = s_red + 32;         // c
-  float* s_t = s_cw + c;            // tmax * c
-  const int span = blockIdx.x, band = blockIdx.y, img = blockIdx.z;
+template <typename L, bool MAP, int CC>
+__global__ void __launch_bounds__(FWD_MAX_THREADS, 512 / FWD_MAX_THREADS)
+resize_ce_fwd_runs(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
+                   const float* __restrict__ cw, Tables tb, float* __restrict__ partial,
+                   float* __restrict__ loss_map, __nv_bfloat16* __restrict__ logz, int h,
+                   int w, int c_rt, int oh, int ow, int tmax, bool vec_x, bool vec_io) {
+  const int c = CC > 0 ? CC : c_rt;
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const FwdSmem sm(c, tmax);
+  const int p = sm.p, tbuf = tmax * p;
+  float* s_red = smem_f;
+  float* s_cw = reinterpret_cast<float*>(smem + sm.cw);
+  float* s_t = reinterpret_cast<float*>(smem + sm.t);
+  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + sm.x);
+  const int tid = threadIdx.x, span = blockIdx.x, band = blockIdx.y, img = blockIdx.z;
   if constexpr (!MAP)
-    for (int i = threadIdx.x; i < c; i += THREADS) s_cw[i] = cw[i];
-  const int tlo = tb.fspan_tlo[span];
-  const int ntc = tb.fspan_thi[span] - tlo + 1;
-  const int oc = span * FWD_SPAN + threadIdx.x;
-  const bool active = oc < ow;
-  int jl = 0, jh = 0;
-  float wl = 0.f, wh = 0.f;
-  if (active) {
-    jl = (tb.col_lo[oc] - tlo) * c;
-    jh = (tb.col_hi[oc] - tlo) * c;
-    wl = tb.col_wlo[oc];
-    wh = tb.col_whi[oc];
+    for (int i = tid; i < c; i += blockDim.x) s_cw[i] = cw[i];
+  const int tlo = tb.fspan_tlo[span], n = (tb.fspan_thi[span] - tlo + 1) * c;
+  const int oc0 = (span * int(blockDim.x) + tid) * FWD_RUN;
+  const int cols = max(0, min(FWD_RUN, ow - oc0));
+  // the run's W taps: the offsets of each column's two H-pass columns and
+  // their weights (0 past the row's end)
+  int jl[FWD_RUN], jh[FWD_RUN];
+  float wl[FWD_RUN], wh[FWD_RUN];
+#pragma unroll
+  for (int i = 0; i < FWD_RUN; ++i) {
+    const bool in = i < cols;
+    jl[i] = in ? (tb.col_lo[oc0 + i] - tlo) * p : 0;
+    jh[i] = in ? (tb.col_hi[oc0 + i] - tlo) * p : 0;
+    wl[i] = in ? tb.col_wlo[oc0 + i] : 0.f;
+    wh[i] = in ? tb.col_whi[oc0 + i] : 0.f;
   }
-  const __nv_bfloat16* xn = x + size_t(img) * h * w * c;
-  float acc_loss = 0.f, acc_w = 0.f;
-  for (int r = 0; r < FWD_ROWS; ++r) {
-    const int o = band * FWD_ROWS + r;
-    if (o >= oh) break;  // the same for every thread of the block
-    __syncthreads();     // the previous row's readers of s_t are done
-    h_pass(xn, s_t, w, c, tb.row_lo[o], tb.row_hi[o], tb.row_wlo[o], tb.row_whi[o], tlo,
-           ntc);
-    __syncthreads();
-    if (!active) continue;
-    const size_t px = (size_t(img) * oh + o) * ow + oc;
-    const long long lab = static_cast<long long>(labels[px]);
-    float s = 0.f, tl = 0.f, wv = 0.f;
-    for (int k = 0; k < c; ++k) {
-      float y = wl * s_t[jl + k] + wh * s_t[jh + k];
-      y = fminf(fmaxf(y, -CLIP), CLIP);
-      s += expf(y);
-      if (lab == k) { tl = y; wv = MAP ? 1.f : s_cw[k]; }
-    }
-    const float lz = logf(s);
-    logz[px] = __float2bfloat16(lz);
-    if constexpr (MAP) {
-      loss_map[px] = wv * (lz - tl);
+  auto x_at = [&](int r) { return ((size_t(img) * h + r) * w + tlo) * c; };
+  // output row o's two x rows into this thread's chunks of s_x, unless they
+  // are there already (rows of one pair of x rows follow each other)
+  int staged_lo = -1, staged_hi = -1;
+  auto prefetch = [&](int o) {
+    const int hl = tb.row_lo[o], hh = tb.row_hi[o];
+    if (!vec_x || (hl == staged_lo && hh == staged_hi)) return;
+    stage(s_x, x, x_at(hl), n, true, blockDim.x);
+    stage(s_x + sm.xe, x, x_at(hh), n, true, blockDim.x);
+    cp_async_commit();
+    staged_lo = hl;
+    staged_hi = hh;
+  };
+  // output row o's H pass into buffer `buf`
+  auto h_row = [&](int o, int buf) {
+    const size_t p0 = x_at(tb.row_lo[o]);
+    const float a = tb.row_wlo[o], b = tb.row_whi[o];
+    if (vec_x) {
+      cp_async_wait_all();
+      h_pass_staged<CC>(s_x, s_x + sm.xe, s_t + buf * tbuf, lead<__nv_bfloat16>(p0, true), n,
+                        c, p, a, b);
     } else {
-      acc_loss += wv * (lz - tl);
-      acc_w += wv;
+      h_pass_direct(x + p0, x + x_at(tb.row_hi[o]), s_t + buf * tbuf, n, c, p, a, b);
+    }
+  };
+
+  // s + sum exp(y_k) over the classes k of group q (4q .. 4q + 3, below c)
+  // of the column whose two H-pass columns are t0 and t1 (16-byte loads)
+  auto add_group = [&](float s, const float* t0, const float* t1, float wl, float wh, int q) {
+    const float4 a = reinterpret_cast<const float4*>(t0)[q];
+    const float4 b = reinterpret_cast<const float4*>(t1)[q];
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * q + e < c) s += ex2_approx(LOG2E * logit(av[e], bv[e], wl, wh));
+    return s;
+  };
+
+  const int o_begin = band * FWD_ROWS, o_end = min(o_begin + FWD_ROWS, oh);
+  float acc_loss = 0.f, acc_w = 0.f;
+  prefetch(o_begin);
+  h_row(o_begin, 0);
+  __syncthreads();
+  for (int o = o_begin; o < o_end; ++o) {
+    const int buf = (o - o_begin) & 1;
+    const bool more = o + 1 < o_end;
+    if (more) prefetch(o + 1);  // lands while this row's classes run
+    if (cols > 0) {
+      const float* t = s_t + buf * tbuf;
+      const size_t px = (size_t(img) * oh + o) * ow + oc0;
+      int lab[FWD_RUN];
+      run_labels(labels + px, vec_io, cols, c, lab);
+      float lz[FWD_RUN], mv[FWD_RUN];
+#pragma unroll
+      for (int i = 0; i < FWD_RUN; ++i) {
+        const float* ta = t + jl[i];
+        const float* tb2 = t + jh[i];
+        float s = 0.f;  // the classes ascending: unrolled where C is known
+        if constexpr (CC > 0) {
+#pragma unroll
+          for (int q = 0; q < cdiv(CC, 4); ++q) s = add_group(s, ta, tb2, wl[i], wh[i], q);
+        } else {
+          for (int q = 0; q < cdiv(c, 4); ++q) s = add_group(s, ta, tb2, wl[i], wh[i], q);
+        }
+        lz[i] = LN2 * lg2_approx(s);
+        // the label's logit: the loop's operations at k = label, so the
+        // loop's bits
+        float tl = 0.f, wv = 0.f;
+        if (lab[i] >= 0) {
+          tl = logit(ta[lab[i]], tb2[lab[i]], wl[i], wh[i]);
+          wv = MAP ? 1.f : s_cw[lab[i]];
+        }
+        if constexpr (MAP) {
+          mv[i] = wv * (lz[i] - tl);
+        } else {
+          acc_loss += wv * (lz[i] - tl);
+          acc_w += wv;
+        }
+      }
+      if (vec_io) {
+        static_assert(FWD_RUN == 8, "logz a run: one 16-byte store");
+        __stcs(reinterpret_cast<uint4*>(logz + px),
+               make_uint4(pack_bf16(lz[0], lz[1]), pack_bf16(lz[2], lz[3]),
+                          pack_bf16(lz[4], lz[5]), pack_bf16(lz[6], lz[7])));
+        if constexpr (MAP) {
+#pragma unroll
+          for (int k = 0; k < FWD_RUN / 4; ++k)
+            __stcs(reinterpret_cast<float4*>(loss_map + px) + k,
+                   make_float4(mv[4 * k], mv[4 * k + 1], mv[4 * k + 2], mv[4 * k + 3]));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < FWD_RUN; ++i) {
+          if (i >= cols) break;
+          logz[px + i] = __float2bfloat16(lz[i]);
+          if constexpr (MAP) loss_map[px + i] = mv[i];
+        }
+      }
+    }
+    if (more) {
+      h_row(o + 1, buf ^ 1);  // into the other buffer: no reader waits on it
+      __syncthreads();
     }
   }
-  if constexpr (MAP) return;
-  const float sl = block_sum(acc_loss, s_red);
-  const float sw = block_sum(acc_w, s_red);
-  if (threadIdx.x == 0) {
-    const size_t b = (size_t(img) * gridDim.y + band) * gridDim.x + span;
-    partial[2 * b] = sl;
-    partial[2 * b + 1] = sw;
+  if constexpr (!MAP) {
+    const float sl = block_sum(acc_loss, s_red);
+    const float sw = block_sum(acc_w, s_red);
+    if (tid == 0) {
+      const size_t b = (size_t(img) * gridDim.y + band) * gridDim.x + span;
+      partial[2 * b] = sl;
+      partial[2 * b + 1] = sw;
+    }
   }
 }
 
@@ -252,8 +521,6 @@ inline int class_group_tiles(int c) {
 inline int span_tiles(int c, int w, int ow) {
   return 2 * class_group_tiles(c) <= MMA_WARPS && w > 16 && ow <= 16 * w ? 2 : 1;
 }
-
-__host__ __device__ constexpr size_t a16(size_t b) { return (b + 15) & ~size_t(15); }
 
 // The shared memory of the mma backward, in bytes: class weights, the
 // span's column taps, the H-pass rows (float32 holding bf16); two buffers
@@ -313,16 +580,6 @@ MTables mma_tables(const int* tail, int tail_off, int w, int js) {
   return m;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // mma.sync.m16n8k16 (bf16 in, float32 accumulators) with B from shared memory
 // by ldmatrix.trans: the fragment layouts are the PTX ISA's.
 __device__ __forceinline__ void ldsm_x2_trans(unsigned& b0, unsigned& b1, const void* p) {
@@ -337,29 +594,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint4& a, unsigned b0
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-// The offset in dst of src[p0] staged by `stage`.
-template <typename T>
-__device__ __forceinline__ int lead(size_t p0, bool vec) {
-  return vec ? int(p0 % (16 / sizeof(T))) : 0;
-}
-
-// src[p0, p0 + count) into dst, by a block of `nthreads` threads: by
-// cp.async in 16-byte pieces from the boundary below p0 where `vec` (src
-// aligned), the piece past the end zero-filled; else by plain loads.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, size_t p0, int count,
-                                      bool vec, int nthreads = THREADS) {
-  constexpr int PER = 16 / sizeof(T);
-  if (!vec) {
-    for (int i = threadIdx.x; i < count; i += nthreads) dst[i] = src[p0 + i];
-    return;
-  }
-  const int e0 = lead<T>(p0, vec), nel = e0 + count;
-  for (int i = threadIdx.x; i < cdiv(nel, PER); i += nthreads)
-    cp_async16(dst + PER * i, src + (p0 - e0) + PER * i,
-               int(sizeof(T)) * min(PER, nel - PER * i));
 }
 
 template <typename L>
@@ -800,7 +1034,7 @@ resize_ce_map_bwd_h(const __nv_bfloat16* __restrict__ dw, Tables tb,
   }
 }
 
-size_t fwd_smem(int c, int tmax) { return sizeof(float) * (32 + c + size_t(tmax) * c); }
+size_t fwd_smem(int c, int tmax) { return FwdSmem(c, tmax).total; }
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -817,18 +1051,29 @@ struct Args {
   int n, h, w, c, oh, ow, tmax, ocmax;
 };
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The forward: the unrolled instance at C = FWD_C, the runtime one else.
 template <typename L, bool MAP>
 int launch_fwd(const Args& a, const Tables& tb, cudaStream_t stream) {
   const size_t smem = fwd_smem(a.c, a.tmax);
   if (smem > SMEM_LIMIT) return int(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(resize_ce_fwd<L, MAP>, smem);
+  const auto kernel =
+      a.c == FWD_C ? resize_ce_fwd_runs<L, MAP, FWD_C> : resize_ce_fwd_runs<L, MAP, 0>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(cdiv(a.ow, FWD_SPAN), cdiv(a.oh, FWD_ROWS), a.n);
-  resize_ce_fwd<L, MAP><<<grid, THREADS, smem, stream>>>(
+  const int threads = fwd_threads(a.ow);
+  const dim3 grid(cdiv(a.ow, FWD_RUN * threads), cdiv(a.oh, FWD_ROWS), a.n);
+  // x's rows share one alignment (so a thread's staged chunks of the two
+  // rows hold the same elements); whole runs of aligned labels and outputs
+  const bool vec_x = aligned16(a.x) && size_t(a.w) * a.c % 8 == 0;
+  const bool vec_io = a.ow % FWD_RUN == 0 && aligned16(a.labels) && aligned16(a.logz) &&
+                      (!MAP || aligned16(a.loss_map));
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), static_cast<const L*>(a.labels),
       static_cast<const float*>(a.cw), tb, static_cast<float*>(a.partial),
       static_cast<float*>(a.loss_map), static_cast<__nv_bfloat16*>(a.logz), a.h, a.w,
-      a.c, a.oh, a.ow, a.tmax);
+      a.c, a.oh, a.ow, a.tmax, vec_x, vec_io);
   return int(cudaGetLastError());
 }
 
@@ -908,9 +1153,9 @@ int run(const Args& a, int label_kind, bool backward, const void* itab, const vo
 extern "C" {
 
 // Geometry the Python side needs: the forward's block count (the length of
-// `partial` is twice it) and its bands and spans.
+// `partial` is twice it) and its bands and spans (output columns).
 int resize_ce_fwd_rows() { return FWD_ROWS; }
-int resize_ce_fwd_span() { return FWD_SPAN; }
+int resize_ce_fwd_span(int ow) { return fwd_span(ow); }
 int resize_ce_bwd_rows() { return BWD_ROWS; }
 size_t resize_ce_fwd_smem(int c, int tmax) { return fwd_smem(c, tmax); }
 size_t resize_ce_smem_limit() { return SMEM_LIMIT; }

@@ -188,10 +188,11 @@ def _library() -> ctypes.CDLL:
     lib = kernels.load("resize_ce")
     if not getattr(lib, "_typed", False):
         p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-        for name in ("resize_ce_fwd_rows", "resize_ce_fwd_span",
-                     "resize_ce_bwd_rows"):
+        for name in ("resize_ce_fwd_rows", "resize_ce_bwd_rows"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
+        lib.resize_ce_fwd_span.argtypes = [i]
+        lib.resize_ce_fwd_span.restype = i
         for name in ("resize_ce_bwd_span_tiles",
                      "resize_ce_map_bwd_span_tiles"):
             getattr(lib, name).argtypes = [i, i, i]
@@ -342,7 +343,7 @@ def _plan(h: int, w: int, oh: int, ow: int, c: int,
           align_corners: bool) -> _Plan:
     """The launch geometry and the interpolation tables of the kernels."""
     lib = _library()
-    fwd_rows, fwd_span = lib.resize_ce_fwd_rows(), lib.resize_ce_fwd_span()
+    fwd_rows, fwd_span = lib.resize_ce_fwd_rows(), lib.resize_ce_fwd_span(ow)
     bwd_rows = lib.resize_ce_bwd_rows()
     limit = lib.resize_ce_smem_limit()
     rows, cols = _taps(h, oh, align_corners), _taps(w, ow, align_corners)
