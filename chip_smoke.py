@@ -9,7 +9,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 3. hold each kernel, forward and backward where it has one, against its
    plain PyTorch version at the shapes the serving and training paths give
    it (and at a few ragged shapes), and time the kernel, the plain version,
-   one library call and the card's bound;
+   one library call and the card's bound (K3 at each of its three paths'
+   shapes: x16, x8 and x4);
 4. serve FastSCNN at full width (19 classes, bf16 compute, float32
    parameters from a seed, batch 8 of 1024x2048 uint8 frames): 5 requests,
    with the kernel launch counts read around them; then hold the folded,
@@ -41,7 +42,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    K3 launch of one train step and one eval batch runs again on its own
    inputs against the plain version, and the step's loss and d(logits)
    are held against the same step through the plain versions;
-9. print the kernels line, the nvidia-smi line and the final JSON line.
+9. BASELINE config 5, BiSeNet-R18 and then ICNet-R50
+   (`upsample_logits=False`, bf16): train 1 + 8 steps of batch 16 through
+   `augment_batch` at crop 1024x1024, scale 0.75-2.0, SGD lr 0.025, with
+   `aux_weighted_loss` (aux weight 1.0) over OHEM on each head (thresh
+   0.7, min_kept 100000): K3 3 + 3 a step, at x8, x8 and x16 (BiSeNet)
+   and x4, x8 and x16 (ICNet); the step and every launch held against the
+   plain versions as in phase 8; one eval batch of 16 at 1024x2048; for
+   BiSeNet one multi-scale + flip batch of 2;
+10. BASELINE config 1, ENet (bf16): train 1 + 8 steps of batch 4 through
+   `augment_batch` at crop 512x512, scale 0.5-2.0, SGD lr 0.05, with
+   class-weighted CE (ENet's weights from the phase's label maps): no
+   kernel launches; one eval batch;
+11. print the kernels line, the nvidia-smi line and the final JSON line.
+   K3's rows count the launches of phases 8 and 9 and give each path's
+   launches and times under "paths".
 
 It imports nothing of JAX, and exits non-zero without a CUDA card or
 without the port package beside it.
@@ -145,6 +160,23 @@ K3_RAGGED = ((2, 6, 5, 19, 96, 80), (1, 7, 9, 66, 112, 144),
              (1, 3, 2, 3, 48, 32), (1, 4, 90, 19, 64, 1440),
              (2, 5, 21, 66, 80, 336), (1, 5, 66, 19, 84, 1050))
 OHEM_THRESH, OHEM_MIN_KEPT = 0.7, 100_000
+# BASELINE config 5 (`configs/bisenet_cityscapes_aux.json`): batch 16 of
+# 1024x1024 crops, scale 0.75-2.0, SGD lr 0.025, OHEM with aux weight 1.0,
+# on the fused-resize route (`upsample_logits=False`): BiSeNet-R18 and
+# ICNet-R50, each head through K3
+CONFIG5_BATCH, CONFIG5_CROP, CONFIG5_LR = 16, 1024, 0.025
+CONFIG5_SCALE = (0.75, 2.0)
+CONFIG5_MODELS = (("bisenet", 18), ("icnet", 50))
+# K3's launches a step on each path: one head, or the main and two aux heads
+K3_PER_STEP = {"deeplab": 1, "bisenet": 3, "icnet": 3}
+# K3 at config 5's main heads: BiSeNet's at 1/8 (x8), ICNet's at 1/4 (x4)
+K3_PATH_X8 = (CONFIG5_BATCH, CONFIG5_CROP // 8, CONFIG5_CROP // 8,
+              NUM_CLASSES, CONFIG5_CROP, CONFIG5_CROP)
+K3_PATH_X4 = (CONFIG5_BATCH, CONFIG5_CROP // 4, CONFIG5_CROP // 4,
+              NUM_CLASSES, CONFIG5_CROP, CONFIG5_CROP)
+# BASELINE config 1 (`configs/enet_cityscapes_512.json`): ENet, batch 4 of
+# 512x512 crops, scale 0.5-2.0, SGD lr 0.05, class-weighted CE; no kernel
+ENET_BATCH, ENET_CROP, ENET_LR, ENET_SCALE = 4, 512, 0.05, (0.5, 2.0)
 EVAL_BATCHES = 4
 # the eval step's K6 launches a batch: in eval mode no block routes to K2,
 # so GFE stage1[0]'s depthwise conv, at (8,128,256,384) on the floor of
@@ -611,11 +643,12 @@ def check_upsample_concat() -> dict:
 
 def check_resize_ce_map() -> dict:
     """K3, the per-pixel map's forward and backward, against the plain
-    version at K1's ragged shapes, at its own x16 ones and at the DeepLab
-    OHEM path's shape, with K1's bars (the map's mean at 1e-4 relative,
-    each element within 1e-5 of the map's scale; logz and d(logits) within
-    BF16_TOL of scale); at the path, a second backward launch gives the
-    same bits; times at the path's shape."""
+    version at K1's ragged shapes, at its own x16 ones and at the three
+    paths' shapes (DeepLab's x16, BiSeNet's x8, ICNet's x4), with K1's
+    bars (the map's mean at 1e-4 relative, each element within 1e-5 of the
+    map's scale; logz and d(logits) within BF16_TOL of scale); at each
+    path a second backward launch gives the same bits, and the times there:
+    {"deeplab" | "bisenet" | "icnet": {"fwd": ..., "bwd": ...}}."""
     import torch
     import torch.nn.functional as F
     from torch_semantic_segmentation_tpu_torch.ops import resize_ce as rce
@@ -651,57 +684,72 @@ def check_resize_ce_map() -> dict:
 
     for i, (n, h, w, c, oh, ow) in enumerate(K1_RAGGED + K3_RAGGED):
         compare(n, h, w, c, oh, ow, 900 + i, "ragged")
-    n, h, w, c, oh, ow = K3_PATH
-    merr, derr, (logits, labels, logz, ct) = compare(n, h, w, c, oh, ow, 11,
-                                                     "path")
-    dx = rce.resize_ce_map_backward(logits, labels, logz, ct)
-    if not torch.equal(rce.resize_ce_map_backward(logits, labels, logz, ct),
-                       dx):
-        fail("resize_ce_map backward: two launches at the path differ")
-    print("resize_ce_map path: two backward launches give the same bits",
-          flush=True)
-    fwd_ms = cuda_ms(lambda: rce.resize_ce_map_forward(logits, labels))
-    bwd_ms = cuda_ms(lambda: rce.resize_ce_map_backward(logits, labels, logz,
-                                                        ct))
-    plain_fwd = cuda_ms(lambda: rce.resize_ce_map_reference(logits, labels),
-                        iters=3, warmup=1)
-    plain_bwd = cuda_ms(lambda: rce.resize_ce_map_reference_backward(
-        logits, labels, logz, ct), iters=3, warmup=1)
-    # yardstick only: F.interpolate then the per-pixel F.cross_entropy, and
-    # its backward for the cotangent map
-    lab = labels.long()
-    lg = logits.detach().permute(0, 3, 1, 2).requires_grad_(True)
 
-    def library():
-        up = F.interpolate(lg, size=(oh, ow), mode="bilinear",
-                           align_corners=False)
-        return F.cross_entropy(up.float(), lab, ignore_index=255,
-                               reduction="none")
+    def at_path(shape, seed, name):
+        """The check at one path shape, two backward launches' bits, and
+        the times there."""
+        n, h, w, c, oh, ow = shape
+        merr, derr, (logits, labels, logz, ct) = compare(*shape, seed, name)
+        dx = rce.resize_ce_map_backward(logits, labels, logz, ct)
+        if not torch.equal(rce.resize_ce_map_backward(logits, labels, logz,
+                                                      ct), dx):
+            fail(f"resize_ce_map backward: two launches at {name} differ")
+        print(f"resize_ce_map {name}: two backward launches give the same "
+              "bits", flush=True)
+        del dx
+        fwd_ms = cuda_ms(lambda: rce.resize_ce_map_forward(logits, labels))
+        bwd_ms = cuda_ms(lambda: rce.resize_ce_map_backward(logits, labels,
+                                                            logz, ct))
+        plain_fwd = cuda_ms(lambda: rce.resize_ce_map_reference(logits,
+                                                                labels),
+                            iters=3, warmup=1)
+        plain_bwd = cuda_ms(lambda: rce.resize_ce_map_reference_backward(
+            logits, labels, logz, ct), iters=3, warmup=1)
+        # yardstick only: F.interpolate then the per-pixel F.cross_entropy,
+        # and its backward for the cotangent map
+        lab = labels.long()
+        lg = logits.detach().permute(0, 3, 1, 2).requires_grad_(True)
 
-    with torch.no_grad():
-        lib_fwd = library_ms(library, iters=5)
-    out = library()
-    lib_bwd = library_ms(lambda: torch.autograd.grad(out, lg, ct,
-                                                     retain_graph=True),
-                         iters=5)
-    px, lab_bytes = n * oh * ow, labels.element_size()
-    exps = px * c / EXP_PER_S
-    fb = bound(n * h * w * c * 2 + px * (lab_bytes + 4 + 2),
-               {"exp": exps, "flop": (px * c * 4 + n * oh * w * c * 3)
-                / FP32_FLOPS})
-    bb = bound(2 * n * h * w * c * 2 + px * (lab_bytes + 2 + 4),
-               {"exp": exps, "flop": (px * c * 10 + n * oh * w * c * 5)
-                / FP32_FLOPS})
-    for d, k_ms, p_ms, l_ms, b in (("fwd", fwd_ms, plain_fwd, lib_fwd, fb),
-                                   ("bwd", bwd_ms, plain_bwd, lib_bwd, bb)):
-        print(f"resize_ce_map {d} path: kernel_ms {k_ms:.4f} plain_ms "
-              f"{p_ms:.4f} library_ms {l_ms:.4f} bound_ms {b[0]:.4f} (bound "
-              f"by {b[2]})", flush=True)
-    return {
-        "fwd": dict(err=merr, kernel_ms=fwd_ms, plain_ms=plain_fwd,
-                    library_ms=lib_fwd, bound_ms=fb[0], bound_by=fb[1]),
-        "bwd": dict(err=derr, kernel_ms=bwd_ms, plain_ms=plain_bwd,
-                    library_ms=lib_bwd, bound_ms=bb[0], bound_by=bb[1])}
+        def library():
+            up = F.interpolate(lg, size=(oh, ow), mode="bilinear",
+                               align_corners=False)
+            return F.cross_entropy(up.float(), lab, ignore_index=255,
+                                   reduction="none")
+
+        with torch.no_grad():
+            lib_fwd = library_ms(library, iters=5)
+        out = library()
+        lib_bwd = library_ms(lambda: torch.autograd.grad(
+            out, lg, ct, retain_graph=True), iters=5)
+        del out, lab, lg
+        px, lab_bytes = n * oh * ow, labels.element_size()
+        exps = px * c / EXP_PER_S
+        fb = bound(n * h * w * c * 2 + px * (lab_bytes + 4 + 2),
+                   {"exp": exps, "flop": (px * c * 4 + n * oh * w * c * 3)
+                    / FP32_FLOPS})
+        bb = bound(2 * n * h * w * c * 2 + px * (lab_bytes + 2 + 4),
+                   {"exp": exps, "flop": (px * c * 10 + n * oh * w * c * 5)
+                    / FP32_FLOPS})
+        for d, k_ms, p_ms, l_ms, b in (
+                ("fwd", fwd_ms, plain_fwd, lib_fwd, fb),
+                ("bwd", bwd_ms, plain_bwd, lib_bwd, bb)):
+            print(f"resize_ce_map {d} {name} ({n},{h},{w},{c})->({oh},{ow}): "
+                  f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
+                  f"{l_ms:.4f} bound_ms {b[0]:.4f} (bound by {b[2]})",
+                  flush=True)
+        return {
+            "fwd": dict(err=merr, kernel_ms=fwd_ms, plain_ms=plain_fwd,
+                        library_ms=lib_fwd, bound_ms=fb[0], bound_by=fb[1]),
+            "bwd": dict(err=derr, kernel_ms=bwd_ms, plain_ms=plain_bwd,
+                        library_ms=lib_bwd, bound_ms=bb[0], bound_by=bb[1])}
+
+    out = {"deeplab": at_path(K3_PATH, 11, "path")}
+    torch.cuda.empty_cache()
+    for key, shape, seed in (("bisenet", K3_PATH_X8, 12),
+                             ("icnet", K3_PATH_X4, 13)):
+        out[key] = at_path(shape, seed, f"{key} path x{shape[4] // shape[1]}")
+        torch.cuda.empty_cache()
+    return out
 
 
 def depthwise_inputs(n, h, w, c, stride, dtype, seed):
@@ -1082,7 +1130,8 @@ def k6_unrouted():
 def per_step(steps: int, model: str = "fastscnn") -> dict:
     """The launch counts of every kernel in `steps` training steps of
     `model`: FastSCNN launches K1, K2 and K6; UNet's bilinear decoder K4,
-    4 a forward; DeepLab with OHEM K3, 1 + 1."""
+    4 a forward; DeepLab with OHEM K3, 1 + 1; BiSeNet and ICNet with OHEM
+    on their three heads K3, 3 + 3; ENet nothing."""
     counts = {key: 0 for key, _, _, _ in TRAIN_WRAPPERS}
     if model == "fastscnn":
         counts.update({"resize_ce_fwd": steps, "resize_ce_bwd": steps,
@@ -1092,8 +1141,9 @@ def per_step(steps: int, model: str = "fastscnn") -> dict:
                        "depthwise_bwd": K6_PER_STEP * steps})
     elif model == "unet":
         counts["upsample_concat"] = K4_PER_FORWARD * steps
-    elif model == "deeplab":
-        counts.update(resize_ce_map_fwd=steps, resize_ce_map_bwd=steps)
+    elif model in K3_PER_STEP:
+        counts.update(resize_ce_map_fwd=K3_PER_STEP[model] * steps,
+                      resize_ce_map_bwd=K3_PER_STEP[model] * steps)
     return counts
 
 
@@ -1628,7 +1678,8 @@ def kernel_vs_plain_step(model, images, labels, loss_fn, name: str,
     masks: every recorded launch again on its own inputs against its plain
     version (`check_recorded`, relative L2 2^-9), the launches `expect`
     ({count key: launches}), the loss within 1e-4 relative and d(logits)
-    within relative L2 2^-9 of the plain versions' step."""
+    of each output head within relative L2 2^-9 of the plain versions'
+    step."""
     import torch
 
     start = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1639,12 +1690,16 @@ def kernel_vs_plain_step(model, images, labels, loss_fn, name: str,
         gen = getattr(model, "dropout_generator", None)
         if gen is not None:
             gen.manual_seed(1234)
-        logits = model(images)
-        logits.retain_grad()
-        loss = loss_fn(logits, labels)
+        outputs = model(images)
+        heads = (outputs if isinstance(outputs, (tuple, list))
+                 else (outputs,))
+        for t in heads:
+            t.retain_grad()
+        loss = loss_fn(outputs, labels)
         loss.backward()
         torch.cuda.synchronize()
-        return float(loss.detach()), logits.grad.detach().float()
+        return (float(loss.detach()),
+                [t.grad.detach().float() for t in heads])
 
     calls = []
     with swapped(recording(calls)):
@@ -1659,7 +1714,7 @@ def kernel_vs_plain_step(model, images, labels, loss_fn, name: str,
     model.zero_grad(set_to_none=True)
     model.load_state_dict(start)
     loss_rel = abs(lk - lp) / abs(lp)
-    d_rel = rel_l2(dk, dp)
+    d_rel = max(rel_l2(a, b) for a, b in zip(dk, dp))
     print(f"{name} one step, kernels against plain versions: each launch on "
           f"its own inputs, worst relative L2 error " + ", ".join(
               f"{k} {v:.3g}" for k, v in worst.items())
@@ -1891,6 +1946,189 @@ def deeplab_phase() -> dict:
     return out
 
 
+def config5_loss():
+    """config 5's loss, composed as the JAX package's `cli/common.py`
+    composes it: OHEM on each head at its own resolution (a `SegLoss`
+    that handles the resize, so bf16 heads reach K3), main + 1.0 · aux."""
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        SegLoss, aux_weighted_loss, resize_ohem_cross_entropy)
+
+    base = SegLoss(functools.partial(
+        resize_ohem_cross_entropy, ignore_index=255, thresh=OHEM_THRESH,
+        min_kept=OHEM_MIN_KEPT), handles_resize=True, name="resize_ohem")
+
+    def loss_fn(outputs, labels):
+        outs = outputs if isinstance(outputs, (tuple, list)) else [outputs]
+        return aux_weighted_loss(outs, labels, loss_fn=base, aux_weight=1.0)
+
+    return loss_fn
+
+
+def multiscale_batch(model, images, labels, name: str) -> dict:
+    """`make_multiscale_eval_step` (scales 0.5 .. 1.75 and flip) over one
+    batch, called twice (the first call picks algorithms), timed on the
+    host clock and on CUDA events: the matrix holds every valid pixel
+    once, mIoU lies in [0, 1], and no kernel launches."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch import metrics
+    from torch_semantic_segmentation_tpu_torch.eval import (
+        make_multiscale_eval_step)
+
+    step = make_multiscale_eval_step(model, num_classes=NUM_CLASSES)
+    host, dev = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        cm = step(metrics.new_confusion_matrix(NUM_CLASSES), images, labels)
+        end.record()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+        dev.append(start.elapsed_time(end))
+    used, peak = launch_counts(), torch.cuda.max_memory_allocated()
+    _, miou = metrics.iou_from_confusion_matrix(cm)
+    want = int((labels != 255).sum())
+    print(f"{name} multi-scale + flip eval bf16 {tuple(images.shape[:3])}, "
+          f"scales (0.5 .. 1.75): first call {host[0]:.3f} ms, second "
+          f"{host[1]:.3f} ms on the host clock ({dev[1]:.3f} on CUDA "
+          f"events); max_memory_allocated {peak / 2 ** 30:.3f} GiB; mIoU "
+          f"{miou:.4f}; matrix total {int(cm.sum())} of {want}; launches "
+          f"{used}", flush=True)
+    if int(cm.sum()) != want or cm.dtype != torch.int64:
+        fail(f"{name}: the multi-scale matrix does not hold every valid "
+             "pixel once")
+    if not 0.0 <= miou <= 1.0:
+        fail(f"{name}: multi-scale mIoU {miou} out of [0, 1]")
+    expect_launches(used, per_step(0), f"{name} multi-scale eval")
+    return dict(ms=host, event_ms=dev, miou=miou, peak_bytes=peak)
+
+
+def config5_phase(name: str, depth: int) -> dict:
+    """BASELINE config 5 for `name` (BiSeNet or ICNet) on a ResNet-`depth`,
+    `upsample_logits=False`, bf16: training through `augment_batch` with
+    `aux_weighted_loss` and OHEM (the main path of K3: three heads, at x8,
+    x8, x16 for BiSeNet and x4, x8, x16 for ICNet) at batch 16, or 8 where
+    16 does not fit; one eval batch at 1024x2048; for BiSeNet, one
+    multi-scale + flip batch of 2."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig, augment_batch, normalize_batch)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+
+    pairs = [make_batch(700), make_batch(701)]
+    frames = torch.from_numpy(np.concatenate([f for f, _ in pairs])).cuda()
+    labels = torch.from_numpy(np.concatenate([lb for _, lb in pairs])).cuda()
+    loss_fn = config5_loss()
+    cfg = AugmentConfig(crop=(CONFIG5_CROP, CONFIG5_CROP),
+                        scale_range=CONFIG5_SCALE, out_dtype=torch.bfloat16)
+    title = f"{name} R{depth}"
+    out = {}
+    for batch in (CONFIG5_BATCH, CONFIG5_BATCH // 2):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = get_model(name, NUM_CLASSES, depth=depth,
+                          upsample_logits=False, compute_dtype=torch.bfloat16,
+                          seed=0, device="cuda")
+        inner = make_train_step(model, create_train_state(
+            model, OptimizerConfig(lr=CONFIG5_LR, max_steps=1000)), loss_fn)
+
+        def step(raw_images, raw_labels, _inner=inner, _gen=gen):
+            return _inner(*augment_batch(raw_images, raw_labels, _gen, cfg))
+
+        batches = [(frames[:batch], labels[:batch])] * TRAIN_STEPS
+        try:
+            out["train"] = train_run(
+                step, batches, f"{title} train bf16 {batch}x{CONFIG5_CROP}x"
+                f"{CONFIG5_CROP} with augmentation, aux heads and OHEM "
+                "(config 5, main path of K3)", batch,
+                per_step(TRAIN_STEPS, name))
+            out["batch"] = batch
+            break
+        except torch.cuda.OutOfMemoryError:
+            peak = torch.cuda.max_memory_allocated()
+            print(f"{title} batch {batch} does not fit: out of memory at "
+                  f"max_memory_allocated {peak / 2 ** 30:.3f} GiB", flush=True)
+            del model, inner, step
+            torch.cuda.empty_cache()
+    else:
+        fail(f"{title} fits neither batch 16 nor batch 8")
+    batch = out["batch"]
+    images, lab = augment_batch(frames[:batch], labels[:batch], gen, cfg)
+    k3 = K3_PER_STEP[name]
+    out["check"] = kernel_vs_plain_step(
+        model, images, lab, loss_fn, title,
+        {"resize_ce_map_fwd": k3, "resize_ce_map_bwd": k3})
+    del images, lab
+    torch.cuda.empty_cache()
+    images = normalize_batch(frames[:batch], out_dtype=torch.bfloat16)
+    out["eval"] = eval_batch(model, images, labels[:batch], title,
+                             per_step(0))
+    if name == "bisenet":
+        out["multiscale"] = multiscale_batch(
+            model, images[:MULTISCALE_BATCH], labels[:MULTISCALE_BATCH],
+            title)
+    del model, inner, step, images
+    torch.cuda.empty_cache()
+    return out
+
+
+def enet_phase() -> dict:
+    """BASELINE config 1: ENet, bf16, batch 4 of 512x512 crops through
+    `augment_batch` (scale 0.5-2.0), SGD lr 0.05, cross-entropy with ENet's
+    class weights from the phase's own label maps
+    (`data.class_weights.compute_class_weights`); no kernel launches. One
+    eval batch of 4 at 1024x2048."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.class_weights import (
+        compute_class_weights)
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig, augment_batch, normalize_batch)
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        cross_entropy_loss)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+
+    frames, label_maps = make_batch(800)
+    frames, label_maps = frames[:ENET_BATCH], label_maps[:ENET_BATCH]
+    cw = compute_class_weights([(None, lb) for lb in label_maps], NUM_CLASSES)
+    print(f"enet class weights over the phase's {ENET_BATCH} label maps: "
+          f"{[round(float(v), 4) for v in cw]}", flush=True)
+    frames, labels = (torch.from_numpy(a).cuda() for a in (frames,
+                                                           label_maps))
+    loss_fn = functools.partial(cross_entropy_loss,
+                                class_weights=torch.from_numpy(cw).cuda())
+    cfg = AugmentConfig(crop=(ENET_CROP, ENET_CROP), scale_range=ENET_SCALE,
+                        out_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = get_model("enet", NUM_CLASSES, compute_dtype=torch.bfloat16,
+                      seed=0, device="cuda")
+    inner = make_train_step(model, create_train_state(
+        model, OptimizerConfig(lr=ENET_LR, max_steps=1000)), loss_fn)
+
+    def step(raw_images, raw_labels):
+        return inner(*augment_batch(raw_images, raw_labels, gen, cfg))
+
+    out = {"train": train_run(
+        step, [(frames, labels)] * TRAIN_STEPS,
+        f"enet train bf16 {ENET_BATCH}x{ENET_CROP}x{ENET_CROP} with "
+        "augmentation and class-weighted CE (config 1)", ENET_BATCH,
+        per_step(TRAIN_STEPS, "enet"))}
+    images, lab = augment_batch(frames, labels, gen, cfg)
+    out["check"] = kernel_vs_plain_step(model, images, lab, loss_fn, "enet",
+                                        {})
+    out["eval"] = eval_batch(model, normalize_batch(
+        frames, out_dtype=torch.bfloat16), labels, "enet", per_step(0))
+    del model, inner, step, images, lab
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1937,6 +2175,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     unet = unet_phase()
     deeplab = deeplab_phase()
+    config5 = {name: config5_phase(name, depth)
+               for name, depth in CONFIG5_MODELS}
+    enet_phase()
 
     def row(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",
@@ -1948,6 +2189,24 @@ def main() -> int:
                 "library_ms": r["library_ms"]}
 
     tl = main_path["launches"]
+    # K3's paths: DeepLab's one head and config 5's three; the row's times
+    # at DeepLab's x16, each path's own under "paths"
+    k3_train = {"deeplab": deeplab["train"], **{
+        name: config5[name]["train"] for name, _ in CONFIG5_MODELS}}
+
+    def k3_row(kname, replaces, d):
+        r = row(kname, "resize_ce.cu", replaces, sum(
+            t["launches"][kname] for t in k3_train.values()), k3["deeplab"][d])
+        r["paths"] = [
+            {"path": p, "launches": t["launches"][kname],
+             "launches_a_step": K3_PER_STEP[p], "ms": k3[p][d]["kernel_ms"],
+             "plain_ms": k3[p][d]["plain_ms"],
+             "bound_ms": k3[p][d]["bound_ms"],
+             "library_ms": k3[p][d]["library_ms"],
+             "max_abs_err": k3[p][d]["err"]}
+            for p, t in k3_train.items()]
+        return r
+
     print(json.dumps({"kernels": [
         row("sepconv", "sepconv.cu", "pallas_sepconv.py:239",
             served["launches"], k5),
@@ -1965,10 +2224,8 @@ def main() -> int:
             tl["depthwise_bwd"], k6["bwd"]),
         row("upsample_concat", "upsample_concat.cu", "pallas_upsample.py:109",
             unet["train"]["launches"]["upsample_concat"], k4),
-        row("resize_ce_map_fwd", "resize_ce.cu", "pallas_resize_ce.py:446",
-            deeplab["train"]["launches"]["resize_ce_map_fwd"], k3["fwd"]),
-        row("resize_ce_map_bwd", "resize_ce.cu", "pallas_resize_ce.py:494",
-            deeplab["train"]["launches"]["resize_ce_map_bwd"], k3["bwd"]),
+        k3_row("resize_ce_map_fwd", "pallas_resize_ce.py:446", "fwd"),
+        k3_row("resize_ce_map_bwd", "pallas_resize_ce.py:494", "bwd"),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """Times K1 (`ops.resize_ce.resize_ce_forward` and `resize_ce_backward`) at
 FastSCNN's training shape (`chip_smoke.K1_PATH`, (8,128,256,19) ->
 (8,1024,2048)) and K3 (`resize_ce_map_forward`, `resize_ce_map_backward`)
-at DeepLab's OHEM shape (`chip_smoke.K3_PATH`), with the library call
-beside each, as `chip_smoke.check_resize_ce` and `check_resize_ce_map` time
-it:
+at DeepLab's OHEM shape (`chip_smoke.K3_PATH`), or with `--k3 x8` / `--k3
+x4` at BASELINE config 5's main heads (BiSeNet's `K3_PATH_X8`, ICNet's
+`K3_PATH_X4`), with the library call beside each, as
+`chip_smoke.check_resize_ce` and `check_resize_ce_map` time it:
 
-    python3 scripts/torch_resize_ce_probe.py [--root DIR]
+    python3 scripts/torch_resize_ce_probe.py [--root DIR] [--k3 x16|x8|x4]
         [--variants k1b_no_wpass,k1f_no_exp,...]
 
 `--root` names the checkout whose port package is timed (default: this
@@ -258,6 +259,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--variants", default="")
+    ap.add_argument("--k3", choices=("x16", "x8", "x4"), default="x16",
+                    help="K3's shape: DeepLab's x16, config 5's x8 or x4 "
+                         "(x8 and x4 need this checkout's chip_smoke.py)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     variants = list(filter(None, args.variants.split(",")))
@@ -366,8 +370,10 @@ def main() -> int:
                  err1, scale1)
     timed["K1 fwd"], timed["K1 bwd"] = k1_fwd, k1_bwd
 
-    # K3 at DeepLab's OHEM shape, int32 labels as `augment_batch` gives them
-    k3_shape = chip_smoke.K3_PATH
+    # K3 at DeepLab's OHEM shape or config 5's, int32 labels as
+    # `augment_batch` gives them
+    k3_shape = {"x16": "K3_PATH", "x8": "K3_PATH_X8", "x4": "K3_PATH_X4"}
+    k3_shape = getattr(chip_smoke, k3_shape[args.k3])
     n, h, w, c, oh, ow = k3_shape
     plan_line("K3", *k3_shape)
     logits3, labels3, _ = chip_smoke.resize_ce_inputs(n, h, w, c, oh, ow, 11,

@@ -1,21 +1,31 @@
-"""Where the time of one FastSCNN training step goes on the card, for the
-PyTorch port: bf16 compute with float32 parameters, batch 8 of 1024x2048
-uint8 frames, 19 classes, `upsample_logits=False` with the x8 resize inside
-the loss, SGD as in chip_smoke.py. The frames are normalised on the card,
-or with `--augment` drawn through `augment_batch` at crop 1024x2048 before
-each step (`bench.py`'s fullres tier).
+"""Where the time of one training step goes on the card, for the PyTorch
+port: bf16 compute with float32 parameters, 19 classes, SGD as in
+chip_smoke.py.
+
+- FastSCNN (the default): batch 8 of 1024x2048 uint8 frames,
+  `upsample_logits=False` with the x8 resize inside the loss. The frames
+  are normalised on the card, or with `--augment` drawn through
+  `augment_batch` at crop 1024x2048 before each step (`bench.py`'s fullres
+  tier).
+- `--model bisenet | icnet`: BASELINE config 5 as chip_smoke.py's phase 9
+  runs it (BiSeNet-R18 or ICNet-R50, batch 16 of 1024x1024 crops through
+  `augment_batch`, aux heads and OHEM, each head through K3).
+- `--model enet`: BASELINE config 1 as its phase 10 runs it (batch 4 of
+  512x512 crops, class-weighted CE).
 
     python3 scripts/torch_train_profile.py [--steps 3] [--augment]
+        [--model fastscnn|bisenet|icnet|enet]
 
 Prints the card, the step time (host clock around a synchronised step), the
-device busy time per step from torch.profiler (the sum of kernel times),
-the top kernels by device time, the port's own kernels (K1, K2 and K6) by
-name, and one JSON line. Needs a CUDA card.
+device busy time per step from torch.profiler (the sum of kernel times) and
+the kernel launches a step, the top kernels by device time, the port's own
+kernels (K1, K2, K3 and K6) by name, and one JSON line. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -23,14 +33,17 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from torch_semantic_segmentation_tpu_torch.data.class_weights import (  # noqa: E402
+    compute_class_weights)
 from torch_semantic_segmentation_tpu_torch.data.transforms import (  # noqa: E402
     AugmentConfig, augment_batch, normalize_batch)
 from torch_semantic_segmentation_tpu_torch.losses import (  # noqa: E402
-    resize_cross_entropy_loss)
+    cross_entropy_loss, resize_cross_entropy_loss)
 from torch_semantic_segmentation_tpu_torch.models import get_model  # noqa: E402
 from torch_semantic_segmentation_tpu_torch.train import (  # noqa: E402
     OptimizerConfig, create_train_state, make_train_step)
@@ -40,22 +53,51 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--augment", action="store_true")
+    ap.add_argument("--model", default="fastscnn",
+                    choices=("fastscnn", "bisenet", "icnet", "enet"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: "
-          f"{chip_smoke.smi_line()}", flush=True)
-    frames, labels = chip_smoke.make_batch(100)
+          f"{chip_smoke.smi_line()}; model {args.model}", flush=True)
+    c = chip_smoke.NUM_CLASSES
+    if args.model == "fastscnn":
+        frames, labels = chip_smoke.make_batch(100)
+        model = get_model("fastscnn", c, upsample_logits=False,
+                          compute_dtype=torch.bfloat16, seed=0, device="cuda")
+        lr, loss_fn = 0.045, resize_cross_entropy_loss
+        crop = (chip_smoke.SERVE_H, chip_smoke.SERVE_W)
+        scale = AugmentConfig.scale_range
+    elif args.model == "enet":
+        frames, labels = (a[:chip_smoke.ENET_BATCH]
+                          for a in chip_smoke.make_batch(100))
+        cw = compute_class_weights([(None, lb) for lb in labels], c)
+        model = get_model("enet", c, compute_dtype=torch.bfloat16, seed=0,
+                          device="cuda")
+        lr = chip_smoke.ENET_LR
+        loss_fn = functools.partial(cross_entropy_loss,
+                                    class_weights=torch.from_numpy(cw).cuda())
+        crop = (chip_smoke.ENET_CROP, chip_smoke.ENET_CROP)
+        scale = chip_smoke.ENET_SCALE
+    else:
+        pairs = [chip_smoke.make_batch(100), chip_smoke.make_batch(101)]
+        frames, labels = (np.concatenate([p[i] for p in pairs])
+                          for i in (0, 1))
+        model = get_model(args.model, c,
+                          depth=dict(chip_smoke.CONFIG5_MODELS)[args.model],
+                          upsample_logits=False, compute_dtype=torch.bfloat16,
+                          seed=0, device="cuda")
+        lr, loss_fn = chip_smoke.CONFIG5_LR, chip_smoke.config5_loss()
+        crop = (chip_smoke.CONFIG5_CROP, chip_smoke.CONFIG5_CROP)
+        scale = chip_smoke.CONFIG5_SCALE
     frames = torch.from_numpy(frames).cuda()
     labels = torch.from_numpy(labels).cuda()
-    model = get_model("fastscnn", chip_smoke.NUM_CLASSES,
-                      upsample_logits=False, compute_dtype=torch.bfloat16,
-                      seed=0, device="cuda")
-    state = create_train_state(model, OptimizerConfig(lr=0.045,
-                                                      max_steps=1000))
-    inner = make_train_step(model, state, resize_cross_entropy_loss)
-    if args.augment:
-        cfg = AugmentConfig(crop=(chip_smoke.SERVE_H, chip_smoke.SERVE_W),
+    state = create_train_state(model, OptimizerConfig(lr=lr, max_steps=1000))
+    inner = make_train_step(model, state, loss_fn)
+    # configs 5 and 1 train on crops: their steps always augment
+    augment = args.augment or args.model != "fastscnn"
+    if augment:
+        cfg = AugmentConfig(crop=crop, scale_range=scale,
                             out_dtype=torch.bfloat16)
         gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -83,9 +125,10 @@ def main() -> int:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in events)
     busy_ms = total_us / 1e3 / args.steps
+    launches = sum(e.count for e in events) // args.steps
     print(f"step {wall_ms:.3f} ms (host clock); device busy {busy_ms:.3f} "
-          f"ms a step (profiler), idle share {1 - busy_ms / wall_ms:.3f}",
-          flush=True)
+          f"ms a step (profiler), idle share {1 - busy_ms / wall_ms:.3f}; "
+          f"{launches} kernel launches a step", flush=True)
 
     def show(rows):
         print(f"{'kernel':<90} {'ms/step':>9} {'share':>6} {'calls':>6}")
@@ -99,8 +142,9 @@ def main() -> int:
     print("the port's kernels:")
     show([e for e in ranked
           if any(n in e.key for n in ("resize_ce", "mbconv", "dw_"))])
-    print(json.dumps({"step_ms": wall_ms, "device_busy_ms": busy_ms,
-                      "kernels": len(events), "augment": args.augment}))
+    print(json.dumps({"model": args.model, "step_ms": wall_ms,
+                      "device_busy_ms": busy_ms, "kernels": len(events),
+                      "launches": launches, "augment": augment}))
     return 0
 
 

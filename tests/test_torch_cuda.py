@@ -512,6 +512,34 @@ def test_resize_ce_map_kernels_match_plain_version(cuda, n, h, w, c, oh, ow,
                                                    ac, label_dtype):
     """K3: the loss map within 1e-5 of its scale (float32 sums in another
     order), logz and d(logits) within two bf16 steps of their scale."""
+    _check_map_kernels(cuda, n, h, w, c, oh, ow, ac, label_dtype)
+
+
+# K3 at BASELINE config 5's ratios: x4 (ICNet's main head at 1/4) and x8
+# (BiSeNet's heads at 1/8). The path shapes' geometry, one image each (the
+# plan depends on h, w, OH, OW and C alone): ICNet's (256,256) -> (1024,1024)
+# and BiSeNet's (128,128) -> (1024,1024); then ragged: W off the 16-column
+# tile and OW off the forward's run of 8, C of 66 (three class groups) and
+# of 3, align_corners, a forward of two spans at x4 whose last is ragged,
+# and a ragged last band of rows
+K3_RATIO_CASES = [(1, 256, 256, 19, 1024, 1024, False),
+                  (1, 128, 128, 19, 1024, 1024, False),
+                  (2, 13, 37, 19, 52, 148, False), (1, 9, 70, 66, 36, 280, False),
+                  (2, 7, 21, 3, 28, 84, True), (1, 5, 300, 19, 20, 1200, False),
+                  (2, 11, 23, 19, 88, 184, False), (1, 6, 45, 66, 48, 360, True),
+                  (2, 3, 33, 19, 24, 264, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,oh,ow,ac", K3_RATIO_CASES)
+@pytest.mark.parametrize("label_dtype", ["uint8", "int32"])
+def test_resize_ce_map_kernels_at_x4_and_x8(cuda, n, h, w, c, oh, ow, ac,
+                                            label_dtype):
+    """K3 at x4 and x8 with the bars of the test above."""
+    _check_map_kernels(cuda, n, h, w, c, oh, ow, ac, label_dtype)
+
+
+def _check_map_kernels(cuda, n, h, w, c, oh, ow, ac, label_dtype):
     rng = np.random.default_rng(6)
     logits = torch.from_numpy((rng.normal(size=(n, h, w, c)) * 2).astype(
         np.float32)).to(cuda).to(torch.bfloat16)

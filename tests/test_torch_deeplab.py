@@ -25,23 +25,18 @@ import pytest
 import torch
 from flax import nnx
 
-from torch_semantic_segmentation_tpu import train as jtrain
-from torch_semantic_segmentation_tpu.compat.torch_loader import (
-    export_torch_state_dict)
 from torch_semantic_segmentation_tpu.losses import (
     resize_ohem_cross_entropy as j_resize_ohem)
 from torch_semantic_segmentation_tpu.models import deeplab as jdeeplab
 from torch_semantic_segmentation_tpu.models import resnet as jresnet
 from torch_semantic_segmentation_tpu.ops.blocks import ASPP as JASPP
-from torch_semantic_segmentation_tpu_torch import train as ttrain
-from torch_semantic_segmentation_tpu_torch.compat import state_dict_from_jax
 from torch_semantic_segmentation_tpu_torch.losses import (
     resize_ohem_cross_entropy)
 from torch_semantic_segmentation_tpu_torch.models import (
     available_models, deeplab, get_model, resnet)
 from torch_semantic_segmentation_tpu_torch.ops import ASPP
 
-from torch_port_util import carry_weights
+from torch_port_util import carry_weights, sgd_steps_match_jax
 
 torch.set_num_threads(2)
 
@@ -117,30 +112,10 @@ def test_deeplab_eval_logits_match_jax():
 
 def test_deeplab_ohem_sgd_steps_match_jax():
     j, t = _models(upsample_logits=False)
-    t.load_state_dict(state_dict_from_jax(export_torch_state_dict(j)),
-                      strict=True)
-    tx = jtrain.OptimizerConfig(lr=LR, max_steps=4).make()
-    gd, _, jstate = jtrain.create_train_state(j, tx)
-    jstep = jtrain.make_train_step(gd, tx, functools.partial(j_resize_ohem,
-                                                             **OHEM))
-    tstate = ttrain.create_train_state(t, ttrain.OptimizerConfig(
-        lr=LR, max_steps=4))
-    tstep = ttrain.make_train_step(
-        t, tstate, functools.partial(resize_ohem_cross_entropy, **OHEM),
-        device="cpu")
-    for i, (x, y) in enumerate(_batches(3), start=1):
-        jstate, jm = jstep(jstate, jnp.asarray(x), jnp.asarray(y))
-        tm = tstep(x, y)
-        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
-                                   rtol=1e-4, err_msg=f"loss at step {i}")
-    want = state_dict_from_jax(export_torch_state_dict(
-        nnx.merge(gd, jstate.params, jstate.rest)))
-    got = t.state_dict()
-    assert set(got) == set(want)
-    for k, w in want.items():
-        if not k.endswith("num_batches_tracked"):
-            np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=1e-4,
-                                       atol=1e-4, err_msg=k)
+    sgd_steps_match_jax(
+        j, t, functools.partial(j_resize_ohem, **OHEM),
+        functools.partial(resize_ohem_cross_entropy, **OHEM), _batches(3),
+        lr=LR)
 
 
 def test_registry_output_strides_and_aux():

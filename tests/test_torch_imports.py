@@ -34,7 +34,8 @@ def test_scan_covers_the_package():
             "ops/depthwise.py", "data/transforms.py", "metrics/__init__.py",
             "eval.py", "ops/upsample_concat.py", "ops/pool.py",
             "models/unet.py", "models/resnet.py", "models/deeplab.py",
-            "ops/blocks.py"} <= names
+            "ops/blocks.py", "models/enet.py", "models/bisenet.py",
+            "models/icnet.py", "data/class_weights.py"} <= names
 
 
 def test_banned_rule():

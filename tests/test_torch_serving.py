@@ -102,9 +102,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_model_registry():
     assert available_models() == sorted([
         "fastscnn", "unet", "deeplabv3_resnet18", "deeplabv3_resnet34",
-        "deeplabv3_resnet50", "deeplabv3_resnet101"])
+        "deeplabv3_resnet50", "deeplabv3_resnet101", "enet", "bisenet",
+        "icnet"])
     with pytest.raises(KeyError, match="fastscnn"):
-        get_model("enet")
+        get_model("erfnet")
     m = get_model("fastscnn", 5, upsample_logits=False, device="cpu")
     y = m.eval()(torch.zeros(1, 32, 64, 3))
     assert y.shape == (1, 4, 8, 5)

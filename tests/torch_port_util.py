@@ -54,3 +54,91 @@ def carry_weights(jmodule, tmodule, seed: int = 0):
     tmodule.load_state_dict(
         state_dict_from_jax(export_torch_state_dict(jmodule)), strict=True)
     return tmodule.eval()
+
+
+def sgd_steps_match_jax(jmodel, tmodel, jloss, tloss, batches,
+                        lr: float = 0.002, remat: bool = False):
+    """The JAX weights carried into `tmodel`, then one SGD step of each
+    package a batch: every loss at rtol 1e-4, and after the last step every
+    parameter and BN statistic at rtol = atol = 1e-4 (the bar of
+    tests/test_torch_train.py)."""
+    from torch_semantic_segmentation_tpu import train as jtrain
+    from torch_semantic_segmentation_tpu_torch import train as ttrain
+
+    tmodel.load_state_dict(
+        state_dict_from_jax(export_torch_state_dict(jmodel)), strict=True)
+    tx = jtrain.OptimizerConfig(lr=lr, max_steps=4).make()
+    gd, _, jstate = jtrain.create_train_state(jmodel, tx)
+    jstep = jtrain.make_train_step(gd, tx, jloss, remat=remat)
+    tstate = ttrain.create_train_state(tmodel, ttrain.OptimizerConfig(
+        lr=lr, max_steps=4))
+    tstep = ttrain.make_train_step(tmodel, tstate, tloss, remat=remat,
+                                   device="cpu")
+    for i, (x, y) in enumerate(batches, start=1):
+        jstate, jm = jstep(jstate, jnp.asarray(x), jnp.asarray(y))
+        tm = tstep(x, y)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-4, err_msg=f"loss at step {i}")
+    want = state_dict_from_jax(export_torch_state_dict(
+        nnx.merge(gd, jstate.params, jstate.rest)))
+    got = tmodel.state_dict()
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if not k.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=1e-4,
+                                       atol=1e-4, err_msg=k)
+
+
+def remat_step_is_bit_exact(make_model, loss_fn, x, y):
+    """One SGD step of the port from the same seed with and without
+    `remat=True`: the loss, every gradient, every parameter and BN
+    statistic, and the dropout generator's state equal bit for bit."""
+    import torch
+
+    from torch_semantic_segmentation_tpu_torch import train as ttrain
+
+    def run(remat):
+        model = make_model()
+        state = ttrain.create_train_state(model,
+                                          ttrain.OptimizerConfig(lr=0.01))
+        step = ttrain.make_train_step(model, state, loss_fn, remat=remat,
+                                      device="cpu")
+        loss = float(step(x, y)["loss"])
+        gen = getattr(model, "dropout_generator", None)
+        return (loss, {k: p.grad.clone() for k, p in model.named_parameters()},
+                {k: v.clone() for k, v in model.state_dict().items()},
+                None if gen is None else gen.get_state())
+
+    loss0, grads0, state0, gen0 = run(False)
+    loss1, grads1, state1, gen1 = run(True)
+    assert loss0 == loss1
+    assert set(grads0) == set(grads1) and set(state0) == set(state1)
+    for k in grads0:
+        assert torch.equal(grads0[k], grads1[k]), f"gradient {k}"
+    for k in state0:
+        assert torch.equal(state0[k], state1[k]), k
+    if gen0 is not None:
+        assert torch.equal(gen0, gen1)
+
+
+def aux_ohem_losses(handles_resize: bool, **ohem):
+    """(JAX loss, port loss) of a model's outputs, composed as the JAX
+    package's `cli/common.build_loss` composes them: OHEM on each head
+    (`resize_ohem_cross_entropy`, which handles the resize, or
+    `ohem_cross_entropy` on heads resized first) in a `SegLoss`, main + 1.0
+    · aux through `aux_weighted_loss`."""
+    import functools
+
+    from torch_semantic_segmentation_tpu import losses as jlosses
+    from torch_semantic_segmentation_tpu_torch import losses as tlosses
+
+    name = ("resize_ohem_cross_entropy" if handles_resize
+            else "ohem_cross_entropy")
+    jbase = jlosses.SegLoss(functools.partial(getattr(jlosses, name), **ohem),
+                            handles_resize=handles_resize)
+    tbase = tlosses.SegLoss(functools.partial(getattr(tlosses, name), **ohem),
+                            handles_resize=handles_resize)
+    return (lambda outs, lb: jlosses.aux_weighted_loss(
+                outs, lb, loss_fn=jbase, aux_weight=1.0),
+            lambda outs, lb: tlosses.aux_weighted_loss(
+                outs, lb, loss_fn=tbase, aux_weight=1.0))

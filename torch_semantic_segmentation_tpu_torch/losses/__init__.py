@@ -15,18 +15,42 @@ bisection of 26 steps on the value range that stays on the device (no host
 sync). Its count of pixels at or above a candidate is an integer, where
 the JAX package sums a float32: the two agree below 2^24 valid pixels. The
 threshold takes no gradient.
+
+`aux_weighted_loss` sums a main head's loss and the aux heads' (BiSeNet,
+ICNet). A loss that upsamples low-res logits itself declares
+`handles_resize` (`resize_cross_entropy_loss`, `resize_ohem_cross_entropy`,
+or a `SegLoss` built with it); any other gets each head resized to the
+label grid first.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import typing as tp
 
 import torch
 
 from torch_semantic_segmentation_tpu_torch.ops.resize_ce import (
     per_pixel_resize_ce, resize_cross_entropy)
 from torch_semantic_segmentation_tpu_torch.ops.upsample import (
-    resize_bilinear_nhcw)
+    resize_bilinear, resize_bilinear_nhcw)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegLoss:
+    """The loss of one output head, `fn(logits, labels) -> scalar`, with
+    its resize contract: `handles_resize=True` declares that `fn`
+    upsamples low-res logits to the label grid itself, so
+    `aux_weighted_loss` passes mixed-resolution heads on as they are."""
+
+    fn: tp.Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    handles_resize: bool = False
+    name: str = "loss"
+
+    def __call__(self, logits: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+        return self.fn(logits, labels)
 
 
 def _one_hot_pick(values: torch.Tensor, labels: torch.Tensor,
@@ -102,6 +126,9 @@ def resize_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     loss = torch.where(valid, logz - true_logit, 0.0)
     wts = _pixel_weights(labels, valid, class_weights)
     return (loss * wts).sum() / torch.clamp(wts.sum(), min=1e-12)
+
+
+resize_cross_entropy_loss.handles_resize = True
 
 
 def _class_weights_constant(class_weights) -> bool:
@@ -206,5 +233,31 @@ def resize_ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     return _ohem_mean(flat, keep, labels, class_weights)
 
 
-__all__ = ["cross_entropy_loss", "ohem_cross_entropy",
-           "resize_cross_entropy_loss", "resize_ohem_cross_entropy"]
+resize_ohem_cross_entropy.handles_resize = True
+
+
+def aux_weighted_loss(main_and_aux_logits: tp.Sequence[torch.Tensor],
+                      labels: torch.Tensor, *,
+                      loss_fn: tp.Callable[..., torch.Tensor] = (
+                          cross_entropy_loss),
+                      aux_weight: float = 0.4, align_corners: bool = False,
+                      **loss_kwargs) -> torch.Tensor:
+    """loss(main) + aux_weight · Σ loss(aux), a float32 scalar. Where
+    `loss_fn` lacks `handles_resize`, a head whose size differs from the
+    labels' is bilinearly resized to the label grid first (in its own
+    dtype); otherwise each head goes to `loss_fn` at its own resolution,
+    so low-res bf16 heads reach the fused resize + CE kernels."""
+    lh, lw = labels.shape[1], labels.shape[2]
+    handles_resize = getattr(loss_fn, "handles_resize", False)
+    total = torch.zeros((), dtype=torch.float32, device=labels.device)
+    for i, lg in enumerate(main_and_aux_logits):
+        if (lg.shape[1], lg.shape[2]) != (lh, lw) and not handles_resize:
+            lg = resize_bilinear(lg, (lh, lw), align_corners=align_corners)
+        li = loss_fn(lg, labels, **loss_kwargs)
+        total = total + (li if i == 0 else aux_weight * li)
+    return total
+
+
+__all__ = ["SegLoss", "aux_weighted_loss", "cross_entropy_loss",
+           "ohem_cross_entropy", "resize_cross_entropy_loss",
+           "resize_ohem_cross_entropy"]

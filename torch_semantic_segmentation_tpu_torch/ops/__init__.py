@@ -4,6 +4,7 @@ package's numerics, plus the Hopper kernels that replace its Pallas ones."""
 from torch_semantic_segmentation_tpu_torch.ops.conv import (
     ConvBNAct,
     ConvTranspose2d,
+    PReLU,
     SeparableConv,
     activation,
     make_conv,
@@ -13,6 +14,8 @@ from torch_semantic_segmentation_tpu_torch.ops.pool import (
     adaptive_avg_pool2d,
     global_avg_pool,
     max_pool2d,
+    max_pool2x2_with_indices,
+    max_unpool2x2,
 )
 from torch_semantic_segmentation_tpu_torch.ops.upsample import (
     resize_argmax,
@@ -28,7 +31,8 @@ from torch_semantic_segmentation_tpu_torch.ops.blocks import (
 
 __all__ = [
     "ASPP", "ConvBNAct", "ConvTranspose2d", "InvertedResidual",
-    "PyramidPooling", "SegHead", "SeparableConv", "activation",
+    "PReLU", "PyramidPooling", "SegHead", "SeparableConv", "activation",
     "adaptive_avg_pool2d", "global_avg_pool", "make_conv", "make_norm",
-    "max_pool2d", "resize_argmax", "resize_bilinear", "resize_bilinear_nhcw",
+    "max_pool2d", "max_pool2x2_with_indices", "max_unpool2x2",
+    "resize_argmax", "resize_bilinear", "resize_bilinear_nhcw",
 ]

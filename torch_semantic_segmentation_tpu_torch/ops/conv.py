@@ -77,6 +77,21 @@ class Conv2d(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class PReLU(nn.Module):
+    """Parametric ReLU with a slope per channel (the last axis), initialised
+    to 0.25 as torch's `nn.PReLU`: `where(x >= 0, x, a·x)` with the slope
+    cast to x's dtype first, as in the JAX package. At x = 0 the gradient
+    is 1 for x and 0 for the slope, where `F.prelu`'s backward takes the
+    slope; bf16 activations do reach exact zeros."""
+
+    def __init__(self, num_parameters: int = 1):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((num_parameters,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+
+
 class ConvTranspose2d(nn.ConvTranspose2d):
     """`nn.ConvTranspose2d` on NHWC tensors with a call-time compute dtype.
     The weight is torch's (in, out, kh, kw), the layout the JAX package's
@@ -183,11 +198,13 @@ def make_norm(num_features: int, *, momentum: float = 0.1, eps: float = 1e-5,
 class ConvBNAct(nn.Module):
     """conv → BN → activation. `ops.fold.fold_batchnorm` folds the eval-mode
     BN into the conv, after which `bn` is None. A bias-free stride-2
-    depthwise 3×3 runs through `ops.depthwise` (the Hopper kernel K6)."""
+    depthwise 3×3 runs through `ops.depthwise` (the Hopper kernel K6).
+    `prelu=True` replaces the activation by a per-channel `PReLU`
+    (`act`), whose `act_name` is "prelu"."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size=3, *, stride=1,
                  padding=None, dilation=1, groups: int = 1, act: Act = "relu",
-                 use_bias: bool = False,
+                 use_bias: bool = False, prelu: bool = False,
                  compute_dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -202,7 +219,8 @@ class ConvBNAct(nn.Module):
                               generator=generator)
         self.bn: BatchNorm2d | None = make_norm(out_ch,
                                                 compute_dtype=compute_dtype)
-        self.act_name = act
+        self.act = PReLU(out_ch) if prelu else None
+        self.act_name = "prelu" if prelu else act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self._maybe_depthwise(x)
@@ -210,6 +228,8 @@ class ConvBNAct(nn.Module):
             y = self.conv(x)
         if self.bn is not None:
             y = self.bn(y)
+        if self.act is not None:
+            return self.act(y)
         return activation(self.act_name)(y)
 
     def _maybe_depthwise(self, x: torch.Tensor) -> torch.Tensor | None:

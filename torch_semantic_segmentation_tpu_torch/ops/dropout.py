@@ -6,7 +6,11 @@ The rate is exact (torch's semantics, as the JAX package has off the TPU):
 a unit is kept where a float32 uniform is below 1 − rate, and scaled by
 1 / (1 − rate). The JAX package draws its mask with threefry or the TPU's
 hardware RNG, so the two never give the same mask; tests compare eval mode
-or rate 0."""
+or rate 0.
+
+`broadcast_dims` draws one mask value for all positions along those axes:
+(1, 2) on an NHWC tensor is spatial (channel) dropout, one value an
+(n, c), as ENet's bottlenecks use it."""
 
 from __future__ import annotations
 
@@ -15,9 +19,11 @@ from torch import nn
 
 
 class Dropout(nn.Module):
-    def __init__(self, rate: float, *, generator: torch.Generator | None = None):
+    def __init__(self, rate: float, *, broadcast_dims: tuple[int, ...] = (),
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.rate = rate
+        self.broadcast_dims = tuple(broadcast_dims)
         self.generator = generator
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -34,5 +40,7 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout generator is on {self.generator.device}"
                              f", the input on {x.device}")
         keep = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        shape = [1 if d in self.broadcast_dims else s
+                 for d, s in enumerate(x.shape)]
+        u = torch.rand(shape, generator=self.generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))

@@ -1,6 +1,7 @@
 """Pooling on NHWC tensors: max pooling (UNet's encoder, the ResNet stem),
-adaptive average pooling (the PPM bins) and global average pooling, the
-averages accumulated in float32."""
+the 2×2 max pool with window indices and its unpool (ENet), adaptive
+average pooling (the PPM bins) and global average pooling, the averages
+accumulated in float32."""
 
 from __future__ import annotations
 
@@ -31,6 +32,31 @@ def max_pool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
     to its first maximum in row-major order, as in the JAX package."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride or window, padding)
     return y.permute(0, 2, 3, 1)
+
+
+def max_pool2x2_with_indices(x: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """2×2/s2 max pool of NHWC `x` (even H and W): (pooled, the index in
+    [0, 4) of each window's first maximum in row-major order, int64). As
+    in the JAX package the value is the max over the window's 4-wide
+    axis, so a tied window splits its gradient equally among its maxima
+    (`torch.amax`), where `nn.MaxPool2d(return_indices=True)` gives it
+    all to one."""
+    n, h, w, c = x.shape
+    xr = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    xr = xr.reshape(n, h // 2, w // 2, 4, c)       # windows, row-major
+    return torch.amax(xr, dim=3), torch.argmax(xr, dim=3)
+
+
+def max_unpool2x2(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Each value of NHWC `x` placed at its window index (from
+    `max_pool2x2_with_indices`, possibly of another tensor) in its 2×2
+    output window, zeros elsewhere: a one-hot product, no scatter."""
+    n, h2, w2, c = x.shape
+    slots = torch.arange(4, device=x.device).view(1, 1, 1, 4, 1)
+    y = x.unsqueeze(3) * (indices.unsqueeze(3) == slots).to(x.dtype)
+    y = y.reshape(n, h2, w2, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(n, 2 * h2, 2 * w2, c)
 
 
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
