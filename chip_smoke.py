@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain PyTorch version at the shapes the serving and training paths give
    it (and at a few ragged shapes), and time the kernel, the plain version,
    one library call and the card's bound (K3 at each of its three paths'
-   shapes: x16, x8 and x4);
+   shapes: x16, x8 and x4; K1 at FastSCNN's, LEDNet's and ContextNet's, K2
+   and K6 at FastSCNN's and ContextNet's);
 4. serve FastSCNN at full width (19 classes, bf16 compute, float32
    parameters from a seed, batch 8 of 1024x2048 uint8 frames): 5 requests,
    with the kernel launch counts read around them; then hold the folded,
@@ -54,8 +55,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    `augment_batch` at crop 512x512, scale 0.5-2.0, SGD lr 0.05, with
    class-weighted CE (ENet's weights from the phase's label maps): no
    kernel launches; one eval batch;
-11. print the kernels line, the nvidia-smi line and the final JSON line.
-   K3's rows count the launches of phases 8 and 9 and give each path's
+11. the stretch zoo, ERFNet, ESNet, LEDNet and ContextNet in turn, at the
+   zoo benches' configurations (bf16): serve 5 requests of 8 frames of
+   1024x2048 (`upsample_logits=False` and no aux heads where the
+   constructor takes them) with the folded-against-unfolded check; train
+   1 + 8 steps through `augment_batch` at crop 768x768, SGD lr 0.045,
+   batch 8 (ContextNet 32), LEDNet and ContextNet on the fused-resize
+   route (K1 1 + 1 a step; ContextNet also K2 12 + 12 and K6 2 + 2, K5 4
+   a request); one step and its launches held against the plain versions
+   as in phase 8; one eval batch of 8 (ContextNet: 3 K6 launches); for
+   ContextNet 4 steps with K2 unrouted as a yardstick;
+12. print the kernels line, the nvidia-smi line and the final JSON line.
+   K3's rows count the launches of phases 8 and 9, K1's, K2's, K5's and
+   K6's those of phases 4-6 and 11, and each row gives each path's
    launches and times under "paths".
 
 It imports nothing of JAX, and exits non-zero without a CUDA card or
@@ -177,6 +189,46 @@ K3_PATH_X4 = (CONFIG5_BATCH, CONFIG5_CROP // 4, CONFIG5_CROP // 4,
 # BASELINE config 1 (`configs/enet_cityscapes_512.json`): ENet, batch 4 of
 # 512x512 crops, scale 0.5-2.0, SGD lr 0.05, class-weighted CE; no kernel
 ENET_BATCH, ENET_CROP, ENET_LR, ENET_SCALE = 4, 512, 0.05, (0.5, 2.0)
+# phase 11, the stretch zoo at the zoo benches' configurations: serving as
+# `scripts/bench_infer.py:22-44` (batch 8 of 1024x2048, ids out, BN folded,
+# no aux heads, 1/8 logits where the constructor takes `upsample_logits`);
+# training as `scripts/bench_train_zoo.py` (768x768 crops by
+# `augment_batch` from resident 1024x2048 frames, SGD lr 0.045, batch 8 or
+# its default 32), LEDNet and ContextNet on the fused-resize route
+STRETCH_MODELS = ("erfnet", "esnet", "lednet", "contextnet")
+STRETCH_BATCH = {"erfnet": 8, "esnet": 8, "lednet": 8, "contextnet": 32}
+STRETCH_LOW_RES = ("lednet", "contextnet")
+ZOO_CROP, ZOO_LR = 768, 0.045
+# ContextNet's kernel launches: K5 on detail ds3, the FFM and the
+# classifier's two pairs; K2 on the context branch's 12 blocks; K6 on the
+# detail ds1 and ds2, and in eval on context body[2]'s stride-2 dw conv
+# too ((8,128,256,192), on the floor of 2^18 pixels)
+CONTEXTNET_K5_PER_REQUEST = 4
+CONTEXTNET_K2_PER_STEP = 12
+CONTEXTNET_K6_PER_STEP = 2
+CONTEXTNET_K6_PER_EVAL_BATCH = 3
+# the d(logits) bar of `kernel_vs_plain_step`, relative L2 against the
+# plain versions' step; ContextNet's own, set from its recorded readings
+# (PERF.md §6): 0.0067-0.0088 in runs whose every launch agreed with its
+# plain version within 4.2e-5, where the plain step alone moves
+# 0.0069-0.0074 when K2's folded bias is nudged one float32 step (twelve
+# blocks of train-mode BN amplify which way a bf16 rounding of the expanded
+# tensor falls); 2^-6 is the power of two above the largest reading
+DLOGITS_TOL = 2.0 ** -9
+STEP_DLOGITS_TOL = {"contextnet": 2.0 ** -6}
+# K1 at LEDNet's and ContextNet's training heads: (n, 96, 96, 19) ->
+# (n, 768, 768)
+K1_ZOO_PATHS = {"lednet": (8, 96, 96, NUM_CLASSES, ZOO_CROP, ZOO_CROP),
+                "contextnet": (32, 96, 96, NUM_CLASSES, ZOO_CROP, ZOO_CROP)}
+# K2 on ContextNet's training path, the context branch at b32 (its input is
+# the crop's x1/4, 192x192; the first conv halves it): (n, h, w, cin, ce,
+# stride, blocks of this shape)
+K2_PATH_CONTEXTNET = ((32, 96, 96, 32, 32, 1, 1), (32, 96, 96, 32, 192, 1, 1),
+                      (32, 96, 96, 32, 192, 2, 1), (32, 48, 48, 48, 288, 1, 2),
+                      (32, 48, 48, 48, 288, 2, 1), (32, 24, 24, 64, 384, 1, 3),
+                      (32, 24, 24, 96, 576, 1, 2), (32, 24, 24, 128, 768, 1, 1))
+# K6 on ContextNet's training path, the detail branch at b32
+K6_PATH_CONTEXTNET = (("ds1", 32, 384, 384, 32, 2), ("ds2", 32, 192, 192, 64, 2))
 EVAL_BATCHES = 4
 # the eval step's K6 launches a batch: in eval mode no block routes to K2,
 # so GFE stage1[0]'s depthwise conv, at (8,128,256,384) on the floor of
@@ -325,6 +377,7 @@ def check_sepconv() -> dict:
     out = {key: (max(r[key] for r in rows) if key == "err"
                  else sum(r[key] for r in rows) / k) for key in rows[0]}
     out["bound_by"] = bound_by
+    out["cases"] = {name: r for (name, _, _, _), r in zip(K5_PATH_CASES, rows)}
     return out
 
 
@@ -352,10 +405,10 @@ def resize_ce_inputs(n, h, w, c, oh, ow, seed, weights):
 
 
 def check_resize_ce() -> dict:
-    """K1 forward and backward against the plain version; times at the
-    training path's shape."""
+    """K1 forward and backward against the plain version; times at each
+    training path's shape: {"fastscnn" | "lednet" | "contextnet": {"fwd":
+    ..., "bwd": ...}}."""
     import torch
-    import torch.nn.functional as F
     from torch_semantic_segmentation_tpu_torch.ops import resize_ce as rce
 
     def compare(n, h, w, c, oh, ow, weights, seed, name):
@@ -387,10 +440,24 @@ def check_resize_ce() -> dict:
 
     for i, (n, h, w, c, oh, ow) in enumerate(K1_RAGGED):
         compare(n, h, w, c, oh, ow, i % 2 == 1, 200 + i, "ragged")
-    n, h, w, c, oh, ow = K1_PATH
+    out = {"fastscnn": k1_path(compare, K1_PATH, 7, "path")}
+    for i, (key, shape) in enumerate(K1_ZOO_PATHS.items()):
+        out[key] = k1_path(compare, shape, 17 + i, f"{key} path")
+        torch.cuda.empty_cache()
+    return out
+
+
+def k1_path(compare, shape, seed, name) -> dict:
+    """K1 at one path's shape, with and without class weights, and its
+    times there (the weighted inputs): {"fwd": ..., "bwd": ...}."""
+    import torch
+    import torch.nn.functional as F
+    from torch_semantic_segmentation_tpu_torch.ops import resize_ce as rce
+
+    n, h, w, c, oh, ow = shape
     errs = []
     for weights in (False, True):
-        lerr, derr, args = compare(n, h, w, c, oh, ow, weights, 7, "path")
+        lerr, derr, args = compare(n, h, w, c, oh, ow, weights, seed, name)
         errs.append((lerr, derr))
     logits, labels, cw, logz, scale = args
     fwd_ms = cuda_ms(lambda: rce.resize_ce_forward(logits, labels, cw))
@@ -425,9 +492,9 @@ def check_resize_ce() -> dict:
                 / FP32_FLOPS})
     for d, k_ms, p_ms, l_ms, b in (("fwd", fwd_ms, plain_fwd, lib_fwd, fb),
                                    ("bwd", bwd_ms, plain_bwd, lib_bwd, bb)):
-        print(f"resize_ce {d} path: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-              f"library_ms {l_ms:.4f} bound_ms {b[0]:.4f} (bound by {b[2]})",
-              flush=True)
+        print(f"resize_ce {d} {name} {shape}: kernel_ms {k_ms:.4f} plain_ms "
+              f"{p_ms:.4f} library_ms {l_ms:.4f} bound_ms {b[0]:.4f} (bound "
+              f"by {b[2]})", flush=True)
     return {
         "fwd": dict(err=max(e[0] for e in errs), kernel_ms=fwd_ms,
                     plain_ms=plain_fwd, library_ms=lib_fwd, bound_ms=fb[0],
@@ -450,10 +517,10 @@ def mbconv_inputs(n, h, w, cin, ce, seed):
 
 def check_mbconv() -> dict:
     """K2 forward and backward against the plain version at each block
-    shape of the training path (and ragged ones); per-step times: each
-    shape's time times the blocks of that shape, summed over the nine."""
+    shape of the training paths (and ragged ones); per-step times at
+    FastSCNN's nine GFE blocks and ContextNet's twelve context blocks:
+    {"fastscnn" | "contextnet": {"fwd": ..., "bwd": ...}}."""
     import torch
-    import torch.nn.functional as F
     from torch_semantic_segmentation_tpu_torch.ops import mbconv
 
     def compare(n, h, w, cin, ce, s, seed, name):
@@ -495,14 +562,29 @@ def check_mbconv() -> dict:
 
     for i, (n, h, w, cin, ce, s) in enumerate(K2_RAGGED):
         compare(n, h, w, cin, ce, s, 300 + i, "ragged")
+    out = {"fastscnn": k2_path(compare, K2_PATH, 400, "nine GFE blocks")}
+    torch.cuda.empty_cache()
+    out["contextnet"] = k2_path(compare, K2_PATH_CONTEXTNET, 420,
+                                "contextnet's twelve blocks")
+    torch.cuda.empty_cache()
+    return out
+
+
+def k2_path(compare, path, seed, name) -> dict:
+    """K2 at each block shape of one training path, and the path's times a
+    step: each shape's time times its blocks, summed."""
+    import torch
+    import torch.nn.functional as F
+    from torch_semantic_segmentation_tpu_torch.ops import mbconv
+
     tot = {key: 0.0 for key in ("fwd_ms", "bwd_ms", "plain_fwd", "plain_bwd",
                                 "lib_fwd", "lib_bwd", "lib_bwd_heuristic")}
     fbytes = bbytes = 0.0
     fops = {"tensor": 0.0, "fp32": 0.0}
     bops = {"tensor": 0.0, "fp32": 0.0}
     ferr = berr = 0.0
-    for i, (n, h, w, cin, ce, s, count) in enumerate(K2_PATH):
-        fe, be, (x, wt, b, k, g) = compare(n, h, w, cin, ce, s, 400 + i,
+    for i, (n, h, w, cin, ce, s, count) in enumerate(path):
+        fe, be, (x, wt, b, k, g) = compare(n, h, w, cin, ce, s, seed + i,
                                            "path")
         ferr, berr = max(ferr, fe), max(berr, be)
         t = dict(
@@ -554,10 +636,10 @@ def check_mbconv() -> dict:
     for d, k_ms, p_ms, l_ms, bd in (
             ("fwd", tot["fwd_ms"], tot["plain_fwd"], tot["lib_fwd"], fb),
             ("bwd", tot["bwd_ms"], tot["plain_bwd"], tot["lib_bwd"], bb)):
-        print(f"mbconv {d} nine blocks a step: kernel_ms {k_ms:.4f} plain_ms "
+        print(f"mbconv {d} {name} a step: kernel_ms {k_ms:.4f} plain_ms "
               f"{p_ms:.4f} library_ms {l_ms:.4f} bound_ms {bd[0]:.4f} (bound "
               f"by {bd[2]})", flush=True)
-    print(f"mbconv bwd nine blocks a step: library_ms on cuDNN's heuristics "
+    print(f"mbconv bwd {name} a step: library_ms on cuDNN's heuristics "
           f"{tot['lib_bwd_heuristic']:.4f}", flush=True)
     return {
         "fwd": dict(err=ferr, kernel_ms=tot["fwd_ms"], plain_ms=tot["plain_fwd"],
@@ -768,9 +850,10 @@ def check_depthwise() -> dict:
     stride-2 backward tiles ragged both ways, over few and over many tiles
     a block), float32 and bf16: y and dx bit for bit, dk at a relative L2
     error of 1e-5 and the same bits in two launches; per-step times at the
-    path's dtype, bf16: each LDS conv's time, summed over the two."""
+    path's dtype, bf16, each conv's time summed: {"fastscnn" (the LDS's two
+    convs) | "contextnet" (the detail branch's two): {"fwd": ..., "bwd":
+    ...}}."""
     import torch
-    import torch.nn.functional as F
     from torch_semantic_segmentation_tpu_torch.ops import depthwise as dwm
 
     def compare(n, h, w, c, s, dtype, seed, name):
@@ -800,13 +883,29 @@ def check_depthwise() -> dict:
     for i, (n, h, w, c, s) in enumerate(K6_RAGGED):
         for dtype in (torch.float32, torch.bfloat16):
             compare(n, h, w, c, s, dtype, 500 + i, "ragged")
+    out = {"fastscnn": k6_path(compare, K6_PATH, K6_OFF_STEP, 600,
+                               "LDS ds1 + ds2"),
+           "contextnet": k6_path(compare, K6_PATH_CONTEXTNET, (), 610,
+                                 "contextnet detail ds1 + ds2")}
+    torch.cuda.empty_cache()
+    return out
+
+
+def k6_path(compare, path, off_step, seed, name) -> dict:
+    """K6 at each conv of one training path (and at `off_step` shapes,
+    printed only), float32 and bf16; the path's times a step at bf16, each
+    conv's time summed."""
+    import torch
+    import torch.nn.functional as F
+    from torch_semantic_segmentation_tpu_torch.ops import depthwise as dwm
+
     tot = {key: 0.0 for key in ("fwd_ms", "bwd_ms", "plain_fwd", "plain_bwd",
                                 "lib_fwd", "lib_bwd")}
     fbytes = bbytes = fops = bops = 0.0
     ferr = berr = 0.0
-    for i, (name, n, h, w, c, s) in enumerate(K6_PATH + K6_OFF_STEP):
+    for i, (cname, n, h, w, c, s) in enumerate(path + off_step):
         for dtype in (torch.float32, torch.bfloat16):
-            errs, (x, k, dy) = compare(n, h, w, c, s, dtype, 600 + i, name)
+            errs, (x, k, dy) = compare(n, h, w, c, s, dtype, seed + i, cname)
         t = dict(
             fwd_ms=cuda_ms(lambda: dwm.depthwise3x3_forward(x, k, s)),
             bwd_ms=cuda_ms(lambda: dwm.depthwise3x3_backward(x, k, dy, s)),
@@ -832,10 +931,11 @@ def check_depthwise() -> dict:
                    {"flop": 2 * 9 * pout / FP32_FLOPS})
         bb = bound(2 * (2 * pin + pout) + 2 * 9 * c * 4,
                    {"flop": 4 * 9 * pout / FP32_FLOPS})
-        print(f"depthwise {name} ({n},{h},{w},{c}) s{s} bf16: " + " ".join(
+        print(f"depthwise {cname} ({n},{h},{w},{c}) s{s} bf16: " + " ".join(
             f"{key} {v:.4f}" for key, v in t.items())
             + f" bound_fwd {fb[0]:.4f} bound_bwd {bb[0]:.4f}", flush=True)
-        if (name, n, h, w, c, s) not in K6_PATH:
+        del out, xc, kc, x, dy
+        if i >= len(path):
             continue
         ferr, berr = max(ferr, errs[0]), max(berr, errs[1])
         for key in tot:
@@ -848,9 +948,9 @@ def check_depthwise() -> dict:
     for d, k_ms, p_ms, l_ms, bd in (
             ("fwd", tot["fwd_ms"], tot["plain_fwd"], tot["lib_fwd"], fb),
             ("bwd", tot["bwd_ms"], tot["plain_bwd"], tot["lib_bwd"], bb)):
-        print(f"depthwise {d} LDS ds1 + ds2 a step: kernel_ms {k_ms:.4f} "
-              f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
-              f"{bd[0]:.4f} (bound by {bd[2]})", flush=True)
+        print(f"depthwise {d} {name} a step: kernel_ms {k_ms:.4f} plain_ms "
+              f"{p_ms:.4f} library_ms {l_ms:.4f} bound_ms {bd[0]:.4f} (bound "
+              f"by {bd[2]})", flush=True)
     return {
         "fwd": dict(err=ferr, kernel_ms=tot["fwd_ms"], plain_ms=tot["plain_fwd"],
                     library_ms=tot["lib_fwd"], bound_ms=fb[0], bound_by=fb[1]),
@@ -1131,7 +1231,8 @@ def per_step(steps: int, model: str = "fastscnn") -> dict:
     """The launch counts of every kernel in `steps` training steps of
     `model`: FastSCNN launches K1, K2 and K6; UNet's bilinear decoder K4,
     4 a forward; DeepLab with OHEM K3, 1 + 1; BiSeNet and ICNet with OHEM
-    on their three heads K3, 3 + 3; ENet nothing."""
+    on their three heads K3, 3 + 3; LEDNet K1, 1 + 1; ContextNet K1 1 + 1,
+    K2 12 + 12 and K6 2 + 2; ENet, ERFNet and ESNet nothing."""
     counts = {key: 0 for key, _, _, _ in TRAIN_WRAPPERS}
     if model == "fastscnn":
         counts.update({"resize_ce_fwd": steps, "resize_ce_bwd": steps,
@@ -1139,6 +1240,14 @@ def per_step(steps: int, model: str = "fastscnn") -> dict:
                        "mbconv_bwd": K2_PER_STEP * steps,
                        "depthwise_fwd": K6_PER_STEP * steps,
                        "depthwise_bwd": K6_PER_STEP * steps})
+    elif model == "lednet":
+        counts.update(resize_ce_fwd=steps, resize_ce_bwd=steps)
+    elif model == "contextnet":
+        counts.update({"resize_ce_fwd": steps, "resize_ce_bwd": steps,
+                       "mbconv_fwd": CONTEXTNET_K2_PER_STEP * steps,
+                       "mbconv_bwd": CONTEXTNET_K2_PER_STEP * steps,
+                       "depthwise_fwd": CONTEXTNET_K6_PER_STEP * steps,
+                       "depthwise_bwd": CONTEXTNET_K6_PER_STEP * steps})
     elif model == "unet":
         counts["upsample_concat"] = K4_PER_FORWARD * steps
     elif model in K3_PER_STEP:
@@ -1671,15 +1780,23 @@ def expect_launches(used: dict, want: dict, what: str):
 
 
 def kernel_vs_plain_step(model, images, labels, loss_fn, name: str,
-                         expect: dict) -> dict:
+                         expect: dict,
+                         d_tol: float = DLOGITS_TOL) -> dict:
     """One forward and backward of the train step (no update; the model's
     state is put back after) through the kernels, recording each launch,
     then through the kernels' plain versions, with the same dropout
     masks: every recorded launch again on its own inputs against its plain
     version (`check_recorded`, relative L2 2^-9), the launches `expect`
     ({count key: launches}), the loss within 1e-4 relative and d(logits)
-    of each output head within relative L2 2^-9 of the plain versions'
-    step."""
+    of each output head within relative L2 `d_tol` of the plain versions'
+    step (2^-9 unless the model has its own, `STEP_DLOGITS_TOL`).
+
+    Where the step runs K2, the plain step runs once more with K2's folded
+    bias nudged by one float32 step (`nudged_plain_versions`, as
+    `grad_check` does), and how far that alone moves the plain step's
+    d(logits) is printed beside the reading: the measure of how much the
+    train-mode BNs amplify which way a bf16 rounding of the expanded
+    tensor falls. It is not asserted."""
     import torch
 
     start = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1711,22 +1828,31 @@ def kernel_vs_plain_step(model, images, labels, loss_fn, name: str,
     del calls
     with swapped(plain_versions):
         lp, dp = gradient()
-    model.zero_grad(set_to_none=True)
-    model.load_state_dict(start)
     loss_rel = abs(lk - lp) / abs(lp)
     d_rel = max(rel_l2(a, b) for a, b in zip(dk, dp))
+    nudge = None
+    if "mbconv_fwd" in recorded:
+        with swapped(nudged_plain_versions):
+            _, dn = gradient()
+        nudge = max(rel_l2(a, b) for a, b in zip(dn, dp))
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict(start)
     print(f"{name} one step, kernels against plain versions: each launch on "
           f"its own inputs, worst relative L2 error " + ", ".join(
               f"{k} {v:.3g}" for k, v in worst.items())
           + f" (tol 2^-9, launches {recorded}); loss {lk:.6f} vs {lp:.6f} "
           f"(rel {loss_rel:.3g}, tol 1e-4); d(logits) relative L2 "
-          f"{d_rel:.3g} (tol 2^-9)", flush=True)
+          f"{d_rel:.3g} (tol {d_tol:.3g}"
+          + ("" if nudge is None else f"; the plain step with K2's bias "
+             f"nudged one float32 step, not asserted: {nudge:.3g}") + ")",
+          flush=True)
     if recorded != expect:
         fail(f"{name}: one step recorded {recorded}, expected {expect}")
-    if not loss_rel <= 1e-4 or not d_rel <= 2.0 ** -9:
+    if not loss_rel <= 1e-4 or not d_rel <= d_tol:
         fail(f"{name}: the step through the kernels disagrees with the step "
              "through their plain versions")
-    return dict(recorded_rel_l2=worst, loss_rel=loss_rel, dlogits_rel_l2=d_rel)
+    return dict(recorded_rel_l2=worst, loss_rel=loss_rel, dlogits_rel_l2=d_rel,
+                dlogits_nudged_rel_l2=nudge)
 
 
 def eval_batch(model, images, labels, name: str, expect: dict) -> dict:
@@ -2129,6 +2255,129 @@ def enet_phase() -> dict:
     return out
 
 
+def stretch_batch(seed: int, batch: int):
+    """`batch` frames and label maps on the card, `make_batch` draws of 8."""
+    import torch
+    pairs = [make_batch(seed + i) for i in range(-(-batch // SERVE_BATCH))]
+    frames = np.concatenate([f for f, _ in pairs])[:batch]
+    labels = np.concatenate([lb for _, lb in pairs])[:batch]
+    return torch.from_numpy(frames).cuda(), torch.from_numpy(labels).cuda()
+
+
+def stretch_phase(name: str) -> dict:
+    """Phase 11 for one stretch model at full width (19 classes, bf16
+    compute, float32 parameters from a seed): serve 5 requests at
+    `bench_infer.py`'s configuration and hold the folded predictor against
+    the unfolded eval model; train 1 + 8 steps through `augment_batch` at
+    crop 768 (`bench_train_zoo.py`), the launches read around them; hold
+    one step against the plain versions' step and every launch of it on its
+    own inputs; one eval batch of 8 at 1024x2048, its launches rechecked;
+    for ContextNet, 4 steps with K2 unrouted as a yardstick."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig, augment_batch, normalize_batch)
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        cross_entropy_loss, resize_cross_entropy_loss)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.ops import mbconv
+    from torch_semantic_segmentation_tpu_torch.ops.sepconv import (
+        fused_separable_conv)
+    from torch_semantic_segmentation_tpu_torch.serving import make_predict_fn
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+
+    low_res = name in STRETCH_LOW_RES
+    kw = {"upsample_logits": False} if low_res else {}
+    spec = (name, dict(kw, aux=False) if name == "contextnet" else kw)
+    k5 = CONTEXTNET_K5_PER_REQUEST if name == "contextnet" else 0
+    out = {}
+
+    frames, labels = stretch_batch(1000, SERVE_BATCH)
+    state = calibrated_state(frames, spec)
+    predict = make_predict_fn(build_model(torch.bfloat16, state, spec),
+                              output="ids")
+    predict(frames)                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    fused_separable_conv.launches = 0
+    ids, host, dev = request_times(predict, frames, REQUESTS)
+    used, peak = launch_counts(), torch.cuda.max_memory_allocated()
+    k5_used = fused_separable_conv.launches
+    print(f"{name} serve bf16 {SERVE_BATCH}x{SERVE_H}x{SERVE_W}: latency_ms "
+          f"{[round(t, 3) for t in host]} median host {np.median(host):.3f}, "
+          f"CUDA events {np.median(dev):.3f}; frames/s "
+          f"{SERVE_BATCH * REQUESTS * 1e3 / sum(host):.2f}; "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; sepconv launches "
+          f"{k5_used}; launches {used}", flush=True)
+    if (tuple(ids.shape) != (SERVE_BATCH, SERVE_H, SERVE_W)
+            or ids.dtype != torch.uint8 or int(ids.max()) >= NUM_CLASSES):
+        fail(f"{name} ids {tuple(ids.shape)} {ids.dtype}")
+    if k5_used != k5 * REQUESTS:
+        fail(f"{name} serving: sepconv launched {k5_used} times in "
+             f"{REQUESTS} requests, expected {k5 * REQUESTS}")
+    expect_launches(used, per_step(0), f"{name} serving")
+    fold_check(frames, state, ids, spec)
+    out["serve"] = dict(latency_ms=host, event_ms=dev, peak_bytes=peak,
+                        sepconv_launches=k5_used)
+    del predict, state, ids
+    torch.cuda.empty_cache()
+
+    batch = STRETCH_BATCH[name]
+    frames, labels = stretch_batch(1100, batch)
+    loss_fn = resize_cross_entropy_loss if low_res else cross_entropy_loss
+    cfg = AugmentConfig(crop=(ZOO_CROP, ZOO_CROP), out_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = get_model(name, NUM_CLASSES, compute_dtype=torch.bfloat16, seed=0,
+                      device="cuda", **kw)
+    inner = make_train_step(model, create_train_state(
+        model, OptimizerConfig(lr=ZOO_LR, max_steps=1000)), loss_fn)
+
+    def step(raw_images, raw_labels):
+        return inner(*augment_batch(raw_images, raw_labels, gen, cfg))
+
+    out["train"] = train_run(
+        step, [(frames, labels)] * TRAIN_STEPS,
+        f"{name} train bf16 {batch}x{ZOO_CROP}x{ZOO_CROP} with augmentation"
+        f"{' and the fused-resize loss' if low_res else ''} (phase 11)",
+        batch, per_step(TRAIN_STEPS, name))
+    if name == "contextnet":
+        # K2 off the path (a yardstick): the twelve blocks on the plain conv
+        # layers; context body[2]'s stride-2 dw conv then routes to K6
+        with mbconv.suppress_routing():
+            step(frames, labels)
+            lat_u, _, peak_u, used_u, detail_u = timed_steps(
+                step, [(frames, labels)] * UNROUTED_STEPS)
+        lat = out["train"]["latency_ms"]
+        print(f"{name} train bf16 without K2 (on the plain conv layers): step "
+              f"latency_ms {[round(t, 3) for t in lat_u]} "
+              f"{timing_line(lat_u, detail_u)} (with it "
+              f"{timing_line(lat, out['train']['detail'])}); "
+              f"max_memory_allocated {peak_u / 2 ** 30:.3f} GiB (with it "
+              f"{out['train']['peak_bytes'] / 2 ** 30:.3f}); launches "
+              f"{used_u}", flush=True)
+        if used_u["mbconv_fwd"] or used_u["mbconv_bwd"]:
+            fail("K2 launched while unrouted")
+        out["unrouted_k2"] = dict(latency_ms=lat_u, detail=detail_u,
+                                  peak_bytes=peak_u, launches=used_u)
+    images, lab = augment_batch(frames, labels, gen, cfg)
+    expect = {k: v for k, v in per_step(1, name).items() if v}
+    out["check"] = kernel_vs_plain_step(
+        model, images, lab, loss_fn, name, expect,
+        STEP_DLOGITS_TOL.get(name, DLOGITS_TOL))
+    del images, lab
+    torch.cuda.empty_cache()
+    frames, labels = frames[:SERVE_BATCH], labels[:SERVE_BATCH]
+    want = per_step(0)
+    if name == "contextnet":
+        want["depthwise_fwd"] = CONTEXTNET_K6_PER_EVAL_BATCH
+    out["eval"] = eval_batch(model, normalize_batch(
+        frames, out_dtype=torch.bfloat16), labels, name, want)
+    del model, inner, step, frames, labels
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2178,6 +2427,7 @@ def main() -> int:
     config5 = {name: config5_phase(name, depth)
                for name, depth in CONFIG5_MODELS}
     enet_phase()
+    stretch = {name: stretch_phase(name) for name in STRETCH_MODELS}
 
     def row(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",
@@ -2188,7 +2438,48 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
 
-    tl = main_path["launches"]
+    # K1's, K2's and K6's paths: FastSCNN's main path and the stretch
+    # models'; the rows' times at FastSCNN's shapes, each path's under
+    # "paths"
+    train_paths = {"fastscnn": main_path, **{
+        name: stretch[name]["train"] for name in STRETCH_MODELS}}
+
+    def path_row(kname, source, replaces, d, checks):
+        paths = [(p, train_paths[p]["launches"][kname]) for p in checks]
+        r = row(kname, source, replaces, sum(n for _, n in paths),
+                checks["fastscnn"][d])
+        r["paths"] = [
+            {"path": p, "launches": n,
+             "launches_a_step": per_step(1, p)[kname],
+             "ms": checks[p][d]["kernel_ms"],
+             "plain_ms": checks[p][d]["plain_ms"],
+             "bound_ms": checks[p][d]["bound_ms"],
+             "library_ms": checks[p][d]["library_ms"],
+             "max_abs_err": checks[p][d]["err"]}
+            for p, n in paths]
+        return r
+
+    # K5's paths: FastSCNN's request (the row's numbers, the mean of its
+    # three launches) and ContextNet's four (d=4 once, d=1 three times)
+    cases = k5["cases"]
+    d1 = [cases["classifier.ds1"], cases["classifier.ds2"]]
+    k5_ctx = {key: (cases["ffm"][key] + 1.5 * sum(c[key] for c in d1)) / 4
+              for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    k5_ctx["err"] = max(c["err"] for c in d1 + [cases["ffm"]])
+    k5_row = row("sepconv", "sepconv.cu", "pallas_sepconv.py:239",
+                 served["launches"]
+                 + stretch["contextnet"]["serve"]["sepconv_launches"], k5)
+    k5_row["paths"] = [
+        {"path": p, "launches": n, "launches_a_request": per_request,
+         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "library_ms": r["library_ms"],
+         "max_abs_err": r["err"]}
+        for p, n, per_request, r in (
+            ("fastscnn", served["launches"], K5_PER_REQUEST, k5),
+            ("contextnet", stretch["contextnet"]["serve"]["sepconv_launches"],
+             CONTEXTNET_K5_PER_REQUEST, k5_ctx))]
+    k1_paths = {p: k1[p] for p in ("fastscnn", "lednet", "contextnet")}
+    k26_paths = ("fastscnn", "contextnet")
     # K3's paths: DeepLab's one head and config 5's three; the row's times
     # at DeepLab's x16, each path's own under "paths"
     k3_train = {"deeplab": deeplab["train"], **{
@@ -2208,20 +2499,19 @@ def main() -> int:
         return r
 
     print(json.dumps({"kernels": [
-        row("sepconv", "sepconv.cu", "pallas_sepconv.py:239",
-            served["launches"], k5),
-        row("resize_ce_fwd", "resize_ce.cu", "pallas_resize_ce.py:329",
-            tl["resize_ce_fwd"], k1["fwd"]),
-        row("resize_ce_bwd", "resize_ce.cu", "pallas_resize_ce.py:381",
-            tl["resize_ce_bwd"], k1["bwd"]),
-        row("mbconv_fwd", "mbconv.cu", "pallas_mbconv.py:337",
-            tl["mbconv_fwd"], k2["fwd"]),
-        row("mbconv_bwd", "mbconv.cu", "pallas_mbconv.py:394",
-            tl["mbconv_bwd"], k2["bwd"]),
-        row("depthwise_fwd", "depthwise.cu", "pallas_dw.py:405",
-            tl["depthwise_fwd"], k6["fwd"]),
-        row("depthwise_bwd", "depthwise.cu", "pallas_dw.py:452",
-            tl["depthwise_bwd"], k6["bwd"]),
+        k5_row,
+        path_row("resize_ce_fwd", "resize_ce.cu", "pallas_resize_ce.py:329",
+                 "fwd", k1_paths),
+        path_row("resize_ce_bwd", "resize_ce.cu", "pallas_resize_ce.py:381",
+                 "bwd", k1_paths),
+        path_row("mbconv_fwd", "mbconv.cu", "pallas_mbconv.py:337", "fwd",
+                 {p: k2[p] for p in k26_paths}),
+        path_row("mbconv_bwd", "mbconv.cu", "pallas_mbconv.py:394", "bwd",
+                 {p: k2[p] for p in k26_paths}),
+        path_row("depthwise_fwd", "depthwise.cu", "pallas_dw.py:405", "fwd",
+                 {p: k6[p] for p in k26_paths}),
+        path_row("depthwise_bwd", "depthwise.cu", "pallas_dw.py:452", "bwd",
+                 {p: k6[p] for p in k26_paths}),
         row("upsample_concat", "upsample_concat.cu", "pallas_upsample.py:109",
             unet["train"]["launches"]["upsample_concat"], k4),
         k3_row("resize_ce_map_fwd", "pallas_resize_ce.py:446", "fwd"),

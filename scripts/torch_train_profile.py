@@ -12,9 +12,13 @@ chip_smoke.py.
   `augment_batch`, aux heads and OHEM, each head through K3).
 - `--model enet`: BASELINE config 1 as its phase 10 runs it (batch 4 of
   512x512 crops, class-weighted CE).
+- `--model erfnet | esnet | lednet | contextnet`: the stretch zoo as its
+  phase 11 trains it (768x768 crops through `augment_batch`, SGD lr 0.045,
+  batch 8, ContextNet 32; LEDNet and ContextNet with 1/8 logits and the
+  resize CE, the others with plain CE).
 
     python3 scripts/torch_train_profile.py [--steps 3] [--augment]
-        [--model fastscnn|bisenet|icnet|enet]
+        [--model fastscnn|bisenet|icnet|enet|erfnet|esnet|lednet|contextnet]
 
 Prints the card, the step time (host clock around a synchronised step), the
 device busy time per step from torch.profiler (the sum of kernel times) and
@@ -54,7 +58,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--augment", action="store_true")
     ap.add_argument("--model", default="fastscnn",
-                    choices=("fastscnn", "bisenet", "icnet", "enet"))
+                    choices=("fastscnn", "bisenet", "icnet", "enet",
+                             *chip_smoke.STRETCH_MODELS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -79,6 +84,17 @@ def main() -> int:
                                     class_weights=torch.from_numpy(cw).cuda())
         crop = (chip_smoke.ENET_CROP, chip_smoke.ENET_CROP)
         scale = chip_smoke.ENET_SCALE
+    elif args.model in chip_smoke.STRETCH_MODELS:
+        frames, labels = chip_smoke.stretch_batch(
+            100, chip_smoke.STRETCH_BATCH[args.model])
+        low_res = args.model in chip_smoke.STRETCH_LOW_RES
+        model = get_model(args.model, c, compute_dtype=torch.bfloat16, seed=0,
+                          device="cuda",
+                          **({"upsample_logits": False} if low_res else {}))
+        lr = chip_smoke.ZOO_LR
+        loss_fn = resize_cross_entropy_loss if low_res else cross_entropy_loss
+        crop = (chip_smoke.ZOO_CROP, chip_smoke.ZOO_CROP)
+        scale = AugmentConfig.scale_range
     else:
         pairs = [chip_smoke.make_batch(100), chip_smoke.make_batch(101)]
         frames, labels = (np.concatenate([p[i] for p in pairs])
@@ -90,11 +106,10 @@ def main() -> int:
         lr, loss_fn = chip_smoke.CONFIG5_LR, chip_smoke.config5_loss()
         crop = (chip_smoke.CONFIG5_CROP, chip_smoke.CONFIG5_CROP)
         scale = chip_smoke.CONFIG5_SCALE
-    frames = torch.from_numpy(frames).cuda()
-    labels = torch.from_numpy(labels).cuda()
+    frames, labels = (torch.as_tensor(a).cuda() for a in (frames, labels))
     state = create_train_state(model, OptimizerConfig(lr=lr, max_steps=1000))
     inner = make_train_step(model, state, loss_fn)
-    # configs 5 and 1 train on crops: their steps always augment
+    # every model but FastSCNN trains on crops: its steps always augment
     augment = args.augment or args.model != "fastscnn"
     if augment:
         cfg = AugmentConfig(crop=crop, scale_range=scale,

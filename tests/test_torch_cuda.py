@@ -152,6 +152,23 @@ def _mbconv_inputs(seed, n, h, w, cin, ce, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,cin,ce,stride", MBCONV_CASES)
 def test_mbconv_kernels_match_plain_version(cuda, n, h, w, cin, ce, stride):
+    _check_mbconv(cuda, n, h, w, cin, ce, stride)
+
+
+# ContextNet's context branch at batch 32 (crop 768): Cin 32 / Ce 32 at
+# stride 1 on 96x96 (column tiles KT = 2), Cin 32 / Ce 192 at stride 2 on
+# 96x96, Cin 48 / Ce 288 at stride 2 on 48x48 (Cin off 32, Ce off 64)
+MBCONV_CONTEXTNET_CASES = [(32, 96, 96, 32, 32, 1), (32, 96, 96, 32, 192, 2),
+                           (32, 48, 48, 48, 288, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,ce,stride", MBCONV_CONTEXTNET_CASES)
+def test_mbconv_kernels_at_contextnet_shapes(cuda, n, h, w, cin, ce, stride):
+    _check_mbconv(cuda, n, h, w, cin, ce, stride)
+
+
+def _check_mbconv(cuda, n, h, w, cin, ce, stride):
     x, wt, b, k = _mbconv_inputs(3, n, h, w, cin, ce, cuda)
     f0, b0 = mbconv.expand_dw_forward.launches, mbconv.expand_dw_backward.launches
     y = mbconv.expand_dw_forward(x, wt, b, k, stride)
@@ -318,6 +335,26 @@ RESIZE_CE_CASES = [(2, 8, 12, 19, 64, 96, False), (1, 5, 7, 3, 40, 56, True),
 @pytest.mark.parametrize("weights", [False, True])
 def test_resize_ce_kernels_match_plain_version(cuda, n, h, w, c, oh, ow, ac,
                                                label_dtype, weights):
+    _check_resize_ce(cuda, n, h, w, c, oh, ow, ac, label_dtype, weights)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 32])
+@pytest.mark.parametrize("label_dtype", ["uint8", "int32"])
+def test_resize_ce_kernels_at_lednet_and_contextnet_shape(cuda, n,
+                                                          label_dtype):
+    """K1 at LEDNet's (n = 8) and ContextNet's (n = 32) training heads,
+    (n,96,96,19) → (n,768,768): the forward the same bits twice, both
+    directions against the plain version."""
+    _check_resize_ce(cuda, n, 96, 96, 19, 768, 768, False, label_dtype, False)
+    logits, labels, cw = _resize_ce_inputs(9, n, 96, 96, 19, 768, 768,
+                                           label_dtype, cuda)
+    first = resize_ce.resize_ce_forward(logits, labels, cw)
+    second = resize_ce.resize_ce_forward(logits, labels, cw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _check_resize_ce(cuda, n, h, w, c, oh, ow, ac, label_dtype, weights):
     rng = np.random.default_rng(5)
     logits = torch.from_numpy((rng.normal(size=(n, h, w, c)) * 2).astype(
         np.float32)).to(cuda).to(torch.bfloat16)
@@ -429,7 +466,9 @@ DEPTHWISE_CASES = [(8, 512, 1024, 32, 2), (8, 256, 512, 48, 2),
                    (8, 128, 256, 128, 1), (2, 9, 13, 3, 2), (1, 7, 11, 20, 2),
                    (2, 9, 13, 20, 1), (2, 6, 10, 384, 2), (1, 5, 9, 384, 1),
                    (1, 6, 7, 1200, 1), (1, 5, 9, 2048, 2), (3, 37, 53, 40, 2),
-                   (4, 301, 517, 40, 2)]
+                   (4, 301, 517, 40, 2),
+                   # ContextNet's detail ds1 and ds2 at batch 32 (crop 768)
+                   (32, 384, 384, 32, 2), (32, 192, 192, 64, 2)]
 
 
 def _depthwise_inputs(seed, n, h, w, c, stride, device):

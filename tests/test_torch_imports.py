@@ -35,7 +35,9 @@ def test_scan_covers_the_package():
             "eval.py", "ops/upsample_concat.py", "ops/pool.py",
             "models/unet.py", "models/resnet.py", "models/deeplab.py",
             "ops/blocks.py", "models/enet.py", "models/bisenet.py",
-            "models/icnet.py", "data/class_weights.py"} <= names
+            "models/icnet.py", "data/class_weights.py", "models/erfnet.py",
+            "models/esnet.py", "models/lednet.py",
+            "models/contextnet.py"} <= names
 
 
 def test_banned_rule():

@@ -99,13 +99,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         make_predict_fn(t, output="masks", device="cpu")
 
 
+def test_model_registry_matches_the_jax_package():
+    from torch_semantic_segmentation_tpu.models import (
+        available_models as jax_available_models)
+    assert available_models() == jax_available_models()
+    assert len(available_models()) == 13
+
+
 def test_model_registry():
     assert available_models() == sorted([
         "fastscnn", "unet", "deeplabv3_resnet18", "deeplabv3_resnet34",
         "deeplabv3_resnet50", "deeplabv3_resnet101", "enet", "bisenet",
-        "icnet"])
+        "icnet", "contextnet", "lednet", "erfnet", "esnet"])
     with pytest.raises(KeyError, match="fastscnn"):
-        get_model("erfnet")
+        get_model("segformer")
     m = get_model("fastscnn", 5, upsample_logits=False, device="cpu")
     y = m.eval()(torch.zeros(1, 32, 64, 3))
     assert y.shape == (1, 4, 8, 5)

@@ -1,5 +1,8 @@
 """Helpers for the tests that hold the PyTorch port against the JAX package."""
 
+import contextlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 from flax import nnx
@@ -56,17 +59,52 @@ def carry_weights(jmodule, tmodule, seed: int = 0):
     return tmodule.eval()
 
 
-def sgd_steps_match_jax(jmodel, tmodel, jloss, tloss, batches,
-                        lr: float = 0.002, remat: bool = False):
-    """The JAX weights carried into `tmodel`, then one SGD step of each
-    package a batch: every loss at rtol 1e-4, and after the last step every
-    parameter and BN statistic at rtol = atol = 1e-4 (the bar of
-    tests/test_torch_train.py)."""
+@contextlib.contextmanager
+def jax_x64():
+    """float64 in the JAX package within the block, restored after it."""
+    before = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", before)
+
+
+def jax_model_at(jmodel, dtype):
+    """A copy of the JAX model `jmodel`, its own arrays (a train step
+    donates them), with every float leaf of its state cast to `dtype`: the
+    same draw, computed at `dtype` (flax's layers promote their inputs to
+    their parameters' dtype and read `param_dtype` only when they
+    initialise). A float64 copy needs `jax_enable_x64`."""
+    graph, state = nnx.split(jmodel)
+    return nnx.merge(graph, jax.tree.map(
+        lambda v: jnp.array(v, dtype) if jnp.issubdtype(v.dtype, jnp.floating)
+        else jnp.array(v), state))
+
+
+def worst_ratio(got, want, tol: float = 1e-4) -> float:
+    """The largest |got − want| / (tol + tol·|want|) over every parameter
+    and BN statistic of two state dicts: above 1, rtol = atol = `tol`
+    fails."""
+    return max(float((np.abs(np.asarray(got[k], np.float64)
+                             - np.asarray(w, np.float64))
+                      / (tol + tol * np.abs(np.asarray(w, np.float64)))
+                      ).max())
+               for k, w in want.items() if not k.endswith("tracked"))
+
+
+def sgd_steps(jmodel, tmodel, jloss, tloss, batches, lr: float = 0.002,
+              remat: bool = False) -> dict:
+    """The JAX weights carried into `tmodel` (float32), then one SGD step of
+    each package a batch, the JAX model at its own dtype (float32, or
+    float64 by `jax_model_at`): {"start": the state
+    both start from, "losses": [(port, JAX) a step], "port", "jax": the
+    state dicts after the last step, as numpy float64}."""
     from torch_semantic_segmentation_tpu import train as jtrain
     from torch_semantic_segmentation_tpu_torch import train as ttrain
 
-    tmodel.load_state_dict(
-        state_dict_from_jax(export_torch_state_dict(jmodel)), strict=True)
+    start = state_dict_from_jax(export_torch_state_dict(jmodel))
+    tmodel.load_state_dict(start, strict=True)
     tx = jtrain.OptimizerConfig(lr=lr, max_steps=4).make()
     gd, _, jstate = jtrain.create_train_state(jmodel, tx)
     jstep = jtrain.make_train_step(gd, tx, jloss, remat=remat)
@@ -74,19 +112,57 @@ def sgd_steps_match_jax(jmodel, tmodel, jloss, tloss, batches,
         lr=lr, max_steps=4))
     tstep = ttrain.make_train_step(tmodel, tstate, tloss, remat=remat,
                                    device="cpu")
-    for i, (x, y) in enumerate(batches, start=1):
-        jstate, jm = jstep(jstate, jnp.asarray(x), jnp.asarray(y))
-        tm = tstep(x, y)
-        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
-                                   rtol=1e-4, err_msg=f"loss at step {i}")
+    dtype = next(v.dtype for v in jax.tree.leaves(nnx.state(jmodel, nnx.Param))
+                 if jnp.issubdtype(v.dtype, jnp.floating))
+    losses = []
+    for x, y in batches:
+        jstate, jm = jstep(jstate, jnp.asarray(x, dtype), jnp.asarray(y))
+        losses.append((float(tstep(x, y)["loss"]), float(jm["loss"])))
     want = state_dict_from_jax(export_torch_state_dict(
         nnx.merge(gd, jstate.params, jstate.rest)))
     got = tmodel.state_dict()
     assert set(got) == set(want)
-    for k, w in want.items():
+
+    def f64(sd):
+        return {k: v.double().numpy() for k, v in sd.items()}
+    return {"start": f64(start), "losses": losses, "port": f64(got),
+            "jax": f64(want),
+            "parameters": {k for k, _ in tmodel.named_parameters()}}
+
+
+def movement_gaps(run: dict) -> dict:
+    """How far the port's steps moved the model from where the JAX
+    package's moved it, as the relative L2 norm ‖Δport − ΔJAX‖ / ‖ΔJAX‖
+    of the change from the start over every parameter, and apart over
+    every BN statistic: a step that drops the gradient reads 1."""
+    def gap(keys):
+        d = sum(float(np.sum((run["port"][k] - run["jax"][k]) ** 2))
+                for k in keys)
+        m = sum(float(np.sum((run["jax"][k] - run["start"][k]) ** 2))
+                for k in keys)
+        return (d / m) ** 0.5
+
+    stats = {k for k in run["jax"] if k.endswith(("running_mean",
+                                                  "running_var"))}
+    return {"parameters": gap(run["parameters"]), "BN statistics": gap(stats)}
+
+
+def sgd_steps_match_jax(jmodel, tmodel, jloss, tloss, batches,
+                        lr: float = 0.002, remat: bool = False,
+                        state_tol: float = 1e-4) -> dict:
+    """`sgd_steps`, asserted: every loss at rtol 1e-4, and after the last
+    step every parameter and BN statistic at rtol = atol = `state_tol`
+    (1e-4, the bar of tests/test_torch_train.py, unless a test states a
+    measured one). Returns `sgd_steps`' record."""
+    run = sgd_steps(jmodel, tmodel, jloss, tloss, batches, lr, remat)
+    for i, (got, want) in enumerate(run["losses"], start=1):
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   err_msg=f"loss at step {i}")
+    for k, w in run["jax"].items():
         if not k.endswith("num_batches_tracked"):
-            np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=1e-4,
-                                       atol=1e-4, err_msg=k)
+            np.testing.assert_allclose(run["port"][k], w, rtol=state_tol,
+                                       atol=state_tol, err_msg=k)
+    return run
 
 
 def remat_step_is_bit_exact(make_model, loss_fn, x, y):

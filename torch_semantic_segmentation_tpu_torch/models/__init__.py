@@ -1,9 +1,14 @@
-"""Model zoo of the PyTorch port: FastSCNN, UNet, DeepLabV3, ENet, BiSeNet
-and ICNet so far."""
+"""Model zoo of the PyTorch port: the JAX package's 13 names (FastSCNN,
+UNet, DeepLabV3 on four ResNets, ENet, BiSeNet, ICNet, ContextNet, LEDNet,
+ERFNet and ESNet)."""
 
 from torch_semantic_segmentation_tpu_torch.models.bisenet import (
     BiSeNet,
     bisenet,
+)
+from torch_semantic_segmentation_tpu_torch.models.contextnet import (
+    ContextNet,
+    contextnet,
 )
 from torch_semantic_segmentation_tpu_torch.models.deeplab import (
     DeepLabV3,
@@ -13,11 +18,14 @@ from torch_semantic_segmentation_tpu_torch.models.deeplab import (
     deeplabv3_resnet101,
 )
 from torch_semantic_segmentation_tpu_torch.models.enet import ENet, enet
+from torch_semantic_segmentation_tpu_torch.models.erfnet import ERFNet, erfnet
+from torch_semantic_segmentation_tpu_torch.models.esnet import ESNet, esnet
 from torch_semantic_segmentation_tpu_torch.models.fastscnn import (
     FastSCNN,
     fastscnn,
 )
 from torch_semantic_segmentation_tpu_torch.models.icnet import ICNet, icnet
+from torch_semantic_segmentation_tpu_torch.models.lednet import LEDNet, lednet
 from torch_semantic_segmentation_tpu_torch.models.unet import UNet, unet
 
 _REGISTRY = {"fastscnn": fastscnn, "unet": unet,
@@ -25,7 +33,9 @@ _REGISTRY = {"fastscnn": fastscnn, "unet": unet,
              "deeplabv3_resnet34": deeplabv3_resnet34,
              "deeplabv3_resnet50": deeplabv3_resnet50,
              "deeplabv3_resnet101": deeplabv3_resnet101,
-             "enet": enet, "bisenet": bisenet, "icnet": icnet}
+             "enet": enet, "bisenet": bisenet, "icnet": icnet,
+             "contextnet": contextnet, "lednet": lednet, "erfnet": erfnet,
+             "esnet": esnet}
 
 
 def get_model(name: str, num_classes: int = 19, **kwargs):
@@ -40,7 +50,9 @@ def available_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
-__all__ = ["BiSeNet", "DeepLabV3", "ENet", "FastSCNN", "ICNet", "UNet",
-           "available_models", "bisenet", "deeplabv3_resnet18",
+__all__ = ["BiSeNet", "ContextNet", "DeepLabV3", "ENet", "ERFNet", "ESNet",
+           "FastSCNN", "ICNet", "LEDNet", "UNet", "available_models",
+           "bisenet", "contextnet", "deeplabv3_resnet18",
            "deeplabv3_resnet34", "deeplabv3_resnet50", "deeplabv3_resnet101",
-           "enet", "fastscnn", "get_model", "icnet", "unet"]
+           "enet", "erfnet", "esnet", "fastscnn", "get_model", "icnet",
+           "lednet", "unet"]
