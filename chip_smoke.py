@@ -65,9 +65,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    a request); one step and its launches held against the plain versions
    as in phase 8; one eval batch of 8 (ContextNet: 3 K6 launches); for
    ContextNet 4 steps with K2 unrouted as a yardstick;
-12. print the kernels line, the nvidia-smi line and the final JSON line.
+12. FastSCNN's phase-6 step fed by the port's input path: the loader
+   alone (1 + 6 batches of 8 by 4 threads of `batch_iterator` over
+   `ShapesDataset` at 1024x2048, with a LUT; the card's machine has no
+   libjpeg or libpng headers, so the native loader and the file datasets
+   are held on the CPU only), every prefetched device batch against its
+   host batch by checksum, then 1 + 8 steps through
+   `train_input_pipeline` (pinned prefetch on a side stream,
+   `augment_batch` at crop 1024x2048; launches 1 + 1 K1, 9 + 9 K2, 2 + 2
+   K6 a step; the loss falls), an asynchronous checkpoint after 4 steps
+   while the rest run, held bit for bit against a synchronous copy, and a
+   resume into fresh objects whose loader batch and augmentation draw
+   equal the uninterrupted run's;
+13. print the kernels line, the nvidia-smi line and the final JSON line.
    K3's rows count the launches of phases 8 and 9, K1's, K2's, K5's and
-   K6's those of phases 4-6 and 11, and each row gives each path's
+   K6's those of phases 4-6, 11 and 12, and each row gives each path's
    launches and times under "paths".
 
 It imports nothing of JAX, and exits non-zero without a CUDA card or
@@ -79,6 +91,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1229,12 +1242,13 @@ def k6_unrouted():
 
 def per_step(steps: int, model: str = "fastscnn") -> dict:
     """The launch counts of every kernel in `steps` training steps of
-    `model`: FastSCNN launches K1, K2 and K6; UNet's bilinear decoder K4,
+    `model`: FastSCNN launches K1, K2 and K6 (from resident frames or from
+    the loader, "fastscnn_pipeline"); UNet's bilinear decoder K4,
     4 a forward; DeepLab with OHEM K3, 1 + 1; BiSeNet and ICNet with OHEM
     on their three heads K3, 3 + 3; LEDNet K1, 1 + 1; ContextNet K1 1 + 1,
     K2 12 + 12 and K6 2 + 2; ENet, ERFNet and ESNet nothing."""
     counts = {key: 0 for key, _, _, _ in TRAIN_WRAPPERS}
-    if model == "fastscnn":
+    if model in ("fastscnn", "fastscnn_pipeline"):
         counts.update({"resize_ce_fwd": steps, "resize_ce_bwd": steps,
                        "mbconv_fwd": K2_PER_STEP * steps,
                        "mbconv_bwd": K2_PER_STEP * steps,
@@ -2378,6 +2392,249 @@ def stretch_phase(name: str) -> dict:
     return out
 
 
+# phase 12, training from the host loader: the card's machine has no
+# libjpeg or libpng headers (PERF.md §7), so the native loader cannot be
+# built there and the phase reads `ShapesDataset` (numpy, no codec) by
+# `batch_iterator`'s threads: 24 samples of 1024x2048, 3 batches an epoch,
+# so 1 + 8 steps cross two epoch reshuffles
+PIPELINE_SAMPLES, PIPELINE_SEED, LOADER_THREADS = 24, 12, 4
+LOADER_TIMED_BATCHES = 6
+CKPT_STEP = 4
+# ShapesDataset's classes as train ids: background road, rectangle car,
+# disk person, stripe ignored (the LUT and the ignore label on the path)
+SHAPES_LUT = np.full((256,), 255, np.uint8)
+SHAPES_LUT[:4] = (0, 13, 11, 255)
+
+
+def batch_checksums(t) -> list:
+    """A position-weighted checksum of each sample of a uint8 batch, the
+    same on the card and the host: the sample's bytes as int32 words, each
+    times (its index mod 251) + 1, summed in int64."""
+    import torch
+    words = t.reshape(t.shape[0], -1).view(torch.int32).to(torch.int64)
+    w = torch.arange(words.shape[1], device=t.device) % 251 + 1
+    return [int(v) for v in (words * w).sum(1)]
+
+
+def same_tree(a, b, where: str = "") -> list:
+    """The paths at which two checkpoint trees differ (tensors bit for
+    bit, on the host)."""
+    import torch
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()))
+        return [] if same else [where]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{where}: keys {sorted(set(a) ^ set(b))}"]
+        return [d for k in a for d in same_tree(a[k], b[k], f"{where}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{where}: lengths {len(a)} and {len(b)}"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in same_tree(x, y, f"{where}/{i}")]
+    return [] if a == b else [where]
+
+
+def pipeline_phase(resident_ms: list) -> dict:
+    """FastSCNN's full-width step fed by the port's input path: host
+    threads (`batch_iterator` over `ShapesDataset`, the LUT), pinned
+    prefetch on a side stream, `augment_batch` at crop 1024x2048, the
+    phase-6 step (bf16, SGD lr 0.045), through `train_input_pipeline`; an
+    asynchronous checkpoint after 4 steps while the rest run, and a resume
+    into fresh objects. `resident_ms`: phase 6's steps on resident frames,
+    the yardstick of the e2e rate."""
+    import os
+    import tempfile
+
+    import torch
+    from torch_semantic_segmentation_tpu_torch.checkpoint import (
+        CheckpointManager, snapshot)
+    from torch_semantic_segmentation_tpu_torch.data.pipeline import (
+        batch_iterator, epoch_order, prefetch_to_device, train_input_pipeline)
+    from torch_semantic_segmentation_tpu_torch.data.synthetic import (
+        ShapesDataset)
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig, augment_batch)
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        resize_cross_entropy_loss)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+
+    t_phase = time.perf_counter()
+    ds = ShapesDataset(PIPELINE_SAMPLES, SERVE_H, SERVE_W, seed=PIPELINE_SEED)
+    loader_kw = dict(seed=PIPELINE_SEED, num_threads=LOADER_THREADS)
+    steps = 1 + TRAIN_STEPS
+
+    # the loader alone, 1 + 6 batches as bench.py's e2e tier times its
+    # loader; then on to the 9 batches the steps take (the host reference)
+    t0 = time.perf_counter()
+    host_it = batch_iterator(ds, SERVE_BATCH, label_lut=SHAPES_LUT,
+                             **loader_kw)
+    host = [next(host_it)]
+    t1 = time.perf_counter()
+    host += [next(host_it) for _ in range(LOADER_TIMED_BATCHES)]
+    t2 = time.perf_counter()
+    host += [next(host_it) for _ in range(steps - len(host))]
+    loader_rate = SERVE_BATCH * LOADER_TIMED_BATCHES / (t2 - t1)
+    cold_rate = SERVE_BATCH * (1 + LOADER_TIMED_BATCHES) / (t2 - t0)
+    print(f"loader alone ({LOADER_THREADS} threads of batch_iterator over "
+          f"ShapesDataset {SERVE_BATCH}x{SERVE_H}x{SERVE_W}, os.cpu_count() "
+          f"{os.cpu_count()}): {loader_rate:.2f} images/s after the first "
+          f"batch, {cold_rate:.2f} from the start", flush=True)
+    order = epoch_order(PIPELINE_SAMPLES, 0, seed=PIPELINE_SEED)
+    raw = [ds[int(i)] for i in order[:SERVE_BATCH]]
+    if not (np.array_equal(host[0][0], np.stack([r[0] for r in raw]))
+            and np.array_equal(host[0][1],
+                               SHAPES_LUT[np.stack([r[1] for r in raw])])):
+        fail("batch 0 of the loader is not the samples of epoch_order with "
+             "the LUT applied")
+    want_sums = [(batch_checksums(torch.from_numpy(i)),
+                  batch_checksums(torch.from_numpy(lab))) for i, lab in host]
+
+    # every device batch of the pinned prefetch against its host batch,
+    # the consumer's stream lagging (outside the timed steps)
+    checked = 0
+    for k, (images, labels) in enumerate(prefetch_to_device(batch_iterator(
+            ds, SERVE_BATCH, label_lut=SHAPES_LUT, **loader_kw), size=2)):
+        if k == steps:
+            break
+        torch.cuda._sleep(50_000_000)
+        if (batch_checksums(images), batch_checksums(labels)) != want_sums[k]:
+            fail(f"prefetched batch {k} differs from its host batch")
+        checked += 1
+    copy_src = torch.from_numpy(host[0][0]).pin_memory()
+    copy_dst = torch.empty_like(copy_src, device="cuda")
+    copy_ms = cuda_ms(lambda: copy_dst.copy_(copy_src, non_blocking=True),
+                      iters=10, warmup=2, reps=3)
+    print(f"prefetch: {checked} device batches equal their host batches "
+          f"(checksums); a batch's images from pinned memory "
+          f"{copy_ms:.3f} ms ({copy_src.numel() / copy_ms / 1e6:.2f} GB/s)",
+          flush=True)
+
+    model = get_model("fastscnn", NUM_CLASSES, upsample_logits=False,
+                      compute_dtype=torch.bfloat16, seed=0, device="cuda")
+    opt = OptimizerConfig(lr=0.045, max_steps=1000)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, state, resize_cross_entropy_loss)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gens = (gen, model.dropout_generator)
+    cfg = AugmentConfig(crop=(SERVE_H, SERVE_W), out_dtype=torch.bfloat16)
+    pipe = train_input_pipeline(ds, SERVE_BATCH, cfg, generator=gen,
+                                label_lut=SHAPES_LUT, device=None, prefetch=2,
+                                **loader_kw)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    mgr = CheckpointManager(ckpt_dir, max_to_keep=2,
+                            save_interval_steps=CKPT_STEP)
+    step(*next(pipe))                          # warm-up, batch 0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    lat, events, losses = [], [], []
+    for k in range(1, steps):
+        if k == CKPT_STEP:    # k batches consumed; saved outside the steps
+            torch.cuda.synchronize()
+            sync_copy = snapshot(k, model, state, generators=gens)
+            ts = time.perf_counter()
+            if not mgr.save(k, model, state, generators=gens):
+                fail(f"the checkpoint manager skipped step {k}")
+            save_ms = 1e3 * (time.perf_counter() - ts)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        images, labels = next(pipe)
+        if k == CKPT_STEP:
+            kept = (images, labels)            # the uninterrupted draw
+        start.record()
+        m = step(images, labels)
+        end.record()
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t0))
+        events.append((start, end))
+        losses.append(float(m["loss"]))
+    launches = launch_counts()
+    t_wait = time.perf_counter()
+    mgr.wait()
+    wait_ms = 1e3 * (time.perf_counter() - t_wait)
+    dev_ms = [a.elapsed_time(b) for a, b in events]
+    e2e_rate = 1e3 * SERVE_BATCH * TRAIN_STEPS / sum(lat)
+    resident_rate = 1e3 * SERVE_BATCH / float(np.median(resident_ms))
+    print(f"train bf16 from the loader {SERVE_BATCH}x{SERVE_H}x{SERVE_W} "
+          f"(e2e): losses {[round(v, 4) for v in losses]}; step latency_ms "
+          f"(next batch + step, host clock) {[round(t, 3) for t in lat]}, "
+          f"median {np.median(lat):.3f}; CUDA events of the step "
+          f"{np.median(dev_ms):.3f} ms; e2e images/s {e2e_rate:.2f} against "
+          f"phase 6's resident frames {resident_rate:.2f} (median "
+          f"{np.median(resident_ms):.3f} ms) and the loader alone "
+          f"{loader_rate:.2f}; launches {launches}", flush=True)
+    pace = ("the loader" if loader_rate < min(resident_rate,
+                                              1e3 * SERVE_BATCH / copy_ms)
+            else "the copy" if 1e3 * SERVE_BATCH / copy_ms < resident_rate
+            else "the step")
+    print(f"pace: {pace} (loader {loader_rate:.2f} images/s, copy "
+          f"{1e3 * SERVE_BATCH / copy_ms:.2f}, resident step "
+          f"{resident_rate:.2f})", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss from the loader: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        fail(f"the training loss from the loader did not fall: {losses}")
+    if launches != per_step(TRAIN_STEPS):
+        fail(f"kernel launches in {TRAIN_STEPS} steps from the loader: "
+             f"{launches}, expected {per_step(TRAIN_STEPS)}")
+
+    # the checkpoint: what the thread wrote against the synchronous copy
+    saved = mgr.load(CKPT_STEP)
+    diff = same_tree(saved, sync_copy)
+    if diff:
+        fail(f"the asynchronous checkpoint differs from the synchronous "
+             f"copy at step {CKPT_STEP}: {diff[:5]}")
+    fresh = get_model("fastscnn", NUM_CLASSES, upsample_logits=False,
+                      compute_dtype=torch.bfloat16, seed=1, device="cuda")
+    fresh_state = create_train_state(fresh, opt)
+    fresh_gen = torch.Generator(device="cuda").manual_seed(1)
+    fresh_gens = (fresh_gen, fresh.dropout_generator)
+    if mgr.restore_latest(fresh, fresh_state,
+                          generators=fresh_gens) != CKPT_STEP:
+        fail("restore_latest did not find the checkpoint")
+    diff = same_tree(snapshot(CKPT_STEP, fresh, fresh_state,
+                              generators=fresh_gens), sync_copy)
+    if diff:
+        fail(f"the restored model, optimizer, schedule or generators differ "
+             f"from step {CKPT_STEP}'s: {diff[:5]}")
+    resumed = next(batch_iterator(ds, SERVE_BATCH, label_lut=SHAPES_LUT,
+                                  start_batch=CKPT_STEP, **loader_kw))
+    if not all(np.array_equal(a, b) for a, b in zip(resumed,
+                                                     host[CKPT_STEP])):
+        fail(f"the loader resumed at start_batch={CKPT_STEP} gives another "
+             f"batch than the uninterrupted stream's")
+    draw = augment_batch(torch.from_numpy(resumed[0]).cuda(),
+                         torch.from_numpy(resumed[1]).cuda(), fresh_gen, cfg)
+    if not all(torch.equal(a, b) for a, b in zip(draw, kept)):
+        fail("the augmentation draw after the resume differs from the "
+             "uninterrupted run's")
+    fresh_step = make_train_step(fresh, fresh_state,
+                                 resize_cross_entropy_loss)
+    resumed_loss = float(fresh_step(*draw)["loss"])
+    if not np.isfinite(resumed_loss):
+        fail(f"the resumed step's loss is {resumed_loss}")
+    mgr.close()
+    shutil.rmtree(ckpt_dir)
+    phase_s = time.perf_counter() - t_phase
+    print(f"checkpoint: saved at step {CKPT_STEP} while {TRAIN_STEPS - CKPT_STEP + 1} "
+          f"steps ran (save blocked {save_ms:.3f} ms, the write's wait after "
+          f"the steps {wait_ms:.3f} ms); equal bit for bit to the "
+          f"synchronous copy; restored into a fresh model, optimizer, "
+          f"schedule and generators; the loader at start_batch={CKPT_STEP} "
+          f"and the next augment_batch draw equal the uninterrupted run's; "
+          f"the resumed step's loss {resumed_loss:.4f} (uninterrupted "
+          f"{losses[CKPT_STEP - 1]:.4f}); phase {phase_s:.1f} s", flush=True)
+    del model, fresh, kept, draw
+    torch.cuda.empty_cache()
+    return dict(launches=launches, latency_ms=lat, device_ms=dev_ms,
+                losses=losses, loader_rate=loader_rate, e2e_rate=e2e_rate,
+                copy_ms=copy_ms, phase_s=phase_s)
+
+
 def main() -> int:
     try:
         import torch
@@ -2428,6 +2685,7 @@ def main() -> int:
                for name, depth in CONFIG5_MODELS}
     enet_phase()
     stretch = {name: stretch_phase(name) for name in STRETCH_MODELS}
+    fed = pipeline_phase(main_path["latency_ms"])
 
     def row(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",
@@ -2441,7 +2699,7 @@ def main() -> int:
     # K1's, K2's and K6's paths: FastSCNN's main path and the stretch
     # models'; the rows' times at FastSCNN's shapes, each path's under
     # "paths"
-    train_paths = {"fastscnn": main_path, **{
+    train_paths = {"fastscnn": main_path, "fastscnn_pipeline": fed, **{
         name: stretch[name]["train"] for name in STRETCH_MODELS}}
 
     def path_row(kname, source, replaces, d, checks):
@@ -2478,8 +2736,15 @@ def main() -> int:
             ("fastscnn", served["launches"], K5_PER_REQUEST, k5),
             ("contextnet", stretch["contextnet"]["serve"]["sepconv_launches"],
              CONTEXTNET_K5_PER_REQUEST, k5_ctx))]
+    # phase 12 runs FastSCNN's step at the shapes of phase 6: its rows'
+    # times are FastSCNN's
     k1_paths = {p: k1[p] for p in ("fastscnn", "lednet", "contextnet")}
+    k1_paths["fastscnn_pipeline"] = k1["fastscnn"]
     k26_paths = ("fastscnn", "contextnet")
+
+    def k26(checks):
+        return {**{p: checks[p] for p in k26_paths},
+                "fastscnn_pipeline": checks["fastscnn"]}
     # K3's paths: DeepLab's one head and config 5's three; the row's times
     # at DeepLab's x16, each path's own under "paths"
     k3_train = {"deeplab": deeplab["train"], **{
@@ -2505,13 +2770,13 @@ def main() -> int:
         path_row("resize_ce_bwd", "resize_ce.cu", "pallas_resize_ce.py:381",
                  "bwd", k1_paths),
         path_row("mbconv_fwd", "mbconv.cu", "pallas_mbconv.py:337", "fwd",
-                 {p: k2[p] for p in k26_paths}),
+                 k26(k2)),
         path_row("mbconv_bwd", "mbconv.cu", "pallas_mbconv.py:394", "bwd",
-                 {p: k2[p] for p in k26_paths}),
+                 k26(k2)),
         path_row("depthwise_fwd", "depthwise.cu", "pallas_dw.py:405", "fwd",
-                 {p: k6[p] for p in k26_paths}),
+                 k26(k6)),
         path_row("depthwise_bwd", "depthwise.cu", "pallas_dw.py:452", "bwd",
-                 {p: k6[p] for p in k26_paths}),
+                 k26(k6)),
         row("upsample_concat", "upsample_concat.cu", "pallas_upsample.py:109",
             unet["train"]["launches"]["upsample_concat"], k4),
         k3_row("resize_ce_map_fwd", "pallas_resize_ce.py:446", "fwd"),

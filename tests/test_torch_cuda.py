@@ -1,6 +1,7 @@
 """PyTorch port, kernels on the card: each Hopper kernel, forward and
 backward where it has one, against its plain PyTorch version, the
-wrappers' checks and their launch counters. These tests need a CUDA card
+wrappers' checks and their launch counters; and the input pipeline's
+`prefetch_to_device` (pinned ring, side stream). These tests need a CUDA card
 and skip without one. This file imports neither JAX nor the JAX package,
 so it also runs where JAX is not installed:
 
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_semantic_segmentation_tpu_torch.data import pipeline
 from torch_semantic_segmentation_tpu_torch.ops import (
     depthwise, mbconv, resize_ce, sepconv, upsample_concat)
 
@@ -670,3 +672,61 @@ def test_upsample_concat_autograd_and_wrapper_checks(cuda):
             ).transpose(1, 2), skip)
     with pytest.raises(ValueError, match="must be on"):
         upsample_concat.upsample_concat_forward(low, skip.cpu())
+
+
+def _host_batches(count, seed=0):
+    """`count` distinct host batches of about 4 MiB of images (a strided
+    view) and 1 MiB of labels, as numpy uint8."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, (4, 512, 683, 3), np.uint8)[:, :, :682],
+             rng.integers(0, 256, (4, 512, 512), np.uint8))
+            for _ in range(count)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_prefetch_to_device_with_a_slow_consumer(cuda, monkeypatch, size):
+    """The consumer's stream lags (a spin on the card) and the host waits
+    between batches: every device batch equals its host batch, lives on
+    the card, and was copied from one of `size + 1` pinned buffers."""
+    import time
+
+    host = _host_batches(7, seed=size)
+    sources = []
+    real = pipeline._PinnedSlot.buffers
+
+    def buffers(slot, shapes, dtypes):
+        out = real(slot, shapes, dtypes)
+        sources.append(out)
+        return out
+
+    monkeypatch.setattr(pipeline._PinnedSlot, "buffers", buffers)
+    got = 0
+    for (images, labels), (hi, hl) in zip(
+            pipeline.prefetch_to_device(iter(host), size=size), host,
+            strict=True):
+        assert images.is_cuda and labels.is_cuda
+        torch.cuda._sleep(20_000_000)          # the consumer's stream lags
+        time.sleep(0.005)
+        assert torch.equal(images.cpu(), torch.from_numpy(hi))
+        assert torch.equal(labels.cpu(), torch.from_numpy(hl))
+        got += 1
+    assert got == len(host) == len(sources)
+    assert all(t.is_pinned() for pair in sources for t in pair)
+    assert len({pair[0].data_ptr() for pair in sources}) == size + 1
+
+
+@pytest.mark.cuda
+def test_prefetch_keeps_up_with_a_fast_consumer(cuda):
+    """No wait on the consumer's side: the copies of later batches run on
+    the side stream while earlier ones are read; each batch still equals
+    its host batch, and a single array passes as a 1-tuple."""
+    host = _host_batches(6, seed=9)
+    out = [torch.stack([i.sum(dtype=torch.int64), l.sum(dtype=torch.int64)])
+           for i, l in pipeline.prefetch_to_device(iter(host), size=2)]
+    want = [(int(hi.sum(dtype=np.int64)), int(hl.sum(dtype=np.int64)))
+            for hi, hl in host]
+    assert [tuple(int(v) for v in t.cpu()) for t in out] == want
+    (only,) = pipeline.prefetch_to_device(iter([host[0][1]]))
+    assert only[0].is_cuda and torch.equal(only[0].cpu(),
+                                           torch.from_numpy(host[0][1]))

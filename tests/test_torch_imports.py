@@ -1,6 +1,7 @@
 """The PyTorch port, chip_smoke.py and the port's scripts import neither JAX
 (nor flax, optax, orbax) nor the JAX package: an AST scan of every import
-statement."""
+statement. The port and chip_smoke.py import neither cv2 nor PIL either:
+the card's machine has neither (the port decodes by its native loader)."""
 
 import ast
 from pathlib import Path
@@ -10,8 +11,10 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "torch_semantic_segmentation_tpu_torch"
 BANNED = ("jax", "flax", "optax", "orbax", "torch_semantic_segmentation_tpu")
+CODECS = ("cv2", "PIL")
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + sorted((ROOT / "scripts").glob("torch_*.py")))
+ON_THE_CARD = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path: Path):
@@ -22,8 +25,8 @@ def _imported_modules(path: Path):
             yield node.module
 
 
-def _banned(module: str) -> bool:
-    return any(module == b or module.startswith(b + ".") for b in BANNED)
+def _banned(module: str, banned=BANNED) -> bool:
+    return any(module == b or module.startswith(b + ".") for b in banned)
 
 
 def test_scan_covers_the_package():
@@ -37,7 +40,10 @@ def test_scan_covers_the_package():
             "ops/blocks.py", "models/enet.py", "models/bisenet.py",
             "models/icnet.py", "data/class_weights.py", "models/erfnet.py",
             "models/esnet.py", "models/lednet.py",
-            "models/contextnet.py"} <= names
+            "models/contextnet.py", "data/synthetic.py", "data/cityscapes.py",
+            "data/camvid.py", "data/bdd.py", "data/mapillary.py",
+            "data/native_loader.py", "data/pipeline.py", "checkpoint.py",
+            "compat/key_maps.py", "models/__init__.py"} <= names
 
 
 def test_banned_rule():
@@ -45,9 +51,18 @@ def test_banned_rule():
     assert _banned("torch_semantic_segmentation_tpu.ops.upsample")
     assert not _banned("torch_semantic_segmentation_tpu_torch.ops")
     assert not _banned("jaxtyping") and not _banned("torch")
+    assert _banned("cv2", CODECS) and _banned("PIL.Image", CODECS)
+    assert not _banned("PILlow", CODECS)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path) if _banned(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", ON_THE_CARD,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_codec_imports(path):
+    bad = [m for m in _imported_modules(path) if _banned(m, CODECS)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

@@ -15,7 +15,12 @@ package:
   against the JAX package's XLA path, value and gradient at 1e-5, with
   the exact top-k and with the bisection, with and without class weights;
 - both threshold functions, the bisection on a map of more than 2^20
-  pixels, equal to the JAX package's bit for bit."""
+  pixels, equal to the JAX package's bit for bit;
+- a fault in the reference, which the port does not copy: a label in
+  [C, ignore_index) kept by OHEM with class weights. The port gives it
+  weight 0 and equals the JAX package's XLA route; the JAX package's
+  Pallas route weighs it with cw[C−1] (`losses/__init__.py:347` clamps
+  the index) and differs by more than 0.1 relative."""
 
 import functools
 
@@ -206,3 +211,39 @@ def test_ohem_threshold_takes_no_gradient_and_routes_bf16_to_k3():
         lt.detach(), torch.from_numpy(np.where(labels == 255, 3, labels)),
         ignore_index=3)
     assert calls == []
+
+
+def test_label_from_c_to_ignore_index_with_class_weights_under_ohem(
+        monkeypatch):
+    """bf16 logits (1,8,16,4) → (1,128,256): rows 0-39 ignored, rows 40-59
+    hold label 5 (in [C, 255)), the rest random classes; class weights
+    [1,2,3,4], thresh 0.7, min_kept 10^9, so every valid pixel is kept and
+    the label-5 pixels (loss 0) count in the weighted mean's denominator:
+    with weight 0 in the port and JAX's XLA route, with cw[C−1] = 4 on
+    JAX's Pallas route. This draw reads port 1.903518, XLA 1.903526,
+    Pallas 1.294459 (0.32 relative off)."""
+    rng = np.random.default_rng(8)
+    logits = (rng.normal(size=(1, 8, 16, 4)) * 2.0).astype(np.float32)
+    labels = rng.integers(0, 4, (1, 128, 256)).astype(np.int32)
+    labels[:, :40] = 255
+    labels[:, 40:60] = 5
+    cw = np.array([1.0, 2.0, 3.0, 4.0], np.float32)
+    kw = dict(thresh=0.7, min_kept=10 ** 9)
+    lj = jnp.asarray(logits, jnp.bfloat16)
+
+    def jax_value():
+        return float(jlosses.resize_ohem_cross_entropy(
+            lj, jnp.asarray(labels), class_weights=jnp.asarray(cw), **kw))
+
+    monkeypatch.setenv("TPU_SEG_PALLAS_CE", "0")
+    xla = jax_value()
+    monkeypatch.setenv("TPU_SEG_PALLAS_CE", "1")
+    assert prce.supports(lj.shape, labels.shape, lj.dtype)
+    monkeypatch.setattr(prce, "per_pixel_resize_ce", functools.partial(
+        prce.per_pixel_resize_ce, interpret=True))
+    pallas = jax_value()
+    port = float(tlosses.resize_ohem_cross_entropy(
+        torch.from_numpy(logits).to(torch.bfloat16), torch.from_numpy(labels),
+        class_weights=torch.from_numpy(cw), **kw))
+    np.testing.assert_allclose(port, xla, rtol=1e-4)
+    assert abs(pallas - xla) > 0.1 * abs(xla), (pallas, xla)

@@ -218,3 +218,79 @@ def aux_ohem_losses(handles_resize: bool, **ohem):
                 outs, lb, loss_fn=jbase, aux_weight=1.0),
             lambda outs, lb: tlosses.aux_weighted_loss(
                 outs, lb, loss_fn=tbase, aux_weight=1.0))
+
+
+# test sizes of the zoo models whose width a constructor argument sets
+ZOO_TEST_KWARGS = {"bisenet": dict(depth=18), "icnet": dict(depth=18),
+                   "unet": dict(base_ch=8)}
+
+
+def jax_zoo_model(name: str, num_classes: int, *, seed: int = 0, **kwargs):
+    """The JAX package's zoo model `name`, built as it is (its modules in
+    their attribute order, which its torch walk follows) but with
+    `jax.random.uniform`, the draw of its conv initialisers, served by
+    numpy for the build: the same laws, without XLA compiling the draw for
+    each shape on the CPU (about 0.7 s a shape)."""
+    from torch_semantic_segmentation_tpu.models import get_model as jget
+
+    rng = np.random.default_rng(seed)
+    real = jax.random.uniform
+
+    def uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        return jnp.asarray(rng.uniform(minval, maxval, shape).astype(dtype))
+
+    jax.random.uniform = uniform
+    try:
+        return jget(name, num_classes, rngs=nnx.Rngs(seed), **kwargs)
+    finally:
+        jax.random.uniform = real
+
+
+def renamed_state_dicts(sd: dict) -> dict:
+    """Three renamings of a state dict that keep its order: every key an
+    opaque token, `nn.Sequential`-style integer paths (each module an index
+    among its parent's children), and DDP's `module.` prefix."""
+    index: dict = {}
+    sequential = {}
+    for key, value in sd.items():
+        *mods, leaf = key.split(".")
+        path = []
+        for d, name in enumerate(mods):
+            children = index.setdefault(tuple(mods[:d]), {})
+            path.append(str(children.setdefault(name, len(children))))
+        sequential[".".join(["features", *path, leaf])] = value
+    return {"opaque": {f"layer_{i:04d}.t": v
+                       for i, v in enumerate(sd.values())},
+            "sequential": sequential,
+            "ddp": {"module." + k: v for k, v in sd.items()}}
+
+
+def auto_map_matches_jax(name: str):
+    """The zoo model `name` at test size in both packages, the JAX weights
+    (random BN statistics, BN counters added) under each of
+    `renamed_state_dicts`' renamings: the port's `auto_key_map` equals the
+    JAX package's, its walk equals the JAX walk, and `load_with_auto_map`
+    loads every tensor into a fresh port model."""
+    import torch
+
+    from torch_semantic_segmentation_tpu.compat import key_maps as jkey_maps
+    from torch_semantic_segmentation_tpu.models import get_model as jget
+    from torch_semantic_segmentation_tpu_torch.compat import key_maps
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+
+    kw = ZOO_TEST_KWARGS.get(name, {})
+    jmodel = jax_zoo_model(name, 5, **kw)
+    randomize_bn(jmodel, np.random.default_rng(1))
+    sd = state_dict_from_jax(export_torch_state_dict(jmodel))
+    tmodel = get_model(name, 5, device="cpu", **kw)
+    assert key_maps._model_param_sequence(tmodel) == (
+        jkey_maps._model_param_sequence(jmodel))
+    for how, renamed in renamed_state_dicts(sd).items():
+        mapping = key_maps.auto_key_map(tmodel, renamed)
+        assert mapping == jkey_maps.auto_key_map(jmodel, renamed), how
+        fresh = get_model(name, 5, seed=1, device="cpu", **kw)
+        assert key_maps.load_with_auto_map(fresh, renamed) == [], how
+        for key, value in fresh.state_dict().items():
+            want = (torch.zeros_like(value) if key.endswith("tracked")
+                    else sd[key])
+            assert torch.equal(value, want), (how, key)

@@ -50,23 +50,34 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Build:
-    """Compile `csrc/<name>.cu` unless the library for this source exists."""
-    out = library_path(name)
-    if out.exists():
-        return Build(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+def compile_library(out: Path, command: tp.Callable[[str], list[str]],
+                    what: str) -> Build:
+    """Run `command(tmp)`, a compiler call that writes a shared library to
+    `tmp`, in `out`'s directory, and move the result to `out`; raise with
+    the compiler's stderr when it fails."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = command(tmp)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     took = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed for {what}:"
+                           f"\n{proc.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent process never loads half a file
     return Build(out, took, proc.stdout + proc.stderr)
+
+
+def build(name: str) -> Build:
+    """Compile `csrc/<name>.cu` unless the library for this source exists."""
+    out = library_path(name)
+    if out.exists():
+        return Build(out, 0.0, "")
+    src = str(CSRC / f"{name}.cu")
+    return compile_library(
+        out, lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], f"{name}.cu")
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,6 +2,8 @@
 UNet, DeepLabV3 on four ResNets, ENet, BiSeNet, ICNet, ContextNet, LEDNet,
 ERFNet and ESNet)."""
 
+import os
+
 from torch_semantic_segmentation_tpu_torch.models.bisenet import (
     BiSeNet,
     bisenet,
@@ -38,12 +40,35 @@ _REGISTRY = {"fastscnn": fastscnn, "unet": unet,
              "esnet": esnet}
 
 
-def get_model(name: str, num_classes: int = 19, **kwargs):
+def get_model(name: str, num_classes: int = 19, *, pretrained=None,
+              **kwargs):
     """Build a zoo model by name; keyword arguments go to its constructor
-    (`device`, `compute_dtype`, `seed`, ...)."""
+    (`device`, `compute_dtype`, `seed`, ...).
+
+    `pretrained` is a torch `.pth`/`.pt` file, or a directory holding
+    `<name>.pth` or `<name>.pt`, loaded strictly after the build. Keys that
+    do not match the canonical attribute paths are recovered by structural
+    alignment (`compat.key_maps`), as in the JAX package."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; available: {sorted(_REGISTRY)}")
-    return _REGISTRY[name](num_classes, **kwargs)
+    model = _REGISTRY[name](num_classes, **kwargs)
+    if pretrained:
+        from torch_semantic_segmentation_tpu_torch.compat.torch_loader import (
+            load_torch_checkpoint)
+        path = pretrained
+        if os.path.isdir(path):
+            path = os.path.join(path, f"{name}.pth")
+            if not os.path.exists(path):
+                path = path[:-4] + ".pt"
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f"no {name}.pth / {name}.pt under '{pretrained}'")
+        try:
+            load_torch_checkpoint(model, path)
+        except (KeyError, ValueError):
+            # naming-scheme mismatch: fall back to structural alignment
+            load_torch_checkpoint(model, path, auto_map=True)
+    return model
 
 
 def available_models() -> list[str]:
