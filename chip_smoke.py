@@ -77,10 +77,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    while the rest run, held bit for bit against a synchronous copy, and a
    resume into fresh objects whose loader batch and augmentation draw
    equal the uninterrupted run's;
-13. print the kernels line, the nvidia-smi line and the final JSON line.
+13. the train, eval and predict CLIs, through their `main(argv)` in this
+   process: one step of the accuracy run's fused route with every K1 and
+   K2 launch held against its plain version (K1 at C = 4, K2 at the GFE's
+   16x16, 8x8 and 4x4 maps; both also in phase 3); the accuracy recipe of
+   `scripts/make_accuracy_artifact.py` (FastSCNN on `ShapesDataset`,
+   batch 8, crop 128, 400 steps, val mIoU every 100) on the default route
+   (K2 9 + 9 a step) and with `--fused-resize-loss` (K1 1 + 1 too), each
+   best val mIoU above the JAX artifact's mark of 70; the eval CLI on the
+   fused run's best checkpoint, single-scale above 70 and multi-scale +
+   flip, no launches; `predict_frames` over 13 frames in two resolution
+   groups, bit for bit against the serving predictor on the same batches
+   (3 K5 launches a batch), its masks through the port's PNG writer read
+   back by zlib; then `--config` runs of BASELINE's configs on synthetic
+   data, 2 steps each at their own batch and crop (the fullres config at
+   b128 of 1024x1024 with remat and the fused loss: K1 1 + 1 and K6 on
+   each routed stride-2 depthwise conv, no K2; then one more step of it
+   with every K1 and K6 launch held against its plain version on its own
+   inputs, the plain version over slices of 16 images), and `unet_camvid`
+   refused;
+14. print the kernels line, the nvidia-smi line and the final JSON line.
    K3's rows count the launches of phases 8 and 9, K1's, K2's, K5's and
-   K6's those of phases 4-6, 11 and 12, and each row gives each path's
-   launches and times under "paths".
+   K6's those of phases 4-6, 11, 12 and (K1, K2) 13's accuracy runs, and
+   each row gives each path's launches and times under "paths".
 
 It imports nothing of JAX, and exits non-zero without a CUDA card or
 without the port package beside it.
@@ -91,6 +110,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -457,6 +477,8 @@ def check_resize_ce() -> dict:
     for i, (key, shape) in enumerate(K1_ZOO_PATHS.items()):
         out[key] = k1_path(compare, shape, 17 + i, f"{key} path")
         torch.cuda.empty_cache()
+    # phase 13's accuracy run: C = 4, the instance for any class count
+    out["cli_fused"] = k1_path(compare, K1_PATH_CLI, 23, "cli path")
     return out
 
 
@@ -580,6 +602,9 @@ def check_mbconv() -> dict:
     out["contextnet"] = k2_path(compare, K2_PATH_CONTEXTNET, 420,
                                 "contextnet's twelve blocks")
     torch.cuda.empty_cache()
+    # phase 13's accuracy run: the GFE's maps at 16x16, 8x8 and 4x4
+    out["cli"] = k2_path(compare, K2_PATH_CLI, 440,
+                         "the accuracy run's nine blocks")
     return out
 
 
@@ -1246,9 +1271,18 @@ def per_step(steps: int, model: str = "fastscnn") -> dict:
     the loader, "fastscnn_pipeline"); UNet's bilinear decoder K4,
     4 a forward; DeepLab with OHEM K3, 1 + 1; BiSeNet and ICNet with OHEM
     on their three heads K3, 3 + 3; LEDNet K1, 1 + 1; ContextNet K1 1 + 1,
-    K2 12 + 12 and K6 2 + 2; ENet, ERFNet and ESNet nothing."""
+    K2 12 + 12 and K6 2 + 2; ENet, ERFNet and ESNet nothing; the train
+    CLI's accuracy run at crop 128 ("cli_default", "cli_fused") K2 9 + 9,
+    and K1 1 + 1 on the fused route."""
     counts = {key: 0 for key, _, _, _ in TRAIN_WRAPPERS}
-    if model in ("fastscnn", "fastscnn_pipeline"):
+    if model == "cli_default":
+        counts.update(mbconv_fwd=K2_PER_STEP * steps,
+                      mbconv_bwd=K2_PER_STEP * steps)
+    elif model == "cli_fused":
+        counts.update(resize_ce_fwd=steps, resize_ce_bwd=steps,
+                      mbconv_fwd=K2_PER_STEP * steps,
+                      mbconv_bwd=K2_PER_STEP * steps)
+    elif model in ("fastscnn", "fastscnn_pipeline"):
         counts.update({"resize_ce_fwd": steps, "resize_ce_bwd": steps,
                        "mbconv_fwd": K2_PER_STEP * steps,
                        "mbconv_bwd": K2_PER_STEP * steps,
@@ -2635,6 +2669,479 @@ def pipeline_phase(resident_ms: list) -> dict:
                 copy_ms=copy_ms, phase_s=phase_s)
 
 
+
+# phase 13, the CLIs on the card, through their `main(argv)` in process.
+# The accuracy recipe of `scripts/make_accuracy_artifact.py:58-63`
+# (FastSCNN on `ShapesDataset`'s 4 classes, 16 train samples at the crop,
+# batch 8, crop 128, scale 0.75-1.25, SGD lr 0.05, 400 steps, val mIoU
+# every 100 over 4 batches) on the default route and with
+# `--fused-resize-loss`; the pass mark is the JAX artifact's, 70 val mIoU
+# (`ACCURACY_r05.json`). The recipe's flags, its pass mark and the reading
+# of the CLI's printed lines live in `scripts/torch_accuracy.py`
+# (`accuracy_harness`); the batch, crop and class count below give the
+# kernels' shapes in phase 3, and phase 13 holds them to the recipe's.
+ACC_BATCH, ACC_CROP, ACC_CLASSES = 8, 128, 4
+ACC_RUNS = (("cli_default", ()), ("cli_fused", ("--fused-resize-loss",)))
+# K1 on the accuracy run's fused route: logits (8,16,16,4) -> labels
+# (8,128,128), the instance for any class count
+K1_PATH_CLI = (ACC_BATCH, ACC_CROP // 8, ACC_CROP // 8, ACC_CLASSES, ACC_CROP,
+               ACC_CROP)
+# K2 on the accuracy run, the nine GFE blocks at crop 128, b8 (the GFE's
+# input is the crop's x1/8): (n, h, w, cin, ce, stride, blocks)
+K2_PATH_CLI = ((8, 16, 16, 64, 384, 2, 1), (8, 8, 8, 64, 384, 1, 2),
+               (8, 8, 8, 64, 384, 2, 1), (8, 4, 4, 96, 576, 1, 3),
+               (8, 4, 4, 128, 768, 1, 2))
+# predict: 11 val frames at 128x128 in batches of 4 (a padded tail of 3)
+# and 2 at 96x160 (a second group), mixed in order
+PREDICT_BATCH = 4
+PREDICT_WIDE_AT = (3, 8)
+# the BASELINE configs through `--config`, on synthetic data at their own
+# batch and crop and full width, 2 steps each; UNet's 360x480 crop is
+# refused by both packages
+CLI_CONFIGS = ("bisenet_cityscapes_aux", "deeplabv3_cityscapes_ohem",
+               "enet_cityscapes_512", "fastscnn_cityscapes_fullres")
+CONFIG_STEPS = 2
+
+
+@functools.cache
+def accuracy_harness():
+    """`scripts/torch_accuracy.py`, loaded by its path beside this file:
+    the accuracy recipe (`recipe`, `STEPS`, `EVERY`, `PASS_MARK`), the
+    train CLI's printed lines read back (`read_curve`) and `run_cli`."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "scripts" / "torch_accuracy.py"
+    spec = importlib.util.spec_from_file_location("torch_accuracy", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if (mod.BATCH, mod.CROP) != (ACC_BATCH, ACC_CROP):
+        fail(f"the accuracy recipe's batch and crop {(mod.BATCH, mod.CROP)} "
+             f"are not phase 3's {(ACC_BATCH, ACC_CROP)}")
+    return mod
+
+
+def all_launch_counts() -> dict:
+    """The training wrappers' launch counts and K5's."""
+    from torch_semantic_segmentation_tpu_torch.ops.sepconv import (
+        fused_separable_conv)
+    return {**launch_counts(), "sepconv": fused_separable_conv.launches}
+
+
+def reset_all_launch_counts():
+    from torch_semantic_segmentation_tpu_torch.ops.sepconv import (
+        fused_separable_conv)
+    reset_launch_counts()
+    fused_separable_conv.launches = 0
+
+
+def fastscnn_remat_k6(batch: int, h: int, w: int) -> int:
+    """FastSCNN's stride-2 depthwise convs that route to K6 in a remat
+    step at batch x h x w: the LDS's ds1 and ds2 (inputs at 1/2 and 1/4)
+    and, K2 being off inside the remat segments, GFE stage1[0]'s and
+    stage2[0]'s (at 1/8 and 1/16), each where its input holds at least
+    `DEPTHWISE_MIN_PX` pixels. Each runs its forward twice a step (the
+    recompute) and its backward once."""
+    from torch_semantic_segmentation_tpu_torch.ops.conv import (
+        DEPTHWISE_MIN_PX)
+    return sum(batch * (h // d) * (w // d) >= DEPTHWISE_MIN_PX
+               for d in (2, 4, 8, 16))
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit gray or RGB PNG of filter-0 rows (what the predict CLI's
+    `write_png` writes) read back by `zlib`, each chunk's CRC checked."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} is not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if zlib.crc32(kind + body) != int.from_bytes(
+                data[pos + 8 + n:pos + 12 + n], "big"):
+            fail(f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype = head[:4]
+    ch = {0: 1, 2: 3}[ctype]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + w * ch)
+    if depth != 8 or rows[:, 0].any():
+        fail(f"{path}: depth {depth}, filters {set(rows[:, 0].tolist())}")
+    return rows[:, 1:].reshape((h, w, ch) if ch == 3 else (h, w))
+
+
+def cli_step_vs_plain() -> dict:
+    """One step of the accuracy run's fused route (FastSCNN, 4 classes,
+    bf16, `augment_batch` of 8 `ShapesDataset` frames at crop 128), before
+    the run: K1 at C = 4 and K2 at the nine small GFE shapes, every launch
+    again on its own inputs against its plain version (`check_recorded`,
+    relative L2 2^-9), 1 + 1 K1 and 9 + 9 K2."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.synthetic import (
+        ShapesDataset)
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig, augment_batch)
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        resize_cross_entropy_loss)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+
+    ds = ShapesDataset(2 * ACC_BATCH, ACC_CROP, ACC_CROP, seed=0)
+    frames = torch.from_numpy(np.stack([ds[i][0] for i in range(ACC_BATCH)]))
+    labels = torch.from_numpy(np.stack([ds[i][1] for i in range(ACC_BATCH)]))
+    images, lab = augment_batch(
+        frames.cuda(), labels.cuda(), torch.Generator(
+            device="cuda").manual_seed(1),
+        AugmentConfig(crop=(ACC_CROP, ACC_CROP), scale_range=(0.75, 1.25),
+                      out_dtype=torch.bfloat16))
+    model = get_model("fastscnn", ACC_CLASSES, upsample_logits=False,
+                      compute_dtype=torch.bfloat16, seed=0, device="cuda")
+    model.train()
+    calls = []
+    with swapped(recording(calls)):
+        loss = resize_cross_entropy_loss(model(images), lab)
+        loss.backward()
+    loss = float(loss.detach())
+    worst = check_recorded(calls)
+    recorded = {}
+    for key, _, _, _ in calls:
+        recorded[key] = recorded.get(key, 0) + 1
+    print(f"cli fused route, one step at {ACC_BATCH}x{ACC_CROP}x{ACC_CROP}, "
+          f"{ACC_CLASSES} classes: loss {loss:.4f}; each launch on "
+          f"its own inputs against its plain version: worst relative L2 "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (tol 2^-9); launches {recorded}", flush=True)
+    want = {"resize_ce_fwd": 1, "resize_ce_bwd": 1,
+            "mbconv_fwd": K2_PER_STEP, "mbconv_bwd": K2_PER_STEP}
+    if recorded != want or not np.isfinite(loss):
+        fail(f"the accuracy run's step launched {recorded}, expected {want}")
+    return dict(recorded_rel_l2=worst, launches=recorded)
+
+
+def accuracy_run(name: str, flags, tmp: str) -> dict:
+    """The accuracy recipe through the train CLI: the best val mIoU above
+    the pass mark, `<dir>/best` written, the launches `per_step(STEPS,
+    name)` (the evals launch nothing: no K2 in eval mode, no K6 under 2^18
+    pixels, no K5 on unfolded BN)."""
+    import os
+
+    import torch
+    from torch_semantic_segmentation_tpu_torch.cli.train import main as train
+
+    acc = accuracy_harness()
+    ckpt = os.path.join(tmp, name)
+    argv = ["--model", "fastscnn", *acc.recipe(ckpt), *flags]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    run, out = acc.run_cli(train, argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    used, peak = all_launch_counts(), torch.cuda.max_memory_allocated()
+    curve, rates = acc.read_curve(out)
+    best = max((v for _, v in curve), default=float("nan"))
+    want = {**per_step(acc.STEPS, name), "sepconv": 0}
+    print(f"{name} accuracy run ({' '.join(flags) or 'default route'}): "
+          f"eval curve {curve}; best val mIoU {best:.2f} (pass mark "
+          f"{acc.PASS_MARK}); the CLI's img/s {rates}; {seconds:.1f} s for "
+          f"{acc.STEPS} steps and {len(curve)} evals; max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB; launches {used}", flush=True)
+    if len(curve) != acc.STEPS // acc.EVERY or not best > acc.PASS_MARK:
+        fail(f"{name}: best val mIoU {best} over {curve}, pass mark "
+             f"{acc.PASS_MARK}")
+    if run.step != acc.STEPS or abs(100 * run.best_miou - best) > 0.005:
+        fail(f"{name}: the CLI returned step {run.step}, best "
+             f"{run.best_miou}, against its printed {best}")
+    if len(os.listdir(os.path.join(ckpt, "best"))) != 1:
+        fail(f"{name}: no best checkpoint in {ckpt}/best")
+    expect_launches(used, want, f"{name} accuracy run")
+    return dict(curve=curve, best=best, img_s=rates, seconds=seconds,
+                launches=used, peak_bytes=peak)
+
+
+def eval_cli_check(best_dir: str) -> dict:
+    """The eval CLI on the fused run's best checkpoint (shapes val at
+    128x256, batch 4, 2 batches): single-scale above the pass mark, and
+    multi-scale + flip (its six default scales); no kernel launches."""
+    from torch_semantic_segmentation_tpu_torch.cli.eval import main as evaluate
+
+    mark = accuracy_harness().PASS_MARK
+    out = {}
+    for mode, extra in (("single", ()), ("multi", ("--multi-scale",))):
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        (iou, miou), _ = accuracy_harness().run_cli(evaluate, [
+            "--model", "fastscnn", "--dataset", "shapes", "--checkpoint",
+            best_dir, "--max-batches", "2", *extra])
+        seconds = time.perf_counter() - t0
+        used = all_launch_counts()
+        print(f"eval CLI {mode}-scale on {best_dir}: mIoU {100 * miou:.2f}, "
+              f"per class {[round(100 * float(v), 2) for v in iou]}; {seconds:.1f} "
+              f"s; launches {used}", flush=True)
+        if not 0.0 <= miou <= 1.0 or (mode == "single"
+                                      and not 100 * miou > mark):
+            fail(f"eval CLI {mode}-scale mIoU {100 * miou:.2f}, pass mark "
+                 f"{mark}")
+        expect_launches(used, {k: 0 for k in used}, f"eval CLI {mode}")
+        out[mode] = dict(miou=miou, seconds=seconds)
+    return out
+
+
+def predict_check(best_dir: str, tmp: str) -> dict:
+    """`predict_frames` on the best checkpoint's model as the predict CLI
+    builds it (float32, BN folded, `make_predict_fn`), over 11 val frames
+    at 128x128 and 2 at 96x160 in batches of 4: the ids equal, bit for bit,
+    the serving predictor's called directly on the same batches; 3 K5
+    launches a batch; the masks written by `write_png` and read back by
+    zlib equal the ids, the colour masks `palette[ids]`."""
+    import os
+
+    import torch
+    from torch_semantic_segmentation_tpu_torch.cli.eval import load_weights
+    from torch_semantic_segmentation_tpu_torch.cli.predict import (
+        auto_palette, predict_frames, write_png)
+    from torch_semantic_segmentation_tpu_torch.data.synthetic import (
+        ShapesDataset)
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        CITYSCAPES_MEAN, CITYSCAPES_STD)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.serving import make_predict_fn
+
+    val = ShapesDataset(11, ACC_CROP, ACC_CROP, seed=10_000)
+    wide = ShapesDataset(len(PREDICT_WIDE_AT), 96, 160, seed=10_001)
+    samples = [val[i] for i in range(len(val))]
+    for j, at in enumerate(PREDICT_WIDE_AT):
+        samples.insert(at, wide[j])
+    frames = [f for f, _ in samples]
+    model = get_model("fastscnn", ACC_CLASSES, seed=0, device="cuda")
+    load_weights(model, best_dir)
+    predict = make_predict_fn(model, mean=CITYSCAPES_MEAN, std=CITYSCAPES_STD,
+                              output="ids")
+    groups: dict = {}
+    for i, f in enumerate(frames):
+        groups.setdefault(f.shape[:2], []).append(i)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        predict(np.stack([frames[0]] * PREDICT_BATCH))      # warm-up
+        torch.cuda.synchronize()
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        ids = predict_frames(predict, frames, PREDICT_BATCH)
+        ms = 1e3 * (time.perf_counter() - t0)
+        used = all_launch_counts()
+        direct = [None] * len(frames)
+        batches = 0
+        for idxs in groups.values():
+            for lo in range(0, len(idxs), PREDICT_BATCH):
+                chunk = idxs[lo:lo + PREDICT_BATCH]
+                pad = [chunk[-1]] * (PREDICT_BATCH - len(chunk))
+                out = predict(np.stack([frames[i] for i in chunk + pad]))
+                batches += 1
+                for j, i in enumerate(chunk):
+                    direct[i] = out[j].cpu().numpy()
+    same = all(a.dtype == np.uint8 and np.array_equal(a, b)
+               for a, b in zip(ids, direct, strict=True))
+    acc = float(np.mean([(a == lab).mean() for a, (_, lab)
+                         in zip(ids, samples)]))
+    palette = auto_palette(ACC_CLASSES)
+    written = 0
+    for i, a in enumerate(ids):
+        for suffix, img in (("ids", a), ("color", palette[a])):
+            path = os.path.join(tmp, f"f{i}_{suffix}.png")
+            write_png(path, img)
+            if not np.array_equal(read_png(path), img):
+                fail(f"{path} does not read back as the array written")
+            written += 1
+    want = {**{k: 0 for k in launch_counts()},
+            "sepconv": K5_PER_REQUEST * batches}
+    print(f"predict_frames: {len(frames)} frames ({len(groups)} groups, "
+          f"{batches} batches of {PREDICT_BATCH}) in {ms:.1f} ms; ids equal "
+          f"the direct predictor's bit for bit: {same}; pixel accuracy "
+          f"against the labels {acc:.4f}; {written} PNGs read back equal; "
+          f"launches {used}", flush=True)
+    if not same:
+        fail("predict_frames' ids differ from the serving predictor's")
+    expect_launches(used, want, "predict_frames")
+    return dict(ms=ms, pixel_accuracy=acc, launches=used)
+
+
+# the arguments of a launch that hold the batch, and the images in each
+# slice of it, where `config_step_vs_plain` runs a plain version over
+# slices of the batch
+BATCH_ARGS = {"resize_ce_fwd": (0, 1), "resize_ce_bwd": (0, 1, 3),
+              "depthwise_fwd": (0,), "depthwise_bwd": (0, 2)}
+PLAIN_SLICE = 16
+
+
+def batch_sliced(key: str, plain):
+    """`plain` over slices of `PLAIN_SLICE` images of the batch, joined
+    into the whole batch's outputs: logz, y, dx and d(logits) by
+    concatenation, K6's dk and K1's S₂ by their sum, K1's loss as the
+    S₂-weighted mean of the slices'. The plain versions at FastSCNN's
+    fullres config (b128 of 1024x1024) would otherwise take tens of GiB:
+    K1's backward holds several float32 (128,1024,1024,19) tensors."""
+    import torch
+    if key not in BATCH_ARGS:
+        fail(f"no batch slicing for {key}")
+
+    def call(*args):
+        parts = []
+        for lo in range(0, args[0].shape[0], PLAIN_SLICE):
+            parts.append(plain(*(a[lo:lo + PLAIN_SLICE]
+                                 if i in BATCH_ARGS[key] else a
+                                 for i, a in enumerate(args))))
+        if key == "resize_ce_fwd":
+            s2 = torch.stack([p[1] for p in parts]).sum()
+            loss = torch.stack([p[0] * p[1] for p in parts]).sum() / s2
+            return loss, s2, torch.cat([p[2] for p in parts])
+        if key == "depthwise_bwd":
+            return (torch.cat([p[0] for p in parts]),
+                    torch.stack([p[1] for p in parts]).sum(dim=0))
+        return torch.cat(parts)
+    return call
+
+
+def config_step_vs_plain(name: str, path, want: dict) -> dict:
+    """One step of config `name` through the train CLI (`--config path
+    --dataset synthetic --max-iterations 1`) with every kernel launch
+    recorded, then each launch again on its own inputs against its plain
+    version over slices of the batch (`check_recorded`, relative L2 2^-9):
+    the launches of a step at the largest shapes the kernels run on the
+    card. The recorded launches must be `want`."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.cli.train import main as train
+
+    calls = []
+    t0 = time.perf_counter()
+    with swapped(recording(calls)):
+        text = accuracy_harness().run_cli(train, [
+            "--config", str(path), "--dataset", "synthetic",
+            "--max-iterations", "1", "--log-every", "1"])[1]
+    recorded = {key: 0 for key in want}
+    for key, _, _, _ in calls:
+        recorded[key] = recorded.get(key, 0) + 1
+    shapes = sorted({(key, tuple(args[0].shape)) for key, _, _, args in calls})
+    worst = check_recorded([(key, fn, batch_sliced(key, plain), args)
+                            for key, fn, plain, args in calls])
+    del calls
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    losses = [float(m.group(1)) for m in re.finditer(
+        r"it \d+/\d+ loss ([-\d.naif]+)", text)]
+    print(f"config {name}, one step with each launch on its own inputs "
+          f"against its plain version (over slices of {PLAIN_SLICE} "
+          f"images): loss {losses}; worst relative L2 "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (tol 2^-9); launches {recorded}; first inputs {shapes}; "
+          f"{seconds:.1f} s", flush=True)
+    if len(losses) != 1 or not np.isfinite(losses[0]):
+        fail(f"config {name}, the recorded step: losses {losses}")
+    expect_launches(recorded, want, f"config {name}, the recorded step")
+    return dict(recorded_rel_l2=worst, launches=recorded, seconds=seconds)
+
+
+def config_runs(remat_launches: dict) -> dict:
+    """Each of `CLI_CONFIGS` through `--config configs/<c>.json --dataset
+    synthetic --max-iterations 2`, at its batch and crop: finite losses,
+    the expected launches (none but the fullres config's: K1 1 + 1 a step,
+    K6 `fastscnn_remat_k6` twice forward and once backward a step, no K2
+    under remat; the count is first held against phase 6's remat step),
+    the peak memory; then one more step of the fullres config with each
+    launch held against its plain version (`config_step_vs_plain`), apart
+    from the measured run so that its recording does not raise the peak;
+    `unet_camvid` raises UNet's divisibility error."""
+    from pathlib import Path
+
+    import torch
+    from torch_semantic_segmentation_tpu_torch.cli.train import main as train
+
+    configs = Path(__file__).resolve().parent / "configs"
+    k6_phase6 = fastscnn_remat_k6(SERVE_BATCH, SERVE_H, SERVE_W)
+    if (remat_launches["depthwise_bwd"] != k6_phase6
+            or remat_launches["depthwise_fwd"] != 2 * k6_phase6):
+        fail(f"phase 6's remat step launched {remat_launches}, against "
+             f"{k6_phase6} routed convs by fastscnn_remat_k6")
+    out = {}
+    for name in CLI_CONFIGS:
+        with open(configs / f"{name}.json") as f:
+            cfg = json.load(f)
+        batch = cfg["batch_size"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        text = accuracy_harness().run_cli(train, [
+            "--config", str(configs / f"{name}.json"), "--dataset",
+            "synthetic", "--max-iterations", str(CONFIG_STEPS),
+            "--log-every", "1"])[1]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        used, peak = all_launch_counts(), torch.cuda.max_memory_allocated()
+        losses = [float(m.group(1)) for m in re.finditer(
+            r"it \d+/\d+ loss ([-\d.naif]+)", text)]
+        want = {k: 0 for k in used}
+        if name == "fastscnn_cityscapes_fullres":
+            k6 = fastscnn_remat_k6(batch, *cfg["crop_size"])
+            want.update(resize_ce_fwd=CONFIG_STEPS, resize_ce_bwd=CONFIG_STEPS,
+                        depthwise_fwd=2 * k6 * CONFIG_STEPS,
+                        depthwise_bwd=k6 * CONFIG_STEPS)
+        crop = "x".join(map(str, cfg["crop_size"]))
+        print(f"config {name} (batch {batch}, crop "
+              f"{crop}): losses {losses}; {seconds:.1f} s with the build and "
+              f"the data; max_memory_allocated {peak / 2 ** 30:.3f} GiB; "
+              f"launches {used}", flush=True)
+        if len(losses) != CONFIG_STEPS or not all(np.isfinite(losses)):
+            fail(f"config {name}: losses {losses}")
+        expect_launches(used, want, f"config {name}")
+        out[name] = dict(batch=batch, losses=losses, peak_bytes=peak,
+                         launches=used, seconds=seconds)
+        torch.cuda.empty_cache()
+        if name == "fastscnn_cityscapes_fullres":
+            out[name]["step_vs_plain"] = config_step_vs_plain(
+                name, configs / f"{name}.json",
+                {k: v // CONFIG_STEPS for k, v in want.items()
+                 if k != "sepconv"})
+    try:
+        train(["--config", str(configs / "unet_camvid.json"), "--dataset",
+               "synthetic", "--max-iterations", "1"])
+    except ValueError as e:
+        if "divisible by 16" not in str(e):
+            raise
+        print(f"config unet_camvid refused: {e}", flush=True)
+    else:
+        fail("config unet_camvid trained at its 360x480 crop")
+    return out
+
+
+def cli_phase(remat_launches: dict) -> dict:
+    """Phase 13: the train, eval and predict CLIs on the card."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    step = cli_step_vs_plain()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        runs = {name: accuracy_run(name, flags, tmp)
+                for name, flags in ACC_RUNS}
+        best_dir = f"{tmp}/cli_fused/best"
+        evals = eval_cli_check(best_dir)
+        predicted = predict_check(best_dir, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    configs = config_runs(remat_launches)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 13 (the CLIs): {phase_s:.1f} s", flush=True)
+    return dict(step=step, runs=runs, evals=evals, predict=predicted,
+                configs=configs, phase_s=phase_s)
+
+
 def main() -> int:
     try:
         import torch
@@ -2647,6 +3154,7 @@ def main() -> int:
     except ImportError as e:
         fail(f"the port package is not beside this script ({e})")
 
+    t_script = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
     print(f"device: {name} x{torch.cuda.device_count()}; torch "
@@ -2675,7 +3183,7 @@ def main() -> int:
     train()
     main_path = train_augmented()
     model = main_path.pop("model")
-    remat_check(model, *main_path.pop("batch"))
+    remat = remat_check(model, *main_path.pop("batch"))
     eval_check(model)
     del model
     torch.cuda.empty_cache()
@@ -2686,6 +3194,7 @@ def main() -> int:
     enet_phase()
     stretch = {name: stretch_phase(name) for name in STRETCH_MODELS}
     fed = pipeline_phase(main_path["latency_ms"])
+    cli = cli_phase(remat["launches"]["True"])
 
     def row(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",
@@ -2700,7 +3209,8 @@ def main() -> int:
     # models'; the rows' times at FastSCNN's shapes, each path's under
     # "paths"
     train_paths = {"fastscnn": main_path, "fastscnn_pipeline": fed, **{
-        name: stretch[name]["train"] for name in STRETCH_MODELS}}
+        name: stretch[name]["train"] for name in STRETCH_MODELS},
+        **cli["runs"]}
 
     def path_row(kname, source, replaces, d, checks):
         paths = [(p, train_paths[p]["launches"][kname]) for p in checks]
@@ -2740,11 +3250,15 @@ def main() -> int:
     # times are FastSCNN's
     k1_paths = {p: k1[p] for p in ("fastscnn", "lednet", "contextnet")}
     k1_paths["fastscnn_pipeline"] = k1["fastscnn"]
+    k1_paths["cli_fused"] = k1["cli_fused"]
     k26_paths = ("fastscnn", "contextnet")
 
     def k26(checks):
         return {**{p: checks[p] for p in k26_paths},
                 "fastscnn_pipeline": checks["fastscnn"]}
+
+    # phase 13's accuracy runs launch K2 at the nine small GFE shapes
+    k2_paths = {**k26(k2), "cli_default": k2["cli"], "cli_fused": k2["cli"]}
     # K3's paths: DeepLab's one head and config 5's three; the row's times
     # at DeepLab's x16, each path's own under "paths"
     k3_train = {"deeplab": deeplab["train"], **{
@@ -2763,6 +3277,8 @@ def main() -> int:
             for p, t in k3_train.items()]
         return r
 
+    print(f"chip_smoke: all phases {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": [
         k5_row,
         path_row("resize_ce_fwd", "resize_ce.cu", "pallas_resize_ce.py:329",
@@ -2770,9 +3286,9 @@ def main() -> int:
         path_row("resize_ce_bwd", "resize_ce.cu", "pallas_resize_ce.py:381",
                  "bwd", k1_paths),
         path_row("mbconv_fwd", "mbconv.cu", "pallas_mbconv.py:337", "fwd",
-                 k26(k2)),
+                 k2_paths),
         path_row("mbconv_bwd", "mbconv.cu", "pallas_mbconv.py:394", "bwd",
-                 k26(k2)),
+                 k2_paths),
         path_row("depthwise_fwd", "depthwise.cu", "pallas_dw.py:405", "fwd",
                  k26(k6)),
         path_row("depthwise_bwd", "depthwise.cu", "pallas_dw.py:452", "bwd",

@@ -15,10 +15,8 @@ masks):
   list) and the synthetic data (`synthetic_batch`, `synthetic_uint8_batch`,
   `ShapesDataset[i]`) equal the JAX package's."""
 
-import json
 import os
 
-import cv2
 import numpy as np
 import pytest
 from PIL import Image
@@ -31,25 +29,9 @@ from torch_semantic_segmentation_tpu.data import synthetic as jsyn
 from torch_semantic_segmentation_tpu_torch.data import bdd, camvid, cityscapes
 from torch_semantic_segmentation_tpu_torch.data import mapillary, synthetic
 
-H, W = 24, 40
-
-
-def _image(rng, h=H, w=W):
-    """Smooth colour ramps with noise: both JPEG's flat and busy blocks."""
-    ys, xs = np.mgrid[0:h, 0:w]
-    base = np.stack([ys * 5, xs * 3, (ys + xs) * 2], -1)
-    return np.clip(base + rng.integers(-40, 41, (h, w, 3)), 0, 255).astype(
-        np.uint8)
-
-
-def _write_rgb(path, rgb, **kw):
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    assert cv2.imwrite(str(path), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR), *kw.values())
-
-
-def _write_gray(path, mask):
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    assert cv2.imwrite(str(path), mask)
+from tests.torch_port_util import (
+    smooth_image as _image, write_bdd_tree, write_camvid_tree,
+    write_cityscapes_tree, write_mapillary_tree, write_rgb as _write_rgb)
 
 
 def _same_dataset(port, ref):
@@ -65,16 +47,7 @@ def _same_dataset(port, ref):
 
 @pytest.fixture
 def cityscapes_root(tmp_path):
-    rng = np.random.default_rng(0)
-    for city, names in (("aachen", ("aachen_000000_000019",
-                                     "aachen_000001_000019")),
-                        ("bochum", ("bochum_000000_000313",))):
-        for name in names:
-            _write_rgb(tmp_path / "leftImg8bit" / "train" / city
-                       / f"{name}_leftImg8bit.png", _image(rng))
-            _write_gray(tmp_path / "gtFine" / "train" / city
-                        / f"{name}_gtFine_labelIds.png",
-                        rng.integers(0, 34, (H, W), np.uint8))
+    write_cityscapes_tree(tmp_path, np.random.default_rng(0))
     return tmp_path
 
 
@@ -109,20 +82,7 @@ def test_cityscapes_tables_equal_jax():
 
 @pytest.mark.parametrize("layout", ["index", "rgb"])
 def test_camvid_dataset_equals_jax(tmp_path, layout):
-    rng = np.random.default_rng(2)
-    for i in range(3):
-        img = _image(rng)
-        if layout == "index":     # SegNet layout, 11 = void
-            _write_rgb(tmp_path / "train" / f"f{i}.png", img)
-            _write_gray(tmp_path / "trainannot" / f"f{i}.png",
-                        rng.integers(0, 12, (H, W), np.uint8))
-        else:                     # RGB masks, some colours off the palette
-            idx = rng.integers(0, 12, (H, W))
-            colors = np.concatenate([camvid.PALETTE, [[1, 2, 3]]]).astype(
-                np.uint8)
-            _write_rgb(tmp_path / "images" / "train" / f"f{i}.png", img)
-            _write_rgb(tmp_path / "labels" / "train" / f"f{i}_L.png",
-                       colors[idx])
+    write_camvid_tree(tmp_path, np.random.default_rng(2), layout)
     port = camvid.CamVidDataset(str(tmp_path))
     assert port.rgb_masks == (layout == "rgb")
     _same_dataset(port, jcamvid.CamVidDataset(str(tmp_path)))
@@ -145,21 +105,7 @@ def test_camvid_tables_equal_jax():
 
 @pytest.mark.parametrize("layout", ["10k", "seg"])
 def test_bdd_dataset_equals_jax(tmp_path, layout):
-    rng = np.random.default_rng(4)
-    if layout == "10k":
-        img_dir = tmp_path / "images" / "10k" / "train"
-        lbl_dir = tmp_path / "labels" / "sem_seg" / "masks" / "train"
-        suffix = ".png"
-    else:
-        img_dir = tmp_path / "seg" / "images" / "train"
-        lbl_dir = tmp_path / "seg" / "labels" / "train"
-        suffix = "_train_id.png"
-    for i in range(3):
-        _write_rgb(img_dir / f"b{i}.jpg", _image(rng),
-                   q=[cv2.IMWRITE_JPEG_QUALITY, 90])
-        mask = rng.integers(0, 19, (H, W), np.uint8)
-        mask[:4] = 255
-        _write_gray(lbl_dir / f"b{i}{suffix}", mask)
+    write_bdd_tree(tmp_path, np.random.default_rng(4), layout)
     _same_dataset(bdd.BDDDataset(str(tmp_path)), jbdd.BDDDataset(str(tmp_path)))
     assert bdd.CLASS_NAMES == jbdd.CLASS_NAMES
 
@@ -173,38 +119,9 @@ def test_bdd_without_images_or_masks_raises(tmp_path):
         bdd.BDDDataset(str(tmp_path))
 
 
-MAPILLARY_LABELS = [
-    {"name": "bird", "readable": "Bird", "color": [165, 42, 42],
-     "evaluate": True},
-    {"name": "ground", "readable": "Ground", "color": [0, 192, 0],
-     "evaluate": False},
-    {"name": "curb", "readable": "Curb", "color": [196, 196, 196]},
-    {"name": "fence", "readable": "Fence", "color": [190, 153, 153],
-     "evaluate": True},
-    {"name": "unlabeled", "readable": "Unlabeled", "color": [0, 0, 0],
-     "evaluate": False},
-]
-
-
 @pytest.mark.parametrize("version", ["", "v2.0"])
 def test_mapillary_dataset_equals_jax(tmp_path, version):
-    rng = np.random.default_rng(6)
-    cfg = "config.json" if not version else f"config_{version}.json"
-    (tmp_path / cfg).write_text(json.dumps({"labels": MAPILLARY_LABELS}))
-    lbl_dir = tmp_path / "training" / (
-        os.path.join(version, "labels") if version else "labels")
-    lbl_dir.mkdir(parents=True)
-    palette = np.array([lab["color"] for lab in MAPILLARY_LABELS], np.uint8)
-    for i in range(3):
-        _write_rgb(tmp_path / "training" / "images" / f"m{i}.jpg", _image(rng),
-                   q=[cv2.IMWRITE_JPEG_QUALITY, 95])
-        ids = rng.integers(0, len(MAPILLARY_LABELS), (H, W), np.uint8)
-        if i < 2:   # palette masks: the index is the label id
-            im = Image.fromarray(ids, mode="P")
-            im.putpalette(palette.reshape(-1).tolist())
-            im.save(lbl_dir / f"m{i}.png")
-        else:       # a plain RGB mask: its first channel
-            Image.fromarray(palette[ids]).save(lbl_dir / f"m{i}.png")
+    write_mapillary_tree(tmp_path, np.random.default_rng(6), version)
     port = mapillary.MapillaryDataset(str(tmp_path), version=version)
     ref = jmap.MapillaryDataset(str(tmp_path), version=version)
     _same_dataset(port, ref)

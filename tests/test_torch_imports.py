@@ -1,7 +1,8 @@
-"""The PyTorch port, chip_smoke.py and the port's scripts import neither JAX
-(nor flax, optax, orbax) nor the JAX package: an AST scan of every import
-statement. The port and chip_smoke.py import neither cv2 nor PIL either:
-the card's machine has neither (the port decodes by its native loader)."""
+"""The PyTorch port (its CLIs too), chip_smoke.py and the port's scripts
+import neither JAX (nor flax, optax, orbax) nor the JAX package: an AST
+scan of every import statement. The port and chip_smoke.py import neither
+cv2 nor PIL either: the card's machine has neither (the port decodes by its
+native loader)."""
 
 import ast
 from pathlib import Path
@@ -43,7 +44,9 @@ def test_scan_covers_the_package():
             "models/contextnet.py", "data/synthetic.py", "data/cityscapes.py",
             "data/camvid.py", "data/bdd.py", "data/mapillary.py",
             "data/native_loader.py", "data/pipeline.py", "checkpoint.py",
-            "compat/key_maps.py", "models/__init__.py"} <= names
+            "compat/key_maps.py", "models/__init__.py", "cli/__init__.py",
+            "cli/common.py", "cli/train.py", "cli/eval.py",
+            "cli/predict.py"} <= names
 
 
 def test_banned_rule():

@@ -294,3 +294,127 @@ def auto_map_matches_jax(name: str):
             want = (torch.zeros_like(value) if key.endswith("tracked")
                     else sd[key])
             assert torch.equal(value, want), (how, key)
+
+
+# Dataset trees written into a directory, for the tests that hold the
+# port's datasets and CLIs against the JAX package's: cv2 writes the images
+# and masks, PIL Mapillary's palette masks.
+DATA_H, DATA_W = 24, 40
+
+MAPILLARY_LABELS = [
+    {"name": "bird", "readable": "Bird", "color": [165, 42, 42],
+     "evaluate": True},
+    {"name": "ground", "readable": "Ground", "color": [0, 192, 0],
+     "evaluate": False},
+    {"name": "curb", "readable": "Curb", "color": [196, 196, 196]},
+    {"name": "fence", "readable": "Fence", "color": [190, 153, 153],
+     "evaluate": True},
+    {"name": "unlabeled", "readable": "Unlabeled", "color": [0, 0, 0],
+     "evaluate": False},
+]
+
+
+def smooth_image(rng, h=DATA_H, w=DATA_W):
+    """Smooth colour ramps with noise: both JPEG's flat and busy blocks."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    base = np.stack([ys * 5, xs * 3, (ys + xs) * 2], -1)
+    return np.clip(base + rng.integers(-40, 41, (h, w, 3)), 0, 255).astype(
+        np.uint8)
+
+
+def write_rgb(path, rgb, **kw):
+    import os
+
+    import cv2
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    assert cv2.imwrite(str(path), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR),
+                       *kw.values())
+
+
+def write_gray(path, mask):
+    import os
+
+    import cv2
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    assert cv2.imwrite(str(path), mask)
+
+
+def write_cityscapes_tree(root, rng, split="train"):
+    """Two cities, three frames, raw labelIds in [0, 34)."""
+    for city, names in (("aachen", ("aachen_000000_000019",
+                                     "aachen_000001_000019")),
+                        ("bochum", ("bochum_000000_000313",))):
+        for name in names:
+            write_rgb(root / "leftImg8bit" / split / city
+                      / f"{name}_leftImg8bit.png", smooth_image(rng))
+            write_gray(root / "gtFine" / split / city
+                       / f"{name}_gtFine_labelIds.png",
+                       rng.integers(0, 34, (DATA_H, DATA_W), np.uint8))
+
+
+def write_camvid_tree(root, rng, layout="index", split="train"):
+    """Three frames: index masks (SegNet layout, 11 = void) or RGB masks
+    with some colours off the palette."""
+    from torch_semantic_segmentation_tpu_torch.data import camvid
+
+    for i in range(3):
+        img = smooth_image(rng)
+        if layout == "index":
+            write_rgb(root / split / f"f{i}.png", img)
+            write_gray(root / f"{split}annot" / f"f{i}.png",
+                       rng.integers(0, 12, (DATA_H, DATA_W), np.uint8))
+        else:
+            idx = rng.integers(0, 12, (DATA_H, DATA_W))
+            colors = np.concatenate([camvid.PALETTE, [[1, 2, 3]]]).astype(
+                np.uint8)
+            write_rgb(root / "images" / split / f"f{i}.png", img)
+            write_rgb(root / "labels" / split / f"f{i}_L.png", colors[idx])
+
+
+def write_bdd_tree(root, rng, layout="10k", split="train"):
+    """Three JPEG frames and train-id masks, in the 10k or the older seg
+    layout."""
+    import cv2
+
+    if layout == "10k":
+        img_dir = root / "images" / "10k" / split
+        lbl_dir = root / "labels" / "sem_seg" / "masks" / split
+        suffix = ".png"
+    else:
+        img_dir = root / "seg" / "images" / split
+        lbl_dir = root / "seg" / "labels" / split
+        suffix = f"_{split}_id.png"
+    for i in range(3):
+        write_rgb(img_dir / f"b{i}.jpg", smooth_image(rng),
+                  q=[cv2.IMWRITE_JPEG_QUALITY, 90])
+        mask = rng.integers(0, 19, (DATA_H, DATA_W), np.uint8)
+        mask[:4] = 255
+        write_gray(lbl_dir / f"b{i}{suffix}", mask)
+
+
+def write_mapillary_tree(root, rng, version=""):
+    """The config json of `MAPILLARY_LABELS` and three training frames:
+    two palette masks (the index is the label id) and a plain RGB one."""
+    import json
+    import os
+
+    import cv2
+    from PIL import Image
+
+    cfg = "config.json" if not version else f"config_{version}.json"
+    (root / cfg).write_text(json.dumps({"labels": MAPILLARY_LABELS}))
+    lbl_dir = root / "training" / (
+        os.path.join(version, "labels") if version else "labels")
+    lbl_dir.mkdir(parents=True)
+    palette = np.array([lab["color"] for lab in MAPILLARY_LABELS], np.uint8)
+    for i in range(3):
+        write_rgb(root / "training" / "images" / f"m{i}.jpg",
+                  smooth_image(rng), q=[cv2.IMWRITE_JPEG_QUALITY, 95])
+        ids = rng.integers(0, len(MAPILLARY_LABELS), (DATA_H, DATA_W),
+                           np.uint8)
+        if i < 2:
+            im = Image.fromarray(ids, mode="P")
+            im.putpalette(palette.reshape(-1).tolist())
+            im.save(lbl_dir / f"m{i}.png")
+        else:
+            Image.fromarray(palette[ids]).save(lbl_dir / f"m{i}.png")
