@@ -96,7 +96,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with every K1 and K6 launch held against its plain version on its own
    inputs, the plain version over slices of 16 images), and `unet_camvid`
    refused;
-14. print the kernels line, the nvidia-smi line and the final JSON line.
+14. data parallelism, on FastSCNN at phase 6's configuration: a NCCL
+   group of one in this process, whose two steps equal phase 6's steps
+   without a group bit for bit wherever two runs without a group agree
+   (else the gap is printed with the tensor it enters at), then 1 + 8
+   timed steps with the launches checked (1 + 1 K1, 9 + 9 K2, 2 + 2 K6 a
+   step) and the collectives a step counted, and 2 eval batches whose
+   matrix equals the one without a group, each beside the step without a
+   group timed just before; `profiling.measure` of phase 6's step inside
+   the spread of the same step timed as phase 6 times it; then two ranks
+   on the one card
+   (gloo) through the train CLI's `--multihost` (batch 8 of 1024x2048,
+   the fused loss, 3 steps), whose losses equal each other and the
+   single-process CLI's within the bars `DP_STEP1_RTOL` and
+   `DP_LATER_RTOL`, while this process checks a trace, `cost_analysis`
+   and `checked_step` of the step; its launches have a line of their own;
+15. print the kernels line, the nvidia-smi line and the final JSON line.
    K3's rows count the launches of phases 8 and 9, K1's, K2's, K5's and
    K6's those of phases 4-6, 11, 12 and (K1, K2) 13's accuracy runs, and
    each row gives each path's launches and times under "paths".
@@ -1601,8 +1616,8 @@ def train_augmented() -> dict:
         fail(f"augment_batch gave {tuple(images.shape)} {images.dtype}, "
              f"labels {lab.dtype}")
     return dict(model=model, batch=(images, lab), launches=launches,
-                latency_ms=lat_ms, losses=losses, peak_bytes=peak,
-                augment_ms=aug_ms)
+                latency_ms=lat_ms, device_ms=detail["device_ms"],
+                losses=losses, peak_bytes=peak, augment_ms=aug_ms)
 
 
 def remat_check(model, images, labels) -> dict:
@@ -3142,6 +3157,493 @@ def cli_phase(remat_launches: dict) -> dict:
                 configs=configs, phase_s=phase_s)
 
 
+# phase 14, the data-parallel path. The two-rank CLI run's bars, set before
+# any run: step 1's loss within 1e-4 relative of the single process's (the
+# two runs differ only in the order of the sums), steps 2-3 within 1e-3
+DP_STEP1_RTOL, DP_LATER_RTOL = 1e-4, 1e-3
+# the group of one with K2 routed: its largest gap to the step without a
+# group against the largest between two runs without one, each step (set
+# from a reading of 0.00448 against 0.00375 at step 1, PERF.md §6)
+DP_ROUTED_NOISE = 4.0
+DP_CLI_FLAGS = ["--dataset", "synthetic", "--model", "fastscnn",
+                "--batch-size", "8", "--crop-size", "1024", "2048",
+                "--fused-resize-loss", "--max-iterations", "3",
+                "--log-every", "1"]
+DP_CLI_STEPS = 3
+# a rank of the two-rank run: the train CLI's main in a process of its own,
+# then its logged losses and its kernel launches
+DP_RANK_SCRIPT = (
+    "import json, sys\n"
+    "from torch_semantic_segmentation_tpu_torch.cli.train import main\n"
+    "from torch_semantic_segmentation_tpu_torch.profiling import "
+    "launch_counts\n"
+    "run = main(sys.argv[1:])\n"
+    "print('RANK_RESULT ' + json.dumps({'losses': run.losses, "
+    "'launches': launch_counts()}), flush=True)\n")
+# `profiling.measure` of phase 6's step against the spread of the same
+# step timed as phase 6 times it, synchronised (host clock): back to back,
+# one step's enqueue overlaps the last one's tail, which synchronised steps
+# do not, so the band reaches 20% below the fastest and 10% above the
+# slowest
+MEASURE_BAND = (0.8, 1.1)
+# FastSCNN's kernels as a Chrome trace names them
+TRACE_KERNELS = {"K1": ("resize_ce_fwd_runs", "resize_ce_bwd_mma"),
+                 "K2": ("mbconv_fwd_kernel", "mbconv_bwd_kernel"),
+                 "K6": ("dw_fwd_kernel", "dw_bwd_s2_kernel")}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase6_setup():
+    """Phase 6's configuration: FastSCNN bf16 from seed 0 on the
+    fused-resize route, resident uint8 frames of 1024x2048, and the
+    augmentation at crop 1024x2048 with bf16 out."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    frames, labels = make_batch(200)
+    model = get_model("fastscnn", NUM_CLASSES, upsample_logits=False,
+                      compute_dtype=torch.bfloat16, seed=0, device="cuda")
+    return (model, torch.from_numpy(frames).cuda(),
+            torch.from_numpy(labels).cuda(),
+            AugmentConfig(crop=(SERVE_H, SERVE_W), out_dtype=torch.bfloat16))
+
+
+def phase6_step(model, cfg, seed: int = 0):
+    """Phase 6's step on raw frames: a fresh SGD state and augmentation
+    generator, then `augment_batch` and the train step. Returns (step,
+    the inner train step, the train state, the generator)."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        augment_batch)
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        resize_cross_entropy_loss)
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = create_train_state(model, OptimizerConfig(lr=0.045,
+                                                      max_steps=1000))
+    inner = make_train_step(model, state, resize_cross_entropy_loss)
+
+    def step(raw_images, raw_labels):
+        return inner(*augment_batch(raw_images, raw_labels, gen, cfg))
+    return step, inner, state, gen
+
+
+def two_steps(model, start: dict, frames, labels, cfg, routed: bool) -> dict:
+    """Two of phase 6's steps from `start`, cuDNN on deterministic
+    algorithms, K2 routed or not (its backward sums with atomics, so a
+    routed step varies from run to run): the losses and the state dict
+    after each."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.ops import mbconv
+    model.load_state_dict(start)
+    model.dropout_generator.manual_seed(99)
+    step = phase6_step(model, cfg)[0]
+    out = {"losses": [], "states": []}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False), \
+            (contextlib.nullcontext() if routed
+             else mbconv.suppress_routing()):
+        for _ in range(2):
+            out["losses"].append(step(frames, labels)["loss"].clone())
+            out["states"].append({k: v.clone()
+                                  for k, v in model.state_dict().items()})
+    return out
+
+
+def gaps(a: dict, b: dict) -> list:
+    """[(step, tensor, max |a − b|)] of every loss and state tensor that
+    two `two_steps` runs do not share bit for bit, in step order."""
+    import torch
+    out = []
+    for i in range(2):
+        if not torch.equal(a["losses"][i], b["losses"][i]):
+            out.append((i + 1, "loss", float(
+                (a["losses"][i] - b["losses"][i]).abs())))
+        for k, v in a["states"][i].items():
+            w = b["states"][i][k]
+            if not torch.equal(v, w):
+                out.append((i + 1, k, float((v.double() - w.double())
+                                            .abs().max())))
+    return out
+
+
+def eval_matrix(model, start: dict, batches):
+    """`evaluate` of the eval step over `batches` with the `start`
+    state: the int64 matrix."""
+    from torch_semantic_segmentation_tpu_torch.eval import evaluate
+    from torch_semantic_segmentation_tpu_torch.train import make_eval_step
+    model.load_state_dict(start)
+    step = make_eval_step(model, num_classes=NUM_CLASSES)
+    return evaluate(step, batches, num_classes=NUM_CLASSES)[2]
+
+
+def compare_runs(plain_a: dict, plain_b: dict, grouped: dict,
+                 what: str, strict: bool) -> None:
+    """The group's two steps against the same steps without a group, the
+    first loss bit for bit. `strict`: bit for bit wherever two runs
+    without a group agree. Otherwise (K2 routed: which tensors its
+    atomics leave alike in two runs is chance) the gap is printed with the
+    tensor it enters at, and each step's largest gap must stay within
+    `DP_ROUTED_NOISE` times the largest between two runs without a
+    group."""
+    import torch
+    noise = gaps(plain_a, plain_b)
+    gap = gaps(plain_a, grouped)
+    unstable = {(s, k) for s, k, _ in noise}
+    beyond = [g for g in gap if (g[0], g[1]) not in unstable]
+    worst = max((g[2] for g in gap), default=0.0)
+    worst_noise = max((g[2] for g in noise), default=0.0)
+    print(f"dp group of one, {what}: two steps against the same steps "
+          f"without a group: "
+          + ("bit for bit" if not gap else
+             f"not bit for bit at {len(gap)} tensors, the gap enters at step "
+             f"{gap[0][0]} in {gap[0][1]} (max |diff| {gap[0][2]:.3g}, "
+             f"{worst:.3g} over all); two runs without a group differ at "
+             f"{len(noise)} tensors"
+             + (f", first at step {noise[0][0]} in {noise[0][1]} (max |diff| "
+                f"{noise[0][2]:.3g}, {worst_noise:.3g} over all)"
+                if noise else "")), flush=True)
+    if strict and beyond:
+        fail(f"the group of one ({what}) differs where runs without a group "
+             f"agree: {beyond[:5]}")
+    for step in (1, 2):
+        g = max((d for s_, _, d in gap if s_ == step), default=0.0)
+        n = max((d for s_, _, d in noise if s_ == step), default=0.0)
+        if not strict and g > DP_ROUTED_NOISE * n:
+            fail(f"the group of one ({what}) moves step {step} by {g:.3g}, "
+                 f"two runs without a group differ by {n:.3g}")
+    if not torch.equal(plain_a["losses"][0], grouped["losses"][0]):
+        fail(f"the group of one's first loss ({what}) differs from the step "
+             "without a group")
+
+
+def group_of_one(main_path: dict) -> dict:
+    """A NCCL group of one in this process, on phase 6's configuration:
+    two steps held against the same two steps without a group, with K2
+    unrouted (every kernel left is deterministic, so bit for bit) and
+    routed (`compare_runs`); 1 + 8 timed steps with the launches checked,
+    the collectives a step counted and one collective's host time; 2 eval
+    batches whose matrix equals the matrix without a group."""
+    import os
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        normalize_batch)
+    from torch_semantic_segmentation_tpu_torch.parallel import distributed
+
+    model, frames, labels, cfg = phase6_setup()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = []
+    for seed in range(2):
+        f, lab = make_batch(300 + seed)
+        batches.append((normalize_batch(torch.from_numpy(f).cuda(),
+                                        out_dtype=torch.bfloat16),
+                        torch.from_numpy(lab).cuda()))
+    plain = {routed: [two_steps(model, start, frames, labels, cfg, routed)
+                      for _ in range(2)] for routed in (False, True)}
+    cm_plain = eval_matrix(model, start, batches)
+    step = phase6_step(model, cfg)[0]
+    step(frames, labels)                       # warm-up
+    base = timed_steps(step, [(frames, labels)] * TRAIN_STEPS)[4]
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    dev = distributed.initialize()
+    if torch.distributed.get_backend() != "nccl" or dev.type != "cuda":
+        fail(f"the group of one runs {torch.distributed.get_backend()} on "
+             f"{dev}")
+    grouped = {routed: two_steps(model, start, frames, labels, cfg, routed)
+               for routed in (False, True)}
+    probe = torch.zeros((2, 128), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        distributed.reduce_sum(probe)
+    one_ms = 10 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    sync_ms = 10 * (time.perf_counter() - t0)
+
+    step = phase6_step(model, cfg)[0]
+    step(frames, labels)                       # warm-up
+    count0 = distributed.collectives
+    lat_ms, losses, peak, launches, detail = timed_steps(
+        step, [(frames, labels)] * TRAIN_STEPS)
+    collectives = (distributed.collectives - count0) / TRAIN_STEPS
+    # where the group's extra host time goes: one step under the profiler,
+    # the operations with the most host time of their own
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(frames, labels)
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print("dp group of one, one step's host time by operation: " + "; ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
+        for e in top[:8]), flush=True)
+    cm_group = eval_matrix(model, start, batches)
+    distributed.destroy()
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK"):
+        os.environ.pop(k)
+
+    for routed, what in ((False, "K2 unrouted"), (True, "K2 routed")):
+        compare_runs(*plain[routed], grouped[routed], what, strict=not routed)
+    phase6_dev = float(np.median(main_path["device_ms"]))
+    base_dev = float(np.median(base["device_ms"]))
+    print(f"dp group of one: losses {[round(v, 4) for v in losses]}; step "
+          f"latency_ms {[round(t, 3) for t in lat_ms]} "
+          f"{timing_line(lat_ms, detail)}; the step without a group just "
+          f"before: CUDA events {base_dev:.3f} ms (phase 6's own run "
+          f"{phase6_dev:.3f} ms); collectives a step {collectives:g}, one "
+          f"{one_ms:.3f} ms of host time ({sync_ms:.3f} ms to the card's "
+          f"end, 100 in a row); "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; eval matrix "
+          f"{'equal' if torch.equal(cm_plain, cm_group) else 'DIFFERENT'} "
+          f"({int(cm_group.sum())} pixels)", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite loss in the group of one: {losses}")
+    if launches != per_step(TRAIN_STEPS):
+        fail(f"kernel launches in {TRAIN_STEPS} steps of the group of one: "
+             f"{launches}, expected {per_step(TRAIN_STEPS)}")
+    if not torch.equal(cm_plain, cm_group):
+        fail("the group of one's eval matrix differs from the one without "
+             "a group")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "device_ms": detail["device_ms"],
+            "base_device_ms": base["device_ms"], "collectives": collectives,
+            "collective_ms": one_ms}
+
+
+def rank_processes() -> list:
+    """The two ranks of the two-rank CLI run, started on the one card:
+    torchrun's environment with LOCAL_RANK 0 for both, and gloo (NCCL
+    refuses two ranks on one card)."""
+    import os
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent)
+    port = str(free_port())
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                   WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0",
+                   PYTHONPATH=os.pathsep.join(
+                       [root] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", DP_RANK_SCRIPT, "--multihost",
+             "--dist-backend", "gloo", *DP_CLI_FLAGS], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def rank_results(procs: list) -> list:
+    """Each rank's {"losses": [[step, loss]], "launches": {...}}, after it
+    exits; fails with a failed rank's output."""
+    out = []
+    for r, p in enumerate(procs):
+        text = p.communicate(timeout=600)[0]
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("RANK_RESULT ")]
+        if p.returncode != 0 or len(lines) != 1:
+            fail(f"rank {r} of the two-rank CLI run exited "
+                 f"{p.returncode}:\n{text[-4000:]}")
+        out.append(json.loads(lines[0][len("RANK_RESULT "):]))
+        print(f"dp rank {r}: " + " ".join(
+            ln for ln in text.splitlines() if ln.startswith("multihost")),
+            flush=True)
+    return out
+
+
+def swapped_halves_losses() -> list:
+    """The yardstick of the two-rank run's bars: the single-process CLI
+    with each global batch's halves swapped, which reorders the same sums.
+    Each image keeps its draws: the uint8 batch is swapped before the
+    augmentation, and the augmentation's and the dropout's draws are
+    swapped with it (`distributed.shard_rows`, the identity without a
+    group, swaps the halves of each draw here)."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.cli.train import main
+    from torch_semantic_segmentation_tpu_torch.data import pipeline
+    from torch_semantic_segmentation_tpu_torch.parallel import distributed
+    real_prefetch, real_rows = (pipeline.prefetch_to_device,
+                                distributed.shard_rows)
+
+    def swap(x, dim=0):
+        h = x.shape[dim] // 2
+        return torch.cat([x.narrow(dim, h, x.shape[dim] - h),
+                          x.narrow(dim, 0, h)], dim=dim)
+
+    def prefetch(*args, **kwargs):
+        for batch in real_prefetch(*args, **kwargs):
+            yield tuple(swap(t) for t in batch)
+
+    pipeline.prefetch_to_device, distributed.shard_rows = prefetch, swap
+    try:
+        return [v for _, v in main(DP_CLI_FLAGS).losses]
+    finally:
+        pipeline.prefetch_to_device, distributed.shard_rows = (
+            real_prefetch, real_rows)
+
+
+def dp_cli_check(ranks: list, single: list) -> dict:
+    """The two ranks' losses, the same on both, against the single
+    process's within the bars; each rank's K1, K2 and K6 launches."""
+    want = [v for _, v in single]
+    got = [[v for _, v in r["losses"]] for r in ranks]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got[0], want)]
+    print(f"dp two ranks on one card (gloo) through the train CLI: losses "
+          f"{got[0]} (rank 1 {got[1]}); single process {want}; relative "
+          f"gaps {[f'{v:.3g}' for v in rel]} (bars {DP_STEP1_RTOL:g} at "
+          f"step 1, {DP_LATER_RTOL:g} after)", flush=True)
+    for r, res in enumerate(ranks):
+        used = {k: res["launches"][k] for k in
+                ("resize_ce_fwd", "resize_ce_bwd", "mbconv_fwd",
+                 "mbconv_bwd", "depthwise_fwd", "depthwise_bwd")}
+        print(f"dp rank {r} launches: {used}", flush=True)
+        want_used = {k: v for k, v in per_step(DP_CLI_STEPS).items()
+                     if k in used}
+        if used != want_used:
+            fail(f"rank {r}'s launches {used}, expected {want_used}")
+    if got[0] != got[1] or len(got[0]) != DP_CLI_STEPS:
+        fail(f"the ranks' losses differ: {got}")
+    if rel[0] > DP_STEP1_RTOL or max(rel[1:]) > DP_LATER_RTOL:
+        yard = swapped_halves_losses()
+        print(f"dp yardstick, the single process with the halves swapped: "
+              f"{yard}, relative gaps "
+              f"{[f'{abs(a - b) / abs(b):.3g}' for a, b in zip(yard, want)]}",
+              flush=True)
+        fail(f"the two-rank losses {got[0]} are off the single process's "
+             f"{want} beyond the bars")
+    return {"losses": got[0], "single": want, "rel": rel}
+
+
+def measure_check(main_path: dict) -> float:
+    """`profiling.measure` of phase 6's step (8 steps after a warm-up, on
+    CUDA events) inside the spread of the same step timed as phase 6 times
+    it just before (`timed_steps`: the host's speed drifts over the
+    script's minutes), widened by `MEASURE_BAND`; `memory_stats`' peak
+    equal to max_memory_allocated. Returns ms a step."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch import profiling
+
+    model, frames, labels, cfg = phase6_setup()
+    step = phase6_step(model, cfg)[0]
+    step(frames, labels)                       # warm-up
+    lat_ms = timed_steps(step, [(frames, labels)] * TRAIN_STEPS)[0]
+    sps, _ = profiling.measure(step, frames, labels, steps=TRAIN_STEPS,
+                               warmup=1)
+    lo, hi = min(lat_ms), max(lat_ms)
+    stats = profiling.memory_stats()
+    print(f"tools: measure {1e3 * sps:.3f} ms a step (phase 6's step timed "
+          f"as phase 6 times it, just before: {lo:.3f}-{hi:.3f} ms, band "
+          f"x{MEASURE_BAND}; phase 6's own run "
+          f"{min(main_path['latency_ms']):.3f}-"
+          f"{max(main_path['latency_ms']):.3f} ms); memory_stats {stats}",
+          flush=True)
+    if not MEASURE_BAND[0] * lo <= 1e3 * sps <= MEASURE_BAND[1] * hi:
+        fail(f"measure gives {1e3 * sps:.3f} ms, off the step's "
+             f"{lo:.3f}-{hi:.3f} ms")
+    if stats["peak_bytes_in_use"] != torch.cuda.max_memory_allocated():
+        fail(f"memory_stats' peak {stats['peak_bytes_in_use']} against "
+             f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
+    del model, step
+    torch.cuda.empty_cache()
+    return 1e3 * sps
+
+
+def tools_check() -> None:
+    """`profiling` and `debug` on phase 6's step: a Chrome trace of one
+    step naming K1's, K2's and K6's kernels; `cost_analysis` of one step
+    with its kernel launches; `checked_step` on a batch with a NaN pixel
+    raises and keeps every parameter, BN statistic, momentum buffer and
+    the schedule bit for bit."""
+    import tempfile
+    import torch
+    from torch_semantic_segmentation_tpu_torch import debug, profiling
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        augment_batch)
+
+    model, frames, labels, cfg = phase6_setup()
+    step, inner, state, gen = phase6_step(model, cfg)
+    step(frames, labels)                 # momentum buffers exist after it
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as path:
+            step(frames, labels)
+            torch.cuda.synchronize()
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+    found = {k: [any(n in name for name in names) for n in kernels]
+             for k, kernels in TRACE_KERNELS.items()}
+    print(f"tools: trace of one step, {len(names)} kernel names, "
+          f"K1/K2/K6 forward and backward found: {found}", flush=True)
+    if not all(all(v) for v in found.values()):
+        fail(f"the trace misses kernels: {found}")
+    ca = profiling.cost_analysis(step, frames, labels)
+    want = {k: v for k, v in per_step(1).items() if v}
+    print(f"tools: cost_analysis of one step (ATen operations only): "
+          f"{ca['flops'] / 1e12:.3f} TFLOP, {ca['bytes_accessed'] / 1e9:.3f} "
+          f"GB, {ca['transcendentals'] / 1e6:.3f} M transcendentals; "
+          f"kernel_launches {ca['kernel_launches']}", flush=True)
+    if ca["kernel_launches"] != want or ca["flops"] <= 0:
+        fail(f"cost_analysis' launches {ca['kernel_launches']}, expected "
+             f"{want}")
+    images, lab = augment_batch(frames, labels, gen, cfg)
+    images[0, 5, 5, 0] = float("nan")
+    before = ({k: v.clone() for k, v in model.state_dict().items()},
+              [state.optimizer.state[p]["momentum_buffer"].clone()
+               for p in model.parameters()],
+              state.scheduler.state_dict())
+    checked = debug.checked_step(inner)
+    try:
+        checked(images, lab)
+        fail("checked_step did not raise on a NaN pixel")
+    except FloatingPointError as e:
+        raised = str(e)
+    same = (all(torch.equal(v, model.state_dict()[k])
+                for k, v in before[0].items())
+            and all(torch.equal(m, state.optimizer.state[p]["momentum_buffer"])
+                    for m, p in zip(before[1], model.parameters()))
+            and before[2] == state.scheduler.state_dict())
+    print(f"tools: checked_step on a NaN pixel raised '{raised}'; the state "
+          f"{'kept bit for bit' if same else 'CHANGED'}", flush=True)
+    if not same:
+        fail("checked_step changed the state of a step it refused")
+    del model
+    torch.cuda.empty_cache()
+
+
+def dp_phase(main_path: dict) -> dict:
+    """Phase 14: the group of one, the profiling and debug tools, and two
+    ranks on the one card through the train CLI, whose ranks run beside
+    this process's single-process CLI run and tool checks."""
+    from torch_semantic_segmentation_tpu_torch.cli.train import main
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    one = group_of_one(main_path)
+    measure_ms = measure_check(main_path)
+    procs = rank_processes()
+    try:
+        single = main(DP_CLI_FLAGS).losses
+        tools_check()
+        ranks = rank_results(procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    cli = dp_cli_check(ranks, single)
+    print(f"dp phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"group_of_one": one, "cli": cli, "measure_ms": measure_ms}
+
+
 def main() -> int:
     try:
         import torch
@@ -3195,6 +3697,11 @@ def main() -> int:
     stretch = {name: stretch_phase(name) for name in STRETCH_MODELS}
     fed = pipeline_phase(main_path["latency_ms"])
     cli = cli_phase(remat["launches"]["True"])
+    dp = dp_phase(main_path)
+    print(f"dp launches (phase 14, not in the kernels line): group of one "
+          f"{dp['group_of_one']['launches']} in {TRAIN_STEPS} steps; each "
+          f"of the two ranks {per_step(DP_CLI_STEPS)} in {DP_CLI_STEPS} "
+          f"steps", flush=True)
 
     def row(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",

@@ -1,0 +1,461 @@
+"""Ranks of the port's data-parallel tests (`tests/test_torch_parallel*.py`,
+`tests/test_torch_multihost_cli.py`). It imports only the port, torch and
+numpy.
+
+    python tests/torch_mp_worker.py SUITE RANK WORLD STORE OUTDIR
+
+joins a gloo group of WORLD ranks through `file://STORE`, runs every case
+of SUITE on its rows of each case's global batch and saves
+{case: result} to OUTDIR/rank<RANK>.pt. The parent test runs the same case
+functions in its own process without a group, where they see the whole
+batch, and compares.
+
+Each case builds its global inputs from a seed with numpy, takes the
+rank's rows (`parallel.shard_batch`), runs, and returns a dict of tensors.
+A loss case returns the rank's share of the loss and the gradients of that
+share: the shares sum over ranks to the single-process loss, the input
+gradients are the rank's rows of the single-process ones, and parameter
+gradients are the rank's parts, which sum to the single process's.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+from torch_semantic_segmentation_tpu_torch import checkpoint, losses
+from torch_semantic_segmentation_tpu_torch.parallel import (
+    distributed, shard_batch)
+
+C = 5
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _rows(*arrays):
+    return shard_batch(tuple(_t(a) for a in arrays))
+
+
+# --- suite "parallel": the layers, the losses, the draws, the matrix ---
+
+def case_bn() -> dict:
+    from torch_semantic_segmentation_tpu_torch.ops.conv import make_norm
+    rng = np.random.default_rng(1)
+    x = (rng.normal(size=(4, 6, 5, 8)) * 3 + 1).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    x, g = _rows(x, g)
+    x.requires_grad_(True)
+    bn = make_norm(8)
+    with torch.no_grad():
+        bn.weight.copy_(_t(rng.uniform(0.5, 1.5, 8).astype(np.float32)))
+        bn.bias.copy_(_t(rng.normal(size=8).astype(np.float32)))
+    bn.train()
+    y = bn(x)
+    (y * g).sum().backward()
+    return {"y": y.detach(), "dx": x.grad, "dweight": bn.weight.grad,
+            "dbias": bn.bias.grad, "running_mean": bn.running_mean,
+            "running_var": bn.running_var}
+
+
+def case_folded() -> dict:
+    from torch_semantic_segmentation_tpu_torch.ops.conv import (
+        make_conv, make_norm)
+    from torch_semantic_segmentation_tpu_torch.ops.folded_bn import (
+        folded_1x1_weights)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(4, 5, 5, 6)).astype(np.float32) + 0.5
+    (x,) = _rows(x)
+    x.requires_grad_(True)
+    conv = make_conv(6, 10, 1, use_bias=True,
+                     generator=torch.Generator().manual_seed(3))
+    bn = make_norm(10)
+    a = _t(rng.normal(size=(6, 10)).astype(np.float32))
+    b = _t(rng.normal(size=10).astype(np.float32))
+    wf, bf = folded_1x1_weights(conv, bn, x)
+    # every rank computes the same W′, b′: each backpropagates 1/R of a
+    # loss of them, and the shares sum to the single process's
+    share = ((wf * a).sum() + (bf * b).sum()) / distributed.world_size()
+    share.backward()
+    return {"w": wf.detach(), "b": bf.detach(), "dx": x.grad,
+            "dconv": conv.weight.grad, "dconv_bias": conv.bias.grad,
+            "dgamma": bn.weight.grad, "dbeta": bn.bias.grad,
+            "running_mean": bn.running_mean, "running_var": bn.running_var}
+
+
+def _labels(rng, shape, pattern: str):
+    """(N, H, W) int32 labels of `pattern`: "rank1_ignored" leaves the
+    second half of the batch all 255; "unequal" ignores a different share
+    of each image."""
+    y = rng.integers(0, C, shape).astype(np.int32)
+    n = shape[0]
+    if pattern == "rank1_ignored":
+        y[n // 2:] = 255
+    else:
+        for i in range(n):
+            y[i][rng.random(shape[1:]) < 0.2 * i] = 255
+    return y
+
+
+LOSS_CASES = [(fn, pattern, weighted)
+              for fn in ("ce", "k1", "resize_plain")
+              for pattern in ("rank1_ignored", "unequal")
+              for weighted in (False, True)]
+
+
+def _loss_case(fn: str, pattern: str, weighted: bool) -> dict:
+    rng = np.random.default_rng(10 + LOSS_CASES.index((fn, pattern,
+                                                       weighted)))
+    cw = (torch.from_numpy(rng.uniform(0.5, 2.0, C).astype(np.float32))
+          if weighted else None)
+    if fn == "ce":
+        logits = rng.normal(size=(4, 8, 6, C)).astype(np.float32) * 2
+        labels = _labels(rng, (4, 8, 6), pattern)
+    else:
+        logits = rng.normal(size=(4, 4, 3, C)).astype(np.float32) * 2
+        labels = _labels(rng, (4, 16, 12), pattern)
+    logits, labels = _rows(logits, labels)
+    if fn == "k1":
+        logits = logits.to(torch.bfloat16)
+    logits.requires_grad_(True)
+    if fn == "ce":
+        share = losses.cross_entropy_loss(logits, labels, class_weights=cw)
+    else:
+        share = losses.resize_cross_entropy_loss(logits, labels,
+                                                 class_weights=cw)
+    share.backward()
+    return {"share": share.detach(), "dlogits": logits.grad.float()}
+
+
+OHEM_CASES = [("ohem", True), ("ohem", False), ("resize_ohem", None),
+              ("resize_ohem_f32", None)]
+
+
+def ohem_inputs(fn: str, exact):
+    """The global (logits, labels, keywords) of an OHEM case. min_kept is
+    60% of the global batch's pixels: more than one rank's valid pixels,
+    and above the count that thresh 0.3 keeps, so it decides."""
+    rng = np.random.default_rng(30 + OHEM_CASES.index((fn, exact)))
+    if fn == "ohem":
+        logits = rng.normal(size=(4, 8, 8, C)).astype(np.float32) * 2
+        labels = _labels(rng, (4, 8, 8), "unequal")
+    else:
+        logits = rng.normal(size=(4, 4, 4, C)).astype(np.float32) * 2
+        labels = _labels(rng, (4, 16, 16), "unequal")
+    return logits, labels, dict(thresh=0.3, min_kept=int(0.6 * labels.size))
+
+
+def _ohem_case(fn: str, exact) -> dict:
+    logits, labels, kw = ohem_inputs(fn, exact)
+    logits, labels = _rows(logits, labels)
+    if fn == "resize_ohem":
+        logits = logits.to(torch.bfloat16)
+    logits.requires_grad_(True)
+    if fn == "ohem":
+        share = losses.ohem_cross_entropy(logits, labels, exact=exact, **kw)
+    else:
+        share = losses.resize_ohem_cross_entropy(logits, labels, **kw)
+    share.backward()
+    return {"share": share.detach(), "dlogits": logits.grad.float(),
+            "min_kept": torch.tensor(kw["min_kept"])}
+
+
+def case_draws() -> dict:
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig, augment_batch)
+    from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
+    rng = np.random.default_rng(4)
+    frames = rng.integers(0, 256, (4, 40, 48, 3)).astype(np.uint8)
+    labels = rng.integers(0, C, (4, 40, 48)).astype(np.uint8)
+    x = rng.normal(size=(4, 6, 6, 8)).astype(np.float32)
+    frames, labels, x = _rows(frames, labels, x)
+    gen = torch.Generator().manual_seed(5)
+    out = {}
+    for i in range(2):   # two batches: the generator stays in step
+        img, lbl = augment_batch(frames, labels, gen,
+                                 AugmentConfig(crop=(32, 32), hue=0.1))
+        out[f"images{i}"], out[f"labels{i}"] = img, lbl
+    for name, dims in (("dropout", ()), ("spatial", (1, 2))):
+        drop = Dropout(0.5, broadcast_dims=dims,
+                       generator=torch.Generator().manual_seed(6))
+        drop.train()
+        out[name] = torch.cat([drop(x), drop(x)])
+    out["generator"] = gen.get_state()
+    return out
+
+
+class _PixelClassifier(torch.nn.Module):
+    """A 1×1 linear map from RGB to C logits (NHWC), for the eval step."""
+
+    def __init__(self):
+        super().__init__()
+        g = torch.Generator().manual_seed(7)
+        self.w = torch.nn.Parameter(torch.randn(3, C, generator=g))
+
+    def forward(self, x):
+        return x @ self.w
+
+
+def case_eval() -> dict:
+    from torch_semantic_segmentation_tpu_torch.eval import evaluate
+    from torch_semantic_segmentation_tpu_torch.train import make_eval_step
+    rng = np.random.default_rng(8)
+    batches = []
+    for _ in range(3):
+        x = rng.normal(size=(4, 10, 12, 3)).astype(np.float32)
+        y = _labels(rng, (4, 10, 12), "unequal")
+        batches.append(_rows(x, y))
+    step = make_eval_step(_PixelClassifier(), num_classes=C, device="cpu")
+    _, miou, cm = evaluate(step, batches, num_classes=C, device="cpu")
+    return {"cm": cm, "miou": torch.tensor(miou, dtype=torch.float64)}
+
+
+def case_shard_range() -> dict:
+    out = {"range8": torch.tensor(distributed.local_shard_range(8))}
+    try:
+        distributed.local_shard_range(3)
+        out["raised"] = torch.tensor(False)
+    except ValueError:
+        out["raised"] = torch.tensor(True)
+    return out
+
+
+def case_loader() -> dict:
+    """The rank's input stream (`local_batch_iterator`): two global
+    batches of 4 from a shuffled dataset of 10, the rank's rows of each."""
+    rng = np.random.default_rng(9)
+    dataset = [(rng.integers(0, 256, (6, 8, 3)).astype(np.uint8),
+                rng.integers(0, C, (6, 8)).astype(np.uint8))
+               for _ in range(10)]
+    it = distributed.local_batch_iterator(dataset, 4, device="cpu", seed=3,
+                                          start_batch=1, num_threads=2)
+    out = {}
+    for i in range(2):
+        out[f"images{i}"], out[f"labels{i}"] = next(it)
+    return out
+
+
+def suite_parallel() -> dict:
+    res = {"bn": case_bn(), "folded": case_folded(), "draws": case_draws(),
+           "eval": case_eval(), "shard_range": case_shard_range(),
+           "loader": case_loader()}
+    for key in LOSS_CASES:
+        res["loss-" + "-".join(map(str, key))] = _loss_case(*key)
+    for key in OHEM_CASES:
+        res["ohem-" + "-".join(map(str, key))] = _ohem_case(*key)
+    return res
+
+
+# --- suite "step": whole training steps ---
+
+STEP_N, STEP_H, STEP_W, STEP_C = 4, 64, 128, 19
+LR = 0.002
+
+
+def step_batches(steps: int, *, n=STEP_N, h=STEP_H, w=STEP_W, c=STEP_C,
+                 seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        x = rng.normal(size=(n, h, w, 3)).astype(np.float32)
+        y = rng.integers(0, c, (n, h, w)).astype(np.int32)
+        y[:, :4, :9] = 255
+        out.append((x, y))
+    return out
+
+
+def run_steps(model, loss_fn, batches) -> dict:
+    """SGD steps (LR 0.002, max_steps 4) on the rank's rows of each batch:
+    the losses, and the state after the first and the last step."""
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+    state = create_train_state(model, OptimizerConfig(lr=LR, max_steps=4))
+    step = make_train_step(model, state, loss_fn, device="cpu")
+    out = {"losses": []}
+    for i, batch in enumerate(batches):
+        out["losses"].append(step(*_rows(*batch))["loss"])
+        if i in (0, len(batches) - 1):
+            out[f"state{i + 1}"] = {k: v.clone() for k, v in
+                                    model.state_dict().items()}
+    out["losses"] = torch.stack(out["losses"])
+    return out
+
+
+def fastscnn_model(init: str | None, compute_dtype=None):
+    from torch_semantic_segmentation_tpu_torch.models import fastscnn
+    m = fastscnn(STEP_C, upsample_logits=False, compute_dtype=compute_dtype,
+                 device="cpu")
+    if init is not None:
+        m.load_state_dict(torch.load(init, weights_only=True))
+    m.classifier.dropout.rate = 0.0
+    return m
+
+
+def enet_model():
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    return get_model("enet", STEP_C, device="cpu")
+
+
+def case_fastscnn_f32(init) -> dict:
+    return run_steps(fastscnn_model(init), losses.resize_cross_entropy_loss,
+                     step_batches(3))
+
+
+def case_fastscnn_bf16(init) -> dict:
+    return run_steps(fastscnn_model(init, torch.bfloat16),
+                     losses.resize_cross_entropy_loss, step_batches(2))
+
+
+def case_enet() -> dict:
+    model = enet_model()
+    out = run_steps(model, losses.cross_entropy_loss,
+                    step_batches(2, h=32, w=32, seed=1))
+    out["dropout_generator"] = model.dropout_generator.get_state()
+    return out
+
+
+def case_checked_nan(init) -> dict:
+    """One good step, then one whose batch has a NaN pixel (in rank 0's
+    rows): the checked step raises on every rank and leaves the state."""
+    from torch_semantic_segmentation_tpu_torch.debug import checked_step
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+    model = fastscnn_model(init)
+    state = create_train_state(model, OptimizerConfig(lr=LR, max_steps=4))
+    step = checked_step(make_train_step(
+        model, state, losses.resize_cross_entropy_loss, device="cpu"))
+    (x, y), (x2, y2) = step_batches(2, h=32, w=32, seed=2)
+    step(*_rows(x, y))
+    before = ({k: v.clone() for k, v in model.state_dict().items()},
+              [b.clone() for b in _momenta(state)],
+              state.scheduler.state_dict())
+    x2[0, 5, 5, 1] = np.nan
+    try:
+        step(*_rows(x2, y2))
+        raised = ""
+    except FloatingPointError as e:
+        raised = str(e)
+    after = model.state_dict()
+    same = (all(torch.equal(v, after[k]) for k, v in before[0].items())
+            and all(torch.equal(a, b) for a, b in
+                    zip(before[1], _momenta(state), strict=True))
+            and before[2] == state.scheduler.state_dict())
+    return {"raised": raised, "unchanged": torch.tensor(same)}
+
+
+def _momenta(state):
+    opt = state.optimizer
+    return [opt.state[p]["momentum_buffer"]
+            for g in opt.param_groups for p in g["params"]]
+
+
+def suite_step(outdir: str) -> dict:
+    init = os.path.join(outdir, "init.pt")
+    return {"init": init, "fastscnn_f32": case_fastscnn_f32(init),
+            "fastscnn_bf16": case_fastscnn_bf16(init),
+            "enet": case_enet(), "checked_nan": case_checked_nan(init)}
+
+
+# --- suite "cli": the train CLI with --multihost ---
+
+def cli_flags(store: str | None = None) -> list[str]:
+    flags = ["--device", "cpu", "--no-bf16", "--dataset", "synthetic",
+             "--model", "fastscnn", "--batch-size", "4", "--crop-size", "64",
+             "128", "--lr", "0.002", "--log-every", "1",
+             "--schedule-steps", "4"]
+    if store is not None:
+        flags += ["--multihost", "--dist-init-method", f"file://{store}"]
+    return flags
+
+
+def cli_result(run) -> dict:
+    return {"losses": torch.tensor([v for _, v in run.losses],
+                                   dtype=torch.float64),
+            "steps": torch.tensor([s for s, _ in run.losses]),
+            "best_miou": torch.tensor(float("nan") if run.best_miou is None
+                                      else run.best_miou,
+                                      dtype=torch.float64),
+            "state": {k: v.clone()
+                      for k, v in run.model.state_dict().items()}}
+
+
+def suite_cli(store: str, outdir: str) -> dict:
+    from torch_semantic_segmentation_tpu_torch.cli.train import main
+    flags = cli_flags(store)
+    res = {"eval": cli_result(main(flags + [
+        "--max-iterations", "4", "--eval-every", "4",
+        "--eval-batches", "2"]))}
+    writes = []
+    real_write = checkpoint.CheckpointManager._write
+
+    def counted(self, payload, pruned):
+        writes.append(payload["step"])
+        return real_write(self, payload, pruned)
+
+    checkpoint.CheckpointManager._write = counted
+    ckpt = os.path.join(outdir, "ckpt")
+    main(flags + ["--max-iterations", "2", "--checkpoint-dir", ckpt,
+                  "--checkpoint-every", "2"])
+    res["resumed"] = cli_result(main(flags + [
+        "--max-iterations", "4", "--checkpoint-dir", ckpt,
+        "--checkpoint-every", "2", "--resume"]))
+    checkpoint.CheckpointManager._write = real_write
+    res["writes"] = torch.tensor(writes)
+    try:
+        main(flags + ["--batch-size", "3", "--max-iterations", "1"])
+        res["indivisible"] = ""
+    except ValueError as e:
+        res["indivisible"] = str(e)
+    return res
+
+
+def launch(suite: str, outdir: str, world: int = 2) -> list:
+    """Start the ranks of `suite` in the background; `collect` waits."""
+    import subprocess
+    os.makedirs(outdir, exist_ok=True)
+    store = os.path.join(outdir, "store")
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), suite, str(r), str(world),
+         store, outdir], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def collect(procs: list, outdir: str, timeout: float = 240.0) -> list:
+    """Every rank's {case: result}, after each exits; raises with a
+    failed rank's output."""
+    outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {r} exited {p.returncode}:\n{out}")
+    return [torch.load(os.path.join(outdir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(len(procs))]
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    suite, rank, world, store, outdir = sys.argv[1:6]
+    torch.set_num_threads(1)
+    os.environ.update(WORLD_SIZE=world, RANK=rank, LOCAL_RANK=rank)
+    distributed.initialize("cpu", init_method=f"file://{store}")
+    if suite == "parallel":
+        res = suite_parallel()
+    elif suite == "step":
+        res = suite_step(outdir)
+    else:
+        res = suite_cli(store, outdir)
+    torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))
+    distributed.barrier()
+    distributed.destroy()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,6 +22,11 @@ complete step. Which steps are saved and kept follows orbax's
 it is a multiple of `save_interval_steps` or no checkpoint exists yet, and
 is newer than the latest; `force=True` saves any new step; the newest
 `max_to_keep` are kept.
+
+Under a process group every rank keeps the same account of the steps, and
+rank 0 alone takes the host copy and writes; `wait` (and so `load`,
+`restore_latest` and `close`) ends at a barrier, so no rank reads before
+rank 0's file is on disk, and every rank restores the same step.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ import typing as tp
 
 import torch
 from torch import nn
+
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 FILE = "checkpoint.pt"
 
@@ -105,12 +112,13 @@ class CheckpointManager:
             return False
         if step in self._steps:
             raise ValueError(f"checkpoint for step {step} already exists")
-        payload = snapshot(step, model, state, generators=generators)
         self._steps = sorted(self._steps + [step])
         pruned = self._steps[:-self.max_to_keep] if self.max_to_keep else []
         self._steps = self._steps[len(pruned):]
-        self._pending.append(self._writer.submit(self._write, payload,
-                                                 pruned))
+        if distributed.rank() == 0:
+            payload = snapshot(step, model, state, generators=generators)
+            self._pending.append(self._writer.submit(self._write, payload,
+                                                     pruned))
         return True
 
     def _write(self, payload: dict, pruned: list[int]):
@@ -128,10 +136,14 @@ class CheckpointManager:
 
     def wait(self):
         """Block until every started save is on disk; re-raises a failed
-        write."""
+        write. Under a process group every rank calls it, and it returns
+        on none before rank 0's saves are on disk."""
         pending, self._pending = self._pending, []
-        for f in pending:
-            f.result()
+        try:
+            for f in pending:
+                f.result()
+        finally:
+            distributed.barrier()
 
     def close(self):
         self.wait()

@@ -136,17 +136,27 @@ def val_batches(bundle: DatasetBundle, batch_size: int, *, device,
     """The validation stream of `bundle` in order, one pass: host batches
     (the bundle's LUT applied) → pinned prefetch to `device` → normalised
     images (resized to `eval_size` = (H, W) where given) and int32 labels,
-    stopping after `max_batches` where given."""
+    stopping after `max_batches` where given. Under a process group
+    `batch_size` is the global batch and the rank reads its rows of each;
+    every rank needs whole batches then (`drop_last=True`)."""
     from torch_semantic_segmentation_tpu_torch.data.pipeline import (
         batch_iterator, prefetch_to_device)
+    from torch_semantic_segmentation_tpu_torch.parallel import distributed
     from torch_semantic_segmentation_tpu_torch.data.transforms import (
         normalize_batch)
     from torch_semantic_segmentation_tpu_torch.ops.upsample import (
         resize_bilinear)
 
+    sample_slice = None
+    if distributed.is_initialized():
+        if not drop_last:
+            raise ValueError("under a process group every rank reads whole "
+                             "batches: pass drop_last=True")
+        sample_slice = distributed.local_shard_range(batch_size)
     host = batch_iterator(bundle.dataset, batch_size, shuffle=False,
                           drop_last=drop_last, epochs=1,
-                          label_lut=bundle.label_lut)
+                          label_lut=bundle.label_lut,
+                          sample_slice=sample_slice)
     for i, (imgs, lbls) in enumerate(
             prefetch_to_device(host, size=2, device=device)):
         if max_batches is not None and i >= max_batches:

@@ -2,7 +2,8 @@
 → pinned prefetch → augmentation on the card → forward, backward and the
 SGD/poly-LR update, eagerly; the host loop only logs, evaluates and saves.
 
-Usage (the JAX CLI's flags and defaults, plus `--device`):
+Usage (the JAX CLI's flags and defaults, plus `--device` and the process
+group's `--dist-backend` and `--dist-init-method`):
 
   python -m torch_semantic_segmentation_tpu_torch.cli.train \
       --model fastscnn --dataset cityscapes --dataset-dir /data/cityscapes \
@@ -11,6 +12,15 @@ Usage (the JAX CLI's flags and defaults, plus `--device`):
 
 Smoke run on the CPU, no data: --device cpu --dataset synthetic
 --max-iterations 5
+
+Data parallel, one process a card (`--batch-size` is the global batch):
+
+  torchrun --nproc-per-node 2 -m torch_semantic_segmentation_tpu_torch.cli.train \
+      --multihost --dataset synthetic --batch-size 8 --max-iterations 5
+
+(`--device cpu` for two CPU ranks over gloo.) Every rank steps on its
+rows of each global batch and takes the single process's steps; rank 0
+alone prints the log, writes the TensorBoard scalars and the checkpoints.
 """
 
 from __future__ import annotations
@@ -38,7 +48,8 @@ def parse_args(argv=None):
                             "synthetic", "shapes"])
     p.add_argument("--dataset-dir", default=None)
     p.add_argument("--batch-size", type=int, default=16,
-                   help="global batch (one card: the card's batch)")
+                   help="global batch (one card: the card's batch; under "
+                        "--multihost it must divide by the ranks)")
     p.add_argument("--crop-size", type=int, nargs="+", default=[768],
                    help="train crop (one value = square)")
     p.add_argument("--scale-range", type=float, nargs=2, default=[0.5, 2.0])
@@ -102,6 +113,21 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; raises "
                         "when there is none). Pass cpu for the CPU")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a torch.distributed process group from "
+                        "torchrun's environment (WORLD_SIZE, RANK, "
+                        "LOCAL_RANK, MASTER_ADDR, MASTER_PORT): one process "
+                        "a card, each decoding and stepping on only its "
+                        "slice of every global batch "
+                        "(parallel.distributed)")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="with --multihost: the process group's backend "
+                        "(default: nccl on the card, gloo on the CPU; gloo "
+                        "puts several ranks on one card)")
+    p.add_argument("--dist-init-method", default="env://",
+                   help="with --multihost: the rendezvous (env:// reads "
+                        "MASTER_ADDR and MASTER_PORT; file://<path> needs "
+                        "neither)")
     args = p.parse_args(argv)
     if args.config:
         import json
@@ -120,13 +146,15 @@ def parse_args(argv=None):
 class TrainRun(tp.NamedTuple):
     """What `main` returns: the trained model, its optimizer and schedule,
     the generators a checkpoint holds (the augmentation's, then the model's
-    dropout generator where it has one), the steps taken in all and the
-    best val mIoU (None without `--eval-every`)."""
+    dropout generator where it has one), the steps taken in all, the best
+    val mIoU (None without `--eval-every`) and the (step, loss) pairs the
+    log read (on every rank; rank 0 prints them)."""
     model: nn.Module
     state: TrainState
     generators: tuple[torch.Generator, ...]
     step: int
     best_miou: float | None
+    losses: tuple[tuple[int, float], ...] = ()
 
 
 def main(argv=None) -> TrainRun:
@@ -137,7 +165,9 @@ def main(argv=None) -> TrainRun:
     # fatal; the train loop checks the flag each step, forces a checkpoint
     # and exits cleanly so --resume continues from there. Only possible
     # from the main thread (CPython restriction): callers on worker threads
-    # get no hook.
+    # get no hook. Every rank installs it; under --multihost the ranks
+    # agree on the flag at each log point, where the host waits for the
+    # card anyway, so all of them stop after the same step.
     import signal
     import threading
 
@@ -175,16 +205,31 @@ def _run(args, preempted) -> TrainRun:
         AugmentConfig)
     from torch_semantic_segmentation_tpu_torch.device import resolve_device
     from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.parallel import (
+        distributed, replicate)
     from torch_semantic_segmentation_tpu_torch.train import (
         OptimizerConfig, create_train_state, make_train_step)
 
-    dev = resolve_device(args.device)
+    if args.multihost:
+        dev = distributed.initialize(args.device, backend=args.dist_backend,
+                                     init_method=args.dist_init_method)
+        print(f"multihost: process {distributed.rank()}/"
+              f"{distributed.world_size()}, 1 local / "
+              f"{distributed.world_size()} global devices ({dev}, "
+              f"{torch.distributed.get_backend()})", flush=True)
+        distributed.local_shard_range(args.batch_size)  # B % R == 0
+    else:
+        dev = resolve_device(args.device)
+    multi = distributed.is_multiprocess()
+    is_main = distributed.rank() == 0
+    log = print if is_main else (lambda *a, **k: None)
     crop = (args.crop_size[0], args.crop_size[-1])
     bundle = build_dataset(args.dataset, args.dataset_dir, "train",
                            synthetic_size=(max(args.batch_size * 2, 8),
                                            crop[0], crop[1]))
-    print(f"devices=1 global_batch={args.batch_size} "
-          f"model={args.model} dataset={args.dataset} device={dev}")
+    log(f"devices={distributed.world_size()} "
+        f"global_batch={args.batch_size} "
+        f"model={args.model} dataset={args.dataset} device={dev}")
 
     model_kwargs = {}
     if args.fused_resize_loss:
@@ -196,7 +241,8 @@ def _run(args, preempted) -> TrainRun:
         from torch_semantic_segmentation_tpu_torch.compat.torch_loader import (
             load_torch_checkpoint)
         load_torch_checkpoint(model, args.pretrained)
-        print(f"imported torch checkpoint {args.pretrained}")
+        log(f"imported torch checkpoint {args.pretrained}")
+    replicate(model)
 
     opt_cfg = OptimizerConfig(
         lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
@@ -233,14 +279,16 @@ def _run(args, preempted) -> TrainRun:
                                           generators=generators)
             if restored is not None:
                 start_step = restored
-                print(f"resumed from step {start_step}")
+                log(f"resumed from step {start_step}")
 
-    writer = _summary_writer(args.logdir) if args.logdir else None
+    writer = (_summary_writer(args.logdir) if args.logdir and is_main
+              else None)
 
     # one batch per step, so batch-sequence == step: on resume the loader
     # fast-forwards to start_step and the (seed, epoch)-keyed shuffle makes
     # the stream bit-identical to an uninterrupted run (the restored
-    # augmentation generator continues its draws the same way)
+    # augmentation generator continues its draws the same way); under a
+    # process group each rank reads its rows of every batch
     batches = train_input_pipeline(
         bundle.dataset, args.batch_size, aug_cfg, generator=data_gen,
         label_lut=bundle.label_lut, device=dev, prefetch=2,
@@ -288,18 +336,22 @@ def _run(args, preempted) -> TrainRun:
     t0 = time.perf_counter()
     imgs_done = 0
     loss_val = float("nan")
+    losses: list[tuple[int, float]] = []
     it = start_step - 1
     for it in range(start_step, args.max_iterations):
         images, labels = next(batches)
         metrics = step(images, labels)
         imgs_done += args.batch_size
-        if (it + 1) % args.log_every == 0 or it + 1 == args.max_iterations:
+        at_log = ((it + 1) % args.log_every == 0
+                  or it + 1 == args.max_iterations)
+        if at_log:
             loss_val = float(metrics["loss"])   # device sync point
+            losses.append((it + 1, loss_val))
             dt = time.perf_counter() - t0
             img_s = imgs_done / dt
-            print(f"it {it + 1}/{args.max_iterations} "
-                  f"loss {loss_val:.6f} "
-                  f"img/s {img_s:.1f}")
+            log(f"it {it + 1}/{args.max_iterations} "
+                f"loss {loss_val:.6f} "
+                f"img/s {img_s:.1f}")
             if writer is not None:
                 writer.add_scalar("train/loss", loss_val, it + 1)
                 writer.add_scalar("train/images_per_sec_per_chip", img_s,
@@ -324,8 +376,8 @@ def _run(args, preempted) -> TrainRun:
             worst = np.argsort(iou)[:3]
             worst_str = " ".join(
                 f"{names[c]}={100 * iou[c]:.1f}" for c in worst)
-            print(f"it {it + 1} val mIoU {100 * miou:.2f}{marker} "
-                  f"worst: {worst_str}")
+            log(f"it {it + 1} val mIoU {100 * miou:.2f}{marker} "
+                f"worst: {worst_str}")
             if writer is not None:
                 writer.add_scalar("val/miou", miou, it + 1)
                 for c in range(len(names)):
@@ -334,15 +386,18 @@ def _run(args, preempted) -> TrainRun:
         # capture the flag BEFORE the save so a signal landing mid-save is
         # handled next iteration rather than skipping the forced checkpoint
         stopping = preempted["flag"]
+        if multi:
+            stopping = at_log and bool(distributed.reduce_max(torch.tensor(
+                int(stopping), device=dev)).item())
         if mgr is not None:
             mgr.save(it + 1, model, state, generators=generators,
                      force=(it + 1 == args.max_iterations or stopping))
         if stopping:
             if mgr is not None:
-                print(f"SIGTERM: checkpoint saved at it {it + 1}, exiting "
-                      "(restart with --resume)")
+                log(f"SIGTERM: checkpoint saved at it {it + 1}, exiting "
+                    "(restart with --resume)")
             else:
-                print("SIGTERM: exiting (no --checkpoint-dir, nothing saved)")
+                log("SIGTERM: exiting (no --checkpoint-dir, nothing saved)")
             break
     if mgr is not None:
         mgr.close()
@@ -351,12 +406,13 @@ def _run(args, preempted) -> TrainRun:
     if writer is not None:
         writer.close()
     if best_miou > float("-inf"):
-        print(f"done: final loss {loss_val:.4f} "
-              f"best val mIoU {100 * best_miou:.2f}")
+        log(f"done: final loss {loss_val:.4f} "
+            f"best val mIoU {100 * best_miou:.2f}")
     else:
-        print(f"done: final loss {loss_val:.4f}")
+        log(f"done: final loss {loss_val:.4f}")
     return TrainRun(model, state, generators, it + 1,
-                    best_miou if best_miou > float("-inf") else None)
+                    best_miou if best_miou > float("-inf") else None,
+                    tuple(losses))
 
 
 def cli() -> int:

@@ -256,9 +256,18 @@ def train_input_pipeline(
     `native=True` decodes by `native_loader.native_batch_iterator` over the
     dataset's paths (a build failure raises), else by `batch_iterator` over
     the dataset's `__getitem__`; `loader_kwargs` go to the loader
-    (`seed`, `shuffle`, `num_threads`, `start_batch`, ...)."""
+    (`seed`, `shuffle`, `num_threads`, `start_batch`, ...).
+
+    Under a process group `batch_size` is the global batch, and the rank
+    decodes and augments its rows of each (`sample_slice` from
+    `distributed.local_shard_range`)."""
     from torch_semantic_segmentation_tpu_torch.data.transforms import (
         augment_batch)
+    from torch_semantic_segmentation_tpu_torch.parallel import distributed
+
+    if distributed.is_initialized():
+        loader_kwargs.setdefault("sample_slice",
+                                 distributed.local_shard_range(batch_size))
 
     if native:
         from torch_semantic_segmentation_tpu_torch.data.native_loader import (

@@ -33,6 +33,8 @@ import typing as tp
 
 import torch
 
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
+
 # ImageNet statistics, which the reference uses for Cityscapes
 CITYSCAPES_MEAN = (0.485, 0.456, 0.406)
 CITYSCAPES_STD = (0.229, 0.224, 0.225)
@@ -184,9 +186,16 @@ def augment_batch(images: torch.Tensor, labels: torch.Tensor,
     """The fused train-time transform on the images' device: (N,H,W,3)
     uint8 images and (N,H,W) labels → (images (N,ch,cw,3) normalised in
     `cfg.out_dtype`, labels (N,ch,cw) int32). `generator` lies on the
-    images' device; the same generator state gives the same batch."""
+    images' device; the same generator state gives the same batch.
+
+    Under a process group the images are the rank's rows of the global
+    batch: the draw is made at the global batch's size and the rank keeps
+    its columns, so rank r augments as the single process does rows r, and
+    every rank's generator stays in step."""
     n, h, w, _ = images.shape
-    u = torch.rand((8, n), generator=generator, device=images.device)
+    u = torch.rand((8, n * distributed.world_size()), generator=generator,
+                   device=images.device)
+    u = distributed.shard_rows(u, dim=1)
     p = _sample_params(u, h, w, cfg)
     img, lbl = _warp_batch(images, labels, p.scale, p.oy, p.ox, p.flip,
                            cfg.crop, cfg.ignore_index)

@@ -18,6 +18,7 @@ from torch_semantic_segmentation_tpu_torch import metrics
 from torch_semantic_segmentation_tpu_torch.device import resolve_device
 from torch_semantic_segmentation_tpu_torch.ops.upsample import (
     resize_bilinear, resize_bilinear_nhcw)
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 def _main_logits(outputs) -> torch.Tensor:
@@ -73,9 +74,13 @@ def make_multiscale_eval_step(
 def evaluate(eval_step, batches: tp.Iterable[tuple[tp.Any, tp.Any]], *,
              num_classes: int, device: str | torch.device | None = None):
     """Run an eval step over batches; returns (per-class IoU, mIoU, cm).
-    Only the final (C, C) matrix leaves the device."""
+    Only the final (C, C) matrix leaves the device. Under a process group
+    each rank runs its own batches (its rows of the global ones) and the
+    int64 matrix is summed over ranks once, at the end, so every rank gets
+    the single-process matrix."""
     cm = metrics.new_confusion_matrix(num_classes, device)
     for images, labels in batches:
         cm = eval_step(cm, images, labels)
+    cm = distributed.reduce_sum(cm)
     iou, miou = metrics.iou_from_confusion_matrix(cm)
     return iou, miou, cm

@@ -80,6 +80,22 @@ def build(name: str) -> Build:
         out, lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], f"{name}.cu")
 
 
+# set by `debug.enable_nan_debugging`: each wrapper then checks what its
+# kernel wrote, which no dispatch mode sees
+CHECK_FINITE = False
+
+
+def check_finite(kernel: str, *outputs) -> None:
+    """Raise FloatingPointError where a kernel's output holds a NaN or an
+    infinity, naming the kernel; a no-op unless `CHECK_FINITE` is on."""
+    if not CHECK_FINITE:
+        return
+    for i, t in enumerate(outputs):
+        if t.is_floating_point() and not bool(t.isfinite().all()):
+            raise FloatingPointError(
+                f"non-finite output {i} of the {kernel} kernel")
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library for `csrc/<name>.cu`, loaded once per process."""

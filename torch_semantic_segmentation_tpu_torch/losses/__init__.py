@@ -16,6 +16,15 @@ sync). Its count of pixels at or above a candidate is an integer, where
 the JAX package sums a float32: the two agree below 2^24 valid pixels. The
 threshold takes no gradient.
 
+Under a process group (`parallel.distributed`) each rank holds its rows
+of the global batch and every loss returns the rank's share of the global
+batch's loss: its own Σ w·l over the global Σ w, so the shares sum over
+ranks to the single-process loss. OHEM's route, its k-th largest loss and
+`min_kept` are the global batch's too (an all-gather for the exact top-k,
+a max and 26 counts reduced over ranks for the bisection). The fused K1
+returns the rank's own ratio, rescaled by its Σ w over the global one.
+Without a group none of this runs.
+
 `aux_weighted_loss` sums a main head's loss and the aux heads' (BiSeNet,
 ICNet). A loss that upsamples low-res logits itself declares
 `handles_resize` (`resize_cross_entropy_loss`, `resize_ohem_cross_entropy`,
@@ -32,7 +41,8 @@ import typing as tp
 import torch
 
 from torch_semantic_segmentation_tpu_torch.ops.resize_ce import (
-    per_pixel_resize_ce, resize_cross_entropy)
+    _label_weights, per_pixel_resize_ce, resize_cross_entropy)
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 from torch_semantic_segmentation_tpu_torch.ops.upsample import (
     resize_bilinear, resize_bilinear_nhcw)
 
@@ -85,6 +95,29 @@ def _pixel_weights(labels: torch.Tensor, valid: torch.Tensor,
     return _one_hot_pick(cw.expand(*labels.shape, -1), labels, valid, -1)
 
 
+def _weighted_mean(loss: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Σ w·l / max(Σ w, 1e−12), the denominator over the global batch."""
+    return (loss * w).sum() / torch.clamp(distributed.all_reduce_sum(w.sum()),
+                                          min=1e-12)
+
+
+def _rank_share(loss: torch.Tensor, labels: torch.Tensor,
+                class_weights, c: int) -> torch.Tensor:
+    """The fused K1's ratio, Σ w·l / Σ w over the rank's own pixels, as
+    the rank's share of the global batch's: scaled by its Σ w (the
+    kernel's pixel weights: cw[label] for a label in [0, C), else 0) over
+    the global Σ w. Without a group the loss itself."""
+    if not distributed.is_initialized():
+        return loss
+    with torch.no_grad():
+        cw = (torch.ones(c, device=labels.device) if class_weights is None
+              else torch.as_tensor(class_weights, dtype=torch.float32,
+                                   device=labels.device))
+        sw = _label_weights(labels, cw)[2].sum()
+        scale = sw / torch.clamp(distributed.reduce_sum(sw), min=1e-12)
+    return loss * scale
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
                        ignore_index: int = 255,
                        class_weights: torch.Tensor | None = None
@@ -92,8 +125,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     """Class-weighted CE with `ignore_index`. logits NHWC, labels NHW;
     returns a float32 scalar."""
     loss, valid = _per_pixel_ce(logits, labels, ignore_index)
-    w = _pixel_weights(labels, valid, class_weights)
-    return (loss * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    return _weighted_mean(loss, _pixel_weights(labels, valid, class_weights))
 
 
 def resize_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -114,8 +146,9 @@ def resize_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
             and (logits.shape[1], logits.shape[2]) != (oh, ow)
             and not 0 <= ignore_index < c
             and _class_weights_constant(class_weights)):
-        return resize_cross_entropy(logits, labels, class_weights,
-                                    align_corners=align_corners)
+        return _rank_share(resize_cross_entropy(
+            logits, labels, class_weights, align_corners=align_corners),
+            labels, class_weights, c)
 
     x = resize_bilinear_nhcw(logits, (oh, ow), align_corners=align_corners,
                              out_dtype=logits.dtype)       # (N, OH, C, OW)
@@ -124,8 +157,7 @@ def resize_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     logz = torch.logsumexp(xf, dim=2)
     true_logit = _one_hot_pick(xf, labels, valid, 2)
     loss = torch.where(valid, logz - true_logit, 0.0)
-    wts = _pixel_weights(labels, valid, class_weights)
-    return (loss * wts).sum() / torch.clamp(wts.sum(), min=1e-12)
+    return _weighted_mean(loss, _pixel_weights(labels, valid, class_weights))
 
 
 resize_cross_entropy_loss.handles_resize = True
@@ -145,22 +177,25 @@ def _threshold_topk_histogram(losses: torch.Tensor, valid: torch.Tensor,
                               k: int, iters: int = 26) -> torch.Tensor:
     """A threshold t at most the k-th largest valid loss, with at least k
     valid losses ≥ t: `iters` halvings of [0, max + 1e−3], each a count of
-    the losses at or above the midpoint, all on the device."""
+    the losses at or above the midpoint, all on the device (the max and
+    each count over every rank's losses under a process group)."""
     lossv = torch.where(valid, losses.float(), -1.0)
     lo = torch.zeros((), dtype=torch.float32, device=losses.device)
-    hi = torch.clamp(lossv.max(), min=1e-6) + 1e-3
+    hi = torch.clamp(distributed.reduce_max(lossv.max()), min=1e-6) + 1e-3
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
-        ge = (lossv >= mid).sum() >= k
+        ge = distributed.reduce_sum((lossv >= mid).sum()) >= k
         lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid)
     return lo
 
 
 def _ohem_keep(flat: torch.Tensor, vflat: torch.Tensor, thresh: float,
                min_kept: int, exact: bool | None) -> torch.Tensor:
-    """The mask of kept pixels of a flat loss map (no gradient)."""
+    """The mask of kept pixels of a flat loss map (no gradient). The route
+    and `min_kept` go by the global batch's pixel count, and the exact
+    route takes the top-k of every rank's valid losses."""
     with torch.no_grad():
-        n = flat.shape[0]
+        n = flat.shape[0] * distributed.world_size()
         k = min(int(min_kept), n)
         threshold = torch.tensor(-math.log(thresh), dtype=torch.float32,
                                  device=flat.device)
@@ -168,8 +203,8 @@ def _ohem_keep(flat: torch.Tensor, vflat: torch.Tensor, thresh: float,
             exact = n <= (1 << 20)
         if k > 0:
             if exact:
-                kth = _threshold_topk_exact(
-                    torch.where(vflat, flat, -math.inf), k)
+                kth = _threshold_topk_exact(distributed.all_gather(
+                    torch.where(vflat, flat, -math.inf)), k)
             else:
                 kth = _threshold_topk_histogram(flat, vflat, k)
             threshold = torch.minimum(threshold, kth)
@@ -178,8 +213,8 @@ def _ohem_keep(flat: torch.Tensor, vflat: torch.Tensor, thresh: float,
 
 def _ohem_mean(flat: torch.Tensor, keep: torch.Tensor, labels: torch.Tensor,
                class_weights) -> torch.Tensor:
-    w = _pixel_weights(labels.reshape(-1), keep, class_weights)
-    return (flat * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    return _weighted_mean(flat, _pixel_weights(labels.reshape(-1), keep,
+                                               class_weights))
 
 
 def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,

@@ -12,6 +12,7 @@ in their own (float32) storage type.
 
 from __future__ import annotations
 
+import contextlib
 import typing as tp
 
 import torch
@@ -20,6 +21,7 @@ from torch import nn
 
 from torch_semantic_segmentation_tpu_torch.ops import depthwise
 from torch_semantic_segmentation_tpu_torch.ops.sepconv import fuse_conv_pair
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 Act = tp.Optional[str]
 
@@ -37,6 +39,46 @@ _ACTIVATIONS: dict[str, tp.Callable[[torch.Tensor], torch.Tensor]] = {
     "hardswish": F.hardswish,
     "silu": F.silu,
 }
+
+
+# the running-statistics updates held back by `deferred_running_stats`
+_deferred: list | None = None
+
+
+@contextlib.contextmanager
+def deferred_running_stats():
+    """Within the block BatchNorm's running-statistics updates are held
+    back in the list it yields, as (bn, mean, var), for the caller to
+    apply (`apply_running_stats`) or drop: the train step keeps its state
+    where a check before the update fails, and the recompute of a
+    checkpointed segment drops its second update."""
+    global _deferred
+    outer, _deferred = _deferred, []
+    try:
+        yield _deferred
+    finally:
+        _deferred = outer
+
+
+def apply_running_stats(pending: list) -> None:
+    for bn, mean, var in pending:
+        bn.update_running_stats(mean, var)
+
+
+def batch_moments(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E[x], E[x²]) over `dims` of the global batch: the rank's own means,
+    and under a process group their weighted sum over ranks in one
+    collective that carries gradients. Every rank holds an equal share of
+    the batch (`distributed.local_shard_range`), so each weighs 1/R; with
+    one rank the weight is 1.0 and the result the rank's own, bit for
+    bit."""
+    mean = x.mean(dim=dims)
+    sq = (x * x).mean(dim=dims)
+    if not distributed.is_initialized():
+        return mean, sq
+    both = distributed.all_reduce_sum(
+        torch.stack([mean, sq]) * (1.0 / distributed.world_size()))
+    return both[0], both[1]
 
 
 def _pair(v) -> tuple[int, int]:
@@ -129,10 +171,13 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     Training mode (flax's `_compute_stats` and `_normalize`): the batch
     mean and the biased variance E[x²]−E[x]² (clipped at 0) in float32 over
-    N, H and W; the running stats move in place as
+    N, H and W (of the global batch under a process group:
+    `batch_moments`); the running stats move in place as
     `(1−m)·running + m·batch`; the output is
     `(x − mean)·(rsqrt(var+eps)·scale) + bias` in float32, cast to the
-    compute dtype. Gradients flow through the batch statistics."""
+    compute dtype. Gradients flow through the batch statistics. Not
+    `nn.SyncBatchNorm`, which keeps the running variance unbiased where
+    flax keeps it biased."""
 
     def __init__(self, *args, compute_dtype: torch.dtype | None = None,
                  **kwargs):
@@ -143,7 +188,11 @@ class BatchNorm2d(nn.BatchNorm2d):
                              var: torch.Tensor) -> None:
         """Move the running stats toward a batch's float32 mean and biased
         variance, as flax does with momentum 1−m. `momentum=None` keeps
-        torch's cumulative average (m = 1 / batches seen)."""
+        torch's cumulative average (m = 1 / batches seen). Inside
+        `deferred_running_stats` the update is held back instead."""
+        if _deferred is not None:
+            _deferred.append((self, mean.detach(), var.detach()))
+            return
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
             m = self.momentum
@@ -158,9 +207,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         dt = _compute_types(x, self.weight, self.compute_dtype)
         if self.training:
             xf = x.to(dt).float()
-            mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean,
-                              min=0.0)
+            mean, sq = batch_moments(xf, (0, 1, 2))
+            var = torch.clamp(sq - mean * mean, min=0.0)
             self.update_running_stats(mean, var)
             # flax promotes scale and bias to the compute dtype first
             mul = torch.rsqrt(var + self.eps) * self.weight.to(dt).float()

@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from torch_semantic_segmentation_tpu_torch import kernels
 from torch_semantic_segmentation_tpu_torch.ops.mbconv import _out_size, _windows
 
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -101,8 +102,6 @@ def depthwise3x3_reference_backward(x: torch.Tensor, k: torch.Tensor,
 
 
 def _library() -> ctypes.CDLL:
-    from torch_semantic_segmentation_tpu_torch import kernels
-
     lib = kernels.load("depthwise")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -187,6 +186,7 @@ def depthwise3x3_forward(x: torch.Tensor, k: torch.Tensor,
                                   n, h, w, c, stride, *_launch_args(x)),
            "forward")
     depthwise3x3_forward.launches += 1
+    kernels.check_finite("depthwise forward", y)
     return y
 
 
@@ -235,6 +235,7 @@ def depthwise3x3_backward(x: torch.Tensor, k: torch.Tensor, g: torch.Tensor,
                                     scratch.data_ptr(), dk.data_ptr(),
                                     n, h, w, c, *args), "dk")
     depthwise3x3_backward.launches += 1
+    kernels.check_finite("depthwise backward", dx, dk)
     return dx, dk
 
 

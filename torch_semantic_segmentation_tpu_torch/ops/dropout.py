@@ -10,12 +10,19 @@ or rate 0.
 
 `broadcast_dims` draws one mask value for all positions along those axes:
 (1, 2) on an NHWC tensor is spatial (channel) dropout, one value an
-(n, c), as ENet's bottlenecks use it."""
+(n, c), as ENet's bottlenecks use it.
+
+Under a process group the input holds the rank's rows of the global batch:
+the mask is drawn at the global batch's N (one value for all N where 0 is
+in `broadcast_dims`) and the rank keeps its rows, so every generator stays
+in step with the single process's."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 class Dropout(nn.Module):
@@ -42,5 +49,9 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         shape = [1 if d in self.broadcast_dims else s
                  for d, s in enumerate(x.shape)]
+        if 0 not in self.broadcast_dims:
+            shape[0] *= distributed.world_size()
         u = torch.rand(shape, generator=self.generator, device=x.device)
+        if 0 not in self.broadcast_dims:
+            u = distributed.shard_rows(u)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))

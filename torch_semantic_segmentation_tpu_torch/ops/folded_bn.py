@@ -12,7 +12,9 @@ so BN folds into the conv as W′ = W·s, b′ = β − E[e]·s (+ b·s) with
 s = γ/√(var+ε), and the pre-BN tensor never has to exist. The fused
 expand → depthwise kernel (`ops.mbconv`) consumes W′ and b′. This is plain
 autograd: gradients reach x, the conv and the BN parameters through the
-moment products, as in JAX.
+moment products, as in JAX. Under a process group μx and E[x xᵀ] are the
+global batch's, reduced over ranks in one collective with gradients
+through it, so every rank folds the same W′ and b′.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from torch_semantic_segmentation_tpu_torch.ops.conv import BatchNorm2d, Conv2d
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 def folded_1x1_weights(conv: Conv2d, bn: BatchNorm2d, x: torch.Tensor
@@ -35,6 +38,11 @@ def folded_1x1_weights(conv: Conv2d, bn: BatchNorm2d, x: torch.Tensor
     xr = x.reshape(-1, c_in).float()
     second = (xr.t() @ xr) / xr.shape[0]                       # E[x xᵀ]
     mu_x = xr.mean(dim=0)
+    if distributed.is_initialized():
+        # equal shares of the batch: each rank's moments weigh 1/R
+        both = distributed.all_reduce_sum(
+            torch.cat([second, mu_x[None]]) * (1.0 / distributed.world_size()))
+        second, mu_x = both[:c_in], both[c_in]
 
     mu_lin = mu_x @ wf                                          # E[x·W]
     mu_e = mu_lin

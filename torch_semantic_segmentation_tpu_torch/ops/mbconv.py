@@ -28,6 +28,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from torch_semantic_segmentation_tpu_torch import kernels
+
 
 _MAX_CIN = 128   # the backward holds dx for up to 8 column tiles a warp
 _suppressed = 0  # depth of open `suppress_routing` blocks
@@ -125,8 +127,6 @@ def expand_dw_reference_backward(x, w, b, k, g, stride: int):
 
 
 def _library() -> ctypes.CDLL:
-    from torch_semantic_segmentation_tpu_torch import kernels
-
     lib = kernels.load("mbconv")
     if not getattr(lib, "_typed", False):
         p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
@@ -205,6 +205,7 @@ def expand_dw_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         out.data_ptr(), n, h, wd, c_in, ce, stride, x.device.index or 0,
         _stream(x)), "forward")
     expand_dw_forward.launches += 1
+    kernels.check_finite("mbconv forward", out)
     return out
 
 
@@ -252,6 +253,7 @@ def expand_dw_backward(x, w, b, k, g, stride: int):
         None if part is None else part.data_ptr(), dw_.data_ptr(), db.data_ptr(), dk.data_ptr(), n, h, wd, c_in, ce,
         stride, groups, dev, _stream(x)), "backward")
     expand_dw_backward.launches += 1
+    kernels.check_finite("mbconv backward", dx, dw_, db, dk)
     return dx, dw_, db, dk
 
 

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch_semantic_segmentation_tpu_torch import kernels
 from torch_semantic_segmentation_tpu_torch.ops.upsample import _interp_matrix
 
 _CLIP = 80.0
@@ -183,8 +184,6 @@ def _backward_from(logits, labels, logz, gw, align_corners: bool):
 
 
 def _library() -> ctypes.CDLL:
-    from torch_semantic_segmentation_tpu_torch import kernels
-
     lib = kernels.load("resize_ce")
     if not getattr(lib, "_typed", False):
         p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
@@ -458,6 +457,7 @@ def resize_ce_forward(logits: torch.Tensor, labels: torch.Tensor,
         logz.data_ptr(), n, h, w, c, oh, ow, plan.tmax_fwd,
         logits.device.index or 0, _stream(logits)), "forward")
     resize_ce_forward.launches += 1
+    kernels.check_finite("resize_ce forward", partial, logz)
     sums = partial.sum(dim=0)
     s2 = torch.clamp(sums[1], min=1e-12)
     return sums[0] / s2, s2, logz
@@ -494,6 +494,7 @@ def resize_ce_backward(logits: torch.Tensor, labels: torch.Tensor,
         plan.mma_tmax, plan.mma_ocmax, logits.device.index or 0,
         _stream(logits)), "backward")
     resize_ce_backward.launches += 1
+    kernels.check_finite("resize_ce backward", dx)
     return dx
 
 
@@ -524,6 +525,7 @@ def resize_ce_map_forward(logits: torch.Tensor, labels: torch.Tensor,
         n, h, w, c, oh, ow, plan.tmax_fwd, logits.device.index or 0,
         _stream(logits)), "map forward")
     resize_ce_map_forward.launches += 1
+    kernels.check_finite("resize_ce map forward", loss_map, logz)
     return loss_map, logz
 
 
@@ -559,6 +561,7 @@ def resize_ce_map_backward(logits: torch.Tensor, labels: torch.Tensor,
         plan.map_tmax, plan.map_ocmax, logits.device.index or 0,
         _stream(logits)), "map backward")
     resize_ce_map_backward.launches += 1
+    kernels.check_finite("resize_ce map backward", dx)
     return dx
 
 

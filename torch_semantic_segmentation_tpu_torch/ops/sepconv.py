@@ -24,6 +24,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from torch_semantic_segmentation_tpu_torch import kernels
+
 _SUPPORTED = (torch.float32, torch.bfloat16)
 
 
@@ -78,8 +80,6 @@ def _check_cuda_inputs(x, dw_kernel, dw_bias, pw_kernel, pw_bias, stride,
 
 
 def _library() -> ctypes.CDLL:
-    from torch_semantic_segmentation_tpu_torch import kernels
-
     lib = kernels.load("sepconv")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -131,6 +131,7 @@ def fused_separable_conv(x: torch.Tensor, dw_kernel: torch.Tensor,
         raise RuntimeError("sepconv kernel launch failed: "
                            + lib.sepconv_error_string(err).decode())
     fused_separable_conv.launches += 1
+    kernels.check_finite("sepconv", out)
     return out
 
 

@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from torch_semantic_segmentation_tpu_torch import kernels
 from torch_semantic_segmentation_tpu_torch.ops.upsample import _matrix
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,8 +56,6 @@ def upsample_concat_reference(low: torch.Tensor,
 
 
 def _library() -> ctypes.CDLL:
-    from torch_semantic_segmentation_tpu_torch import kernels
-
     lib = kernels.load("upsample_concat")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -108,6 +107,7 @@ def upsample_concat_forward(low: torch.Tensor,
         raise RuntimeError("upsample_concat kernel launch failed: "
                            + lib.upsample2x_concat_error_string(err).decode())
     upsample_concat_forward.launches += 1
+    kernels.check_finite("upsample_concat", out)
     return out
 
 

@@ -6,6 +6,12 @@ The JAX step is one jit-compiled program that donates the old state's
 buffers; here the step runs eagerly and updates the model's parameters,
 its BatchNorm running statistics and the optimizer's state in place.
 
+Under a process group (`parallel.distributed`) each rank steps on its rows
+of the global batch: BatchNorm, the folded moments and the losses reduce
+their statistics over ranks inside the forward, the gradients are summed
+over ranks in one collective after the backward, and the loss the step
+returns is the global batch's on every rank.
+
     cfg = OptimizerConfig(lr=0.045, max_steps=1000)
     state = create_train_state(model, cfg)
     step = make_train_step(model, state, resize_cross_entropy_loss)
@@ -27,10 +33,10 @@ from torch import nn
 from torch_semantic_segmentation_tpu_torch import metrics
 from torch_semantic_segmentation_tpu_torch.device import resolve_device
 from torch_semantic_segmentation_tpu_torch.losses import cross_entropy_loss
-from torch_semantic_segmentation_tpu_torch.ops import mbconv
-from torch_semantic_segmentation_tpu_torch.ops.conv import BatchNorm2d
+from torch_semantic_segmentation_tpu_torch.ops import conv, mbconv
 from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
 from torch_semantic_segmentation_tpu_torch.ops.upsample import resize_argmax
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,10 +101,9 @@ def _remat_contexts(segment: nn.Module):
     move the segment's BN running statistics a second time, and must draw
     the same dropout masks: checkpoint restores torch's global RNG, not the
     explicit generators the dropout layers draw from. So the first forward
-    notes the generators' states; the recompute starts from them, and puts
-    back the generators' states and the running statistics it found when it
-    ends."""
-    bns = [m for m in segment.modules() if isinstance(m, BatchNorm2d)]
+    notes the generators' states; the recompute starts from them, drops its
+    running-statistics updates (`conv.deferred_running_stats`), and puts
+    back the generators' states it found when it ends."""
     gens = list({id(m.generator): m.generator for m in segment.modules()
                  if isinstance(m, Dropout) and m.generator is not None
                  }.values())
@@ -114,20 +119,14 @@ def _remat_contexts(segment: nn.Module):
         @contextlib.contextmanager
         def recompute():
             after = [g.get_state() for g in gens]
-            stats = [(bn, bn.running_mean.clone(), bn.running_var.clone(),
-                      bn.num_batches_tracked.clone()) for bn in bns]
             for g, s in zip(gens, noted):
                 g.set_state(s)
             try:
-                yield
+                with conv.deferred_running_stats():
+                    yield
             finally:
                 for g, s in zip(gens, after):
                     g.set_state(s)
-                with torch.no_grad():
-                    for bn, mean, var, count in stats:
-                        bn.running_mean.copy_(mean)
-                        bn.running_var.copy_(var)
-                        bn.num_batches_tracked.copy_(count)
 
         return forward(), recompute()
 
@@ -165,8 +164,7 @@ def _checkpointed(model: nn.Module):
 def make_train_step(model: nn.Module, state: TrainState,
                     loss_fn: LossFn | None = None, *, remat: bool = False,
                     device: str | torch.device | None = None
-                    ) -> tp.Callable[[tp.Any, tp.Any],
-                                     dict[str, torch.Tensor]]:
+                    ) -> tp.Callable[..., dict[str, torch.Tensor]]:
     """The train step: `step(images, labels) -> {"loss": tensor}`, on
     `device` (the card unless the caller passes "cpu"; the model must
     already be there).
@@ -189,25 +187,48 @@ def make_train_step(model: nn.Module, state: TrainState,
     expanded tensor is moot there. The running statistics move once a
     step and the recompute sees the forward's dropout masks
     (`_remat_contexts`).
+
+    Under a process group `images` and `labels` are the rank's rows of the
+    global batch. The loss function returns the rank's share of the global
+    loss, whose backward gives the rank's part of the global gradient;
+    `distributed.all_reduce_gradients` sums the parts (one collective, so
+    no `DistributedDataParallel` wrapper: its average would need the loss
+    scaled by R, and its unused-parameter rule fails heads that take no
+    gradient), and "loss" is the sum of the shares.
+
+    `step(images, labels, before_update=fn)` calls `fn(metrics, model)`
+    after the backward (and the gradients' reduction) and before the update,
+    with BatchNorm's running-statistics updates held back until `fn`
+    returns: where `fn` raises, the parameters, the running statistics,
+    the optimizer and the schedule stay as they were (`debug.checked_step`).
     """
     dev = resolve_device(device)
     if loss_fn is None:
         loss_fn = cross_entropy_loss
     optimizer, scheduler = state
 
-    def step(images, labels) -> dict[str, torch.Tensor]:
+    def step(images, labels, *, before_update=None
+             ) -> dict[str, torch.Tensor]:
         images = torch.as_tensor(images).to(dev)
         labels = torch.as_tensor(labels).to(dev)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        with _checkpointed(model) if remat else contextlib.nullcontext():
-            outputs = model(images)
-        loss = loss_fn(outputs, labels)
-        loss.backward()
+        with (conv.deferred_running_stats() if before_update is not None
+              else contextlib.nullcontext()) as pending:
+            with _checkpointed(model) if remat else contextlib.nullcontext():
+                outputs = model(images)
+            loss = loss_fn(outputs, labels)
+            loss.backward()
+        distributed.all_reduce_gradients(model.parameters())
+        metrics = {"loss": distributed.reduce_sum(loss.detach())}
+        if before_update is not None:
+            before_update(metrics, model)
+            conv.apply_running_stats(pending)
         optimizer.step()
         scheduler.step()
-        return {"loss": loss.detach()}
+        return metrics
 
+    step.takes_before_update = True
     return step
 
 
