@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    it (and at a few ragged shapes), and time the kernel, the plain version,
    one library call and the card's bound (K3 at each of its three paths'
    shapes: x16, x8 and x4; K1 at FastSCNN's, LEDNet's and ContextNet's, K2
-   and K6 at FastSCNN's and ContextNet's);
+   and K6 at FastSCNN's and ContextNet's); then K1 and K3 with NaN logits,
+   NaN where their plain versions are and the other elements unmoved;
 4. serve FastSCNN at full width (19 classes, bf16 compute, float32
    parameters from a seed, batch 8 of 1024x2048 uint8 frames): 5 requests,
    with the kernel launch counts read around them; then hold the folded,
@@ -111,7 +112,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    single-process CLI's within the bars `DP_STEP1_RTOL` and
    `DP_LATER_RTOL`, while this process checks a trace, `cost_analysis`
    and `checked_step` of the step; its launches have a line of their own;
-15. print the kernels line, the nvidia-smi line and the final JSON line.
+15. spatial sharding, FastSCNN at phase 6's configuration on two gloo
+   ranks of one data row (`num_spatial=2`), each on a band of 512 of the
+   1024 rows, the halos through host memory: `check_spatial_extent`
+   raising at H = 32 over 2 bands; phase 6's first 3 steps in this process
+   (timed, step 1 twice as the gradient's yardstick), then on the ranks:
+   their losses within phase 14's bars, step 1's gradient within
+   `SP_GRAD_NOISE` times the plain versions' step 1 moved by a one-step
+   nudge of K2's folded bias, 1 + 1 K1, 9 + 9 K2 and 2 + 2 K6 a step on each rank,
+   every launch of the last step held against its plain version on its
+   own inputs, the eval forward's ids and `evaluate`'s matrix against this
+   process's; the halo exchanges and bytes, the step times and the peak
+   memory printed; its launches have a line of their own;
+16. print the kernels line, the nvidia-smi line and the final JSON line.
    K3's rows count the launches of phases 8 and 9, K1's, K2's, K5's and
    K6's those of phases 4-6, 11, 12 and (K1, K2) 13's accuracy runs, and
    each row gives each path's launches and times under "paths".
@@ -883,6 +896,76 @@ def check_resize_ce_map() -> dict:
     for key, shape, seed in (("bisenet", K3_PATH_X8, 12),
                              ("icnet", K3_PATH_X4, 13)):
         out[key] = at_path(shape, seed, f"{key} path x{shape[4] // shape[1]}")
+        torch.cuda.empty_cache()
+    return out
+
+
+# a NaN logit through K1 and K3: (n, h, w, c, oh, ow) and the low-res
+# elements set to NaN (one on a 16-column tile's edge, one in the first row
+# and column, under the ignored top band of labels)
+K1_NAN_CASES = (((2, 19, 70, NUM_CLASSES, 152, 560),
+                 ((0, 7, 16, 3), (1, 0, 0, 7))),
+                (K1_PATH, ((3, 60, 128, 11),)))
+
+
+def check_resize_ce_nan() -> dict:
+    """K1's loss, logz and d(logits) and K3's map, logz and d(logits) with
+    NaN logits: NaN exactly where the plain version's are, and every other
+    element with the bits of the same launch on the inputs with the NaNs
+    set to 0. Returns the NaN elements of each output at each case."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.ops import resize_ce as rce
+
+    out = {}
+    for (n, h, w, c, oh, ow), nans in K1_NAN_CASES:
+        logits, labels, cw = resize_ce_inputs(n, h, w, c, oh, ow, 31, True)
+        for i in nans:
+            logits[i] = float("nan")
+        clean = logits.nan_to_num(0.0)
+        counts = {}
+
+        def same(name, got, want, clean_got):
+            nan = torch.isnan(got.float())
+            counts[name] = int(nan.sum())
+            if not torch.equal(nan, torch.isnan(want.float())):
+                fail(f"{name} with NaN logits at ({n},{h},{w},{c}): NaN at "
+                     f"{int(nan.sum())} elements, the plain version at "
+                     f"{int(torch.isnan(want.float()).sum())}")
+            if not nan.any() or not torch.equal(got[~nan], clean_got[~nan]):
+                fail(f"{name} with NaN logits at ({n},{h},{w},{c}): the "
+                     "elements without a NaN moved")
+
+        loss, s2, logz = rce.resize_ce_forward(logits, labels, cw)
+        want = rce.resize_ce_reference(logits, labels, cw)
+        cl = rce.resize_ce_forward(clean, labels, cw)
+        if not (bool(torch.isnan(loss)) and bool(torch.isnan(want[0]))):
+            fail(f"K1's loss with NaN logits: {float(loss)}, the plain "
+                 f"version's {float(want[0])}")
+        same("K1 logz", logz, want[2], cl[2])
+        scale = (0.7 / s2).reshape(1)
+        same("K1 d(logits)",
+             rce.resize_ce_backward(logits, labels, cw, logz, scale),
+             rce.resize_ce_reference_backward(logits, labels, cw, logz,
+                                              scale),
+             rce.resize_ce_backward(clean, labels, cw, cl[2], scale))
+        lmap, logz3 = rce.resize_ce_map_forward(logits, labels)
+        wmap, wlogz = rce.resize_ce_map_reference(logits, labels)
+        cmap, clogz = rce.resize_ce_map_forward(clean, labels)
+        same("K3 map", lmap, wmap, cmap)
+        same("K3 logz", logz3, wlogz, clogz)
+        ct = torch.randn((n, oh, ow), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(5))
+        same("K3 d(logits)",
+             rce.resize_ce_map_backward(logits, labels, logz3, ct),
+             rce.resize_ce_map_reference_backward(logits, labels, logz3, ct),
+             rce.resize_ce_map_backward(clean, labels, clogz, ct))
+        torch.cuda.synchronize()
+        print(f"resize_ce NaN logits ({n},{h},{w},{c})->({oh},{ow}), "
+              f"{len(nans)} NaN: K1 loss NaN as the plain version's; NaN "
+              f"elements, each as the plain version's, the rest the bits of "
+              f"the launch without the NaNs: {counts}", flush=True)
+        out[(n, h, w, c, oh, ow)] = counts
+        del logits, clean, labels
         torch.cuda.empty_cache()
     return out
 
@@ -3644,6 +3727,301 @@ def dp_phase(main_path: dict) -> dict:
     return {"group_of_one": one, "cli": cli, "measure_ms": measure_ms}
 
 
+# phase 15, spatial sharding: FastSCNN at phase 6's configuration on two
+# ranks of one data row (num_spatial=2), each on a band of 512 of the 1024
+# rows, over gloo on the one card (NCCL refuses two ranks on one card; gloo
+# sends no CUDA tensor point to point, so the halos go through host
+# memory). Its bars, set before any run: the losses phase 14's (1e-4
+# relative at step 1, 1e-3 after); the eval ids equal the single process's
+# on at least SP_IDS_SHARE of the pixels (bf16 logits whose top two classes
+# tie within a rounding step may flip). Step 1's parameter gradients,
+# summed over the ranks, against the single process's by relative L2 over
+# the tree: the first bar, 2^-4, failed at 0.3962 on an NVIDIA H100 80GB
+# HBM3 at 700 W (the single process's step 1 twice read 0.0086, K2's
+# backward atomics alone; PERF.md §6). On the bf16 route a float32 sum in another order (the bands'
+# moments) moves bf16 roundings in the forward, which some twenty
+# train-mode BNs amplify; the CPU tests hold the same split in float32 at
+# 1.8e-5 from the JAX package's float64 gradient. So the bar is now
+# SP_GRAD_NOISE times the same amplification measured here: the single
+# process's step 1 through the plain versions with K2's folded bias moved
+# by one float32 step, against the same step unmoved (the yardstick of
+# ContextNet's bar, phase 11).
+SP_STEPS = 3
+SP_GRAD_NOISE = 2.0
+SP_IDS_SHARE = 0.999
+SP_KERNELS = ("resize_ce_fwd", "resize_ce_bwd", "mbconv_fwd", "mbconv_bwd",
+              "depthwise_fwd", "depthwise_bwd")
+SP_RANK_SCRIPT = "import chip_smoke\nchip_smoke.spatial_rank()\n"
+
+
+def spatial_steps(model, frames, labels, cfg, sharded: bool,
+                  steps: int = SP_STEPS) -> dict:
+    """Phase 6's first `steps` steps from the model as it is (a fresh SGD
+    state, the augmentation generator from seed 0), each on the rank's
+    band of the augmented batch where `sharded`: the losses, each step's
+    launches and CUDA-event span, step 1's gradient (after the reduction
+    over ranks), and the last step's kernel launches recorded."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        augment_batch)
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        resize_cross_entropy_loss)
+    from torch_semantic_segmentation_tpu_torch.parallel import (
+        distributed, shard_batch)
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+    gen = torch.Generator(device=frames.device).manual_seed(0)
+    state = create_train_state(model, OptimizerConfig(lr=0.045,
+                                                      max_steps=1000))
+    inner = make_train_step(model, state, resize_cross_entropy_loss,
+                            device=frames.device)
+    grads: dict = {}
+
+    def keep(metrics, m):
+        if not grads:
+            grads.update({k: p.grad.detach().float().clone()
+                          for k, p in m.named_parameters()
+                          if p.grad is not None})
+
+    out = {"losses": [], "launches": [], "device_ms": [], "halos": [],
+           "halo_bytes": [], "calls": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        batch = augment_batch(frames, labels, gen, cfg)
+        if sharded:
+            batch = shard_batch(batch, spatial=True)
+        reset_launch_counts()
+        h0, b0 = distributed.halo_exchanges, distributed.halo_bytes
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with (swapped(recording(out["calls"])) if i == steps - 1
+              else contextlib.nullcontext()):
+            m = inner(*batch, before_update=keep)
+        end.record()
+        torch.cuda.synchronize()
+        out["losses"].append(float(m["loss"]))
+        out["launches"].append({k: v for k, v in launch_counts().items()
+                                if k in SP_KERNELS})
+        out["device_ms"].append(start.elapsed_time(end))
+        out["halos"].append(distributed.halo_exchanges - h0)
+        out["halo_bytes"].append(distributed.halo_bytes - b0)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["grads"] = grads
+    return out
+
+
+def spatial_eval(model, sharded: bool) -> dict:
+    """The eval forward of one batch of 8 normalised 1024x2048 frames (the
+    rank's band where `sharded`): its 1/8 logits and ids (×8 resize +
+    argmax), and `evaluate`'s matrix over the batch (summed over ranks)."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        normalize_batch)
+    from torch_semantic_segmentation_tpu_torch.eval import evaluate
+    from torch_semantic_segmentation_tpu_torch.ops.upsample import (
+        resize_argmax)
+    from torch_semantic_segmentation_tpu_torch.parallel import shard_batch
+    from torch_semantic_segmentation_tpu_torch.train import make_eval_step
+    dev = next(model.parameters()).device
+    f, lab = make_batch(301)
+    batch = (normalize_batch(torch.from_numpy(f).to(dev),
+                             out_dtype=torch.bfloat16),
+             torch.from_numpy(lab).to(dev))
+    if sharded:
+        batch = shard_batch(batch, spatial=True)
+    images, labels = batch
+    model.eval()
+    with torch.inference_mode():
+        logits = model(images)
+        ids = resize_argmax(logits, tuple(labels.shape[1:]),
+                            out_dtype=torch.int32)
+    cm = evaluate(make_eval_step(model, num_classes=NUM_CLASSES, device=dev),
+                  [(images, labels)], num_classes=NUM_CLASSES, device=dev)[2]
+    return {"logits": logits.float(), "ids": ids, "cm": cm}
+
+
+def spatial_rank() -> None:
+    """One rank of phase 15, in a process of its own (`spatial_phase`
+    starts two, with torchrun's environment and SP_OUT): phase 6's model
+    and steps on the rank's band, each K1, K2 and K6 launch of the last
+    step held against its plain version on its own inputs
+    (`check_recorded`), then the eval forward; writes its results to
+    SP_OUT/rank<r>.pt."""
+    import os
+    import torch
+    from torch_semantic_segmentation_tpu_torch.parallel import distributed
+    distributed.initialize(backend="gloo", num_spatial=2)
+    model, frames, labels, cfg = phase6_setup()
+    res = spatial_steps(model, frames, labels, cfg, sharded=True)
+    res["recorded"] = check_recorded(res.pop("calls"))
+    res.update(spatial_eval(model, sharded=True))
+    res["grads"] = {k: v.cpu() for k, v in res["grads"].items()}
+    for k in ("logits", "ids", "cm"):
+        res[k] = res[k].cpu()
+    torch.save(res, os.path.join(os.environ["SP_OUT"],
+                                 f"rank{distributed.rank()}.pt"))
+    distributed.barrier()
+    distributed.destroy()
+
+
+def spatial_processes(out: str) -> list:
+    """The two ranks of phase 15, started on the one card: torchrun's
+    environment with LOCAL_RANK 0 for both."""
+    import os
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent)
+    port = str(free_port())
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                   WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0", SP_OUT=out,
+                   PYTHONPATH=os.pathsep.join(
+                       [root] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", SP_RANK_SCRIPT], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def rel_tree(got: dict, want: dict, keys=None) -> float:
+    keys = list(want) if keys is None else keys
+    d = sum(float(((got[k].double().cpu() - want[k].double().cpu()) ** 2)
+                  .sum()) for k in keys)
+    m = sum(float((want[k].double().cpu() ** 2).sum()) for k in keys)
+    return (d / m) ** 0.5
+
+
+def tree_gaps(got: dict, want: dict) -> str:
+    """The classifier's gap and the three tensors that add most to the
+    tree's, each with its own relative gap."""
+    head = [k for k in want if k.startswith("classifier.")]
+    top = sorted(want, key=lambda k: -float(
+        (got[k].double().cpu() - want[k].double().cpu()).norm()))[:3]
+    return (f"classifier {rel_tree(got, want, head):.4g}; most: " + ", ".join(
+        f"{k} {rel_tree(got, want, [k]):.3g}" for k in top))
+
+
+def spatial_phase(main_path: dict) -> dict:
+    """Phase 15: `check_spatial_extent` on a degenerate split; the single
+    process's reference (phase 6's first steps and step 1 twice, the eval
+    forward), timed; then the two ranks, held against it."""
+    import tempfile
+    import torch
+    from torch_semantic_segmentation_tpu_torch.parallel import (
+        check_spatial_extent)
+    t0 = time.perf_counter()
+    try:
+        check_spatial_extent(32, 2)
+        fail("check_spatial_extent(32, 2) did not raise")
+    except ValueError as e:
+        guard = str(e)
+    if not guard.startswith("degenerate spatial sharding"):
+        fail(f"check_spatial_extent(32, 2) raised '{guard}'")
+    model, frames, labels, cfg = phase6_setup()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    single = spatial_steps(model, frames, labels, cfg, sharded=False)
+    single.pop("calls")
+    single.update(spatial_eval(model, sharded=False))
+    runs = {}
+    for name, replace in (("again", None), ("plain", plain_versions),
+                          ("nudged", nudged_plain_versions)):
+        model.load_state_dict(start)
+        model.dropout_generator.manual_seed(0)    # phase6_setup's seed
+        with (swapped(replace) if replace else contextlib.nullcontext()):
+            runs[name] = spatial_steps(model, frames, labels, cfg,
+                                       sharded=False, steps=1)["grads"]
+    noise = rel_tree(runs["again"], single["grads"])
+    yard = rel_tree(runs["nudged"], runs["plain"])
+    yard_gaps = tree_gaps(runs["nudged"], runs["plain"])
+    del model, runs, start
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        procs = spatial_processes(out)
+        try:
+            for r, p in enumerate(procs):
+                text = p.communicate(timeout=600)[0]
+                if p.returncode != 0:
+                    fail(f"rank {r} of phase 15 exited {p.returncode}:\n"
+                         f"{text[-4000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        ranks = [torch.load(f"{out}/rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+    ranks_s = time.perf_counter() - t_ranks
+
+    want = single["losses"]
+    got = ranks[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    gap = rel_tree(ranks[0]["grads"], single["grads"])
+    ids = torch.cat([r["ids"] for r in ranks], dim=1)
+    logits = torch.cat([r["logits"] for r in ranks], dim=1)
+    share = float((ids == single["ids"].cpu()).float().mean())
+    lgap = float((logits - single["logits"].cpu()).abs().max())
+    lscale = float(single["logits"].abs().max())
+    moved = int((ranks[0]["cm"] - single["cm"].cpu()).abs().sum()) // 2
+    print(f"spatial phase: check_spatial_extent(32, 2) raised '{guard}'",
+          flush=True)
+    print(f"spatial two ranks on one card (gloo, num_spatial=2, bands of "
+          f"{SERVE_H // 2} rows of {SERVE_BATCH}x{SERVE_H}x{SERVE_W}): "
+          f"losses {got} (rank 1 {ranks[1]['losses']}); single process "
+          f"{want}; relative gaps {[f'{v:.3g}' for v in rel]} (bars "
+          f"{DP_STEP1_RTOL:g} at step 1, {DP_LATER_RTOL:g} after)",
+          flush=True)
+    print(f"spatial step 1's gradient against the single process's: "
+          f"relative L2 over the tree {gap:.4g} ("
+          f"{tree_gaps(ranks[0]['grads'], single['grads'])}); bar "
+          f"{SP_GRAD_NOISE:g} x {yard:.4g}, the plain versions' step 1 with "
+          f"K2's folded bias one float32 step up against it unmoved ("
+          f"{yard_gaps}); the single process's step 1 twice: {noise:.4g}",
+          flush=True)
+    for r, res in enumerate(ranks):
+        print(f"spatial rank {r}: launches a step {res['launches']}; halo "
+              f"exchanges a step {res['halos']}, bytes sent "
+              f"{res['halo_bytes']}; step CUDA events "
+              f"{[round(t, 3) for t in res['device_ms']]} ms (median "
+              f"{np.median(res['device_ms']):.3f}); max_memory_allocated "
+              f"{res['peak_bytes'] / 2 ** 30:.3f} GiB; kernel vs plain on "
+              f"the last step's own inputs, worst relative L2 "
+              f"{ {k: float(f'{v:.3g}') for k, v in res['recorded'].items()} }",
+              flush=True)
+    print(f"spatial single process just before: step CUDA events "
+          f"{[round(t, 3) for t in single['device_ms']]} ms (median "
+          f"{np.median(single['device_ms']):.3f}; phase 6's own median "
+          f"{np.median(main_path['device_ms']):.3f}); max_memory_allocated "
+          f"{single['peak_bytes'] / 2 ** 30:.3f} GiB", flush=True)
+    print(f"spatial eval forward: ids equal on {share:.6f} of the pixels "
+          f"(bar {SP_IDS_SHARE}); 1/8 logits max |diff| {lgap:.4g} (scale "
+          f"{lscale:.4g}); evaluate's matrix: {moved} pixels moved of "
+          f"{int(single['cm'].sum())}; ranks {ranks_s:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    want_launches = {k: v for k, v in per_step(1).items() if k in SP_KERNELS}
+    for r, res in enumerate(ranks):
+        if any(steps != want_launches for steps in res["launches"]):
+            fail(f"spatial rank {r}'s launches {res['launches']}, expected "
+                 f"{want_launches} a step")
+        if res["losses"] != got:
+            fail(f"the spatial ranks' losses differ: {[x['losses'] for x in ranks]}")
+    if not all(np.isfinite(got)) or rel[0] > DP_STEP1_RTOL or max(
+            rel[1:]) > DP_LATER_RTOL:
+        fail(f"the spatial losses {got} are off the single process's {want}")
+    if not gap <= SP_GRAD_NOISE * yard:
+        fail(f"the spatial step's gradient is {gap:.4g} off the single "
+             f"process's (bar {SP_GRAD_NOISE:g} x {yard:.4g})")
+    if not share >= SP_IDS_SHARE or int(ranks[0]["cm"].sum()) != int(
+            single["cm"].sum()):
+        fail(f"the spatial eval ids equal the single process's on {share} "
+             f"of the pixels; matrices of {int(ranks[0]['cm'].sum())} and "
+             f"{int(single['cm'].sum())} pixels")
+    return {"ranks": ranks, "single": single, "rel": rel, "grad_gap": gap,
+            "noise": noise, "yard": yard, "ids_share": share}
+
+
 def main() -> int:
     try:
         import torch
@@ -3681,6 +4059,7 @@ def main() -> int:
     k6 = check_depthwise()
     k4 = check_upsample_concat()
     k3 = check_resize_ce_map()
+    check_resize_ce_nan()
     served = serve()
     train()
     main_path = train_augmented()
@@ -3702,6 +4081,10 @@ def main() -> int:
           f"{dp['group_of_one']['launches']} in {TRAIN_STEPS} steps; each "
           f"of the two ranks {per_step(DP_CLI_STEPS)} in {DP_CLI_STEPS} "
           f"steps", flush=True)
+    sp = spatial_phase(main_path)
+    print(f"spatial launches (phase 15, not in the kernels line): each of "
+          f"the two ranks {sp['ranks'][0]['launches']} in {SP_STEPS} steps",
+          flush=True)
 
     def row(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",

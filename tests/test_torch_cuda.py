@@ -458,6 +458,58 @@ def test_resize_ce_all_ignored_and_wrapper_checks(cuda):
         resize_ce.resize_ce_forward(logits, labels.cpu(), cw)
 
 
+# a NaN logit: (n, h, w, c, oh, ow) over three 16-column tiles of the
+# backward, and the low-res elements set to NaN: one on a tile's edge, one in
+# the first row and column, one under the ignored labels
+RESIZE_CE_NAN_CASE = (2, 9, 40, 19, 72, 320)
+RESIZE_CE_NANS = [(0, 4, 16, 3), (1, 0, 0, 7), (1, 0, 1, 0)]
+
+
+@pytest.mark.cuda
+def test_resize_ce_kernels_keep_a_nan_logit(cuda):
+    """A NaN logit through K1 (loss, logz, d(logits)) and K3 (map, logz,
+    d(logits)): each output is NaN exactly where its plain version's is,
+    and every other element has the bits of the same launch on the input
+    with the NaNs set to 0 (no NaN reaches it, and nothing else moved)."""
+    n, h, w, c, oh, ow = RESIZE_CE_NAN_CASE
+    logits, labels, cw = _resize_ce_inputs(12, n, h, w, c, oh, ow, "uint8",
+                                           cuda)
+    bad = logits.clone()
+    for i in RESIZE_CE_NANS:
+        bad[i] = float("nan")
+    clean = bad.nan_to_num(0.0)
+
+    def same_pattern(got, want, clean_got, what):
+        nan = torch.isnan(got.float())
+        assert torch.equal(nan, torch.isnan(want.float())), what
+        assert bool(nan.any()) and not bool(nan.all()), what
+        assert torch.equal(got[~nan], clean_got[~nan]), what
+
+    loss, s2, logz = resize_ce.resize_ce_forward(bad, labels, cw)
+    want = resize_ce.resize_ce_reference(bad, labels, cw)
+    clean_fwd = resize_ce.resize_ce_forward(clean, labels, cw)
+    assert bool(torch.isnan(loss)) and bool(torch.isnan(want[0]))
+    assert torch.equal(s2, clean_fwd[1])
+    same_pattern(logz, want[2], clean_fwd[2], "K1 logz")
+    scale = torch.tensor([0.7], device=cuda) / s2
+    dx = resize_ce.resize_ce_backward(bad, labels, cw, logz, scale)
+    same_pattern(dx, resize_ce.resize_ce_reference_backward(
+        bad, labels, cw, logz, scale), resize_ce.resize_ce_backward(
+        clean, labels, cw, clean_fwd[2], scale), "K1 d(logits)")
+
+    lmap, logz3 = resize_ce.resize_ce_map_forward(bad, labels)
+    want_map, want_logz = resize_ce.resize_ce_map_reference(bad, labels)
+    clean_map = resize_ce.resize_ce_map_forward(clean, labels)
+    same_pattern(lmap, want_map, clean_map[0], "K3 map")
+    same_pattern(logz3, want_logz, clean_map[1], "K3 logz")
+    ct = torch.randn((n, oh, ow), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(3))
+    dx3 = resize_ce.resize_ce_map_backward(bad, labels, logz3, ct)
+    same_pattern(dx3, resize_ce.resize_ce_map_reference_backward(
+        bad, labels, logz3, ct), resize_ce.resize_ce_map_backward(
+        clean, labels, clean_map[1], ct), "K3 d(logits)")
+
+
 # (n, h, w, c, stride): the LDS convs ds1 and ds2 at batch 8 full
 # resolution, the stride-1 case at the GFE's width; odd H and W, C of 3, 20
 # and 384 (off the 8-channel groups, and GFE stage1[0]'s width); C of 1200

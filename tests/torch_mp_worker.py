@@ -1,10 +1,11 @@
 """Ranks of the port's data-parallel tests (`tests/test_torch_parallel*.py`,
-`tests/test_torch_multihost_cli.py`). It imports only the port, torch and
-numpy.
+`tests/test_torch_multihost_cli.py`, `tests/test_torch_spatial_step.py`).
+It imports only the port, torch and numpy.
 
     python tests/torch_mp_worker.py SUITE RANK WORLD STORE OUTDIR
 
-joins a gloo group of WORLD ranks through `file://STORE`, runs every case
+joins a gloo group of WORLD ranks through `file://STORE` (SUITE
+"spatial:S" with `num_spatial=S`: each rank on a band of H rows), runs every case
 of SUITE on its rows of each case's global batch and saves
 {case: result} to OUTDIR/rank<RANK>.pt. The parent test runs the same case
 functions in its own process without a group, where they see the whole
@@ -360,6 +361,142 @@ def suite_step(outdir: str) -> dict:
             "enet": case_enet(), "checked_nan": case_checked_nan(init)}
 
 
+# --- suite "spatial:S": FastSCNN on H bands (num_spatial=S) ---
+
+SP_N, SP_H, SP_W, SP_C = 2, 128, 64, 5
+
+
+def spatial_batch(seed: int = 7):
+    """A global batch of SP_N images (float32 NHWC, int32 labels), with
+    ignored labels across the middle band boundary and at the top."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(SP_N, SP_H, SP_W, 3)).astype(np.float32)
+    y = rng.integers(0, SP_C, (SP_N, SP_H, SP_W)).astype(np.int32)
+    y[:, :6, :9] = 255
+    y[:, 60:70, 20:30] = 255
+    return x, y
+
+
+def _bands(*arrays):
+    """The rank's band of its rows of each global array (the arrays
+    themselves without a group)."""
+    return shard_batch(tuple(_t(a) for a in arrays), spatial=True)
+
+
+def spatial_model(init: str, upsample_logits: bool, compute_dtype=None):
+    from torch_semantic_segmentation_tpu_torch.models import fastscnn
+    m = fastscnn(SP_C, upsample_logits=upsample_logits,
+                 compute_dtype=compute_dtype, device="cpu")
+    m.load_state_dict(torch.load(init, weights_only=True))
+    m.classifier.dropout.rate = 0.0
+    return m
+
+
+def case_spatial_eval(outdir: str) -> dict:
+    """The eval forward's logits (full resolution) of the rank's band, on
+    the JAX package's spatial test's model and input (`fwd_init.pt`,
+    `synthetic_batch(2, 128, 64, 5, seed=7)`), and `evaluate`'s matrix over
+    two batches on both heads (full-resolution logits, and 1/8 logits
+    through the ×8 resize + argmax) with BN calibrated (`eval_init.pt`)."""
+    from torch_semantic_segmentation_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from torch_semantic_segmentation_tpu_torch.eval import evaluate
+    from torch_semantic_segmentation_tpu_torch.train import make_eval_step
+    m = spatial_model(os.path.join(outdir, "fwd_init.pt"), True).eval()
+    x, _ = _bands(*synthetic_batch(SP_N, SP_H, SP_W, SP_C, seed=7))
+    with torch.no_grad():
+        out = {"logits": m(x)}
+    init = os.path.join(outdir, "eval_init.pt")
+    for up in (True, False):
+        step = make_eval_step(spatial_model(init, up), num_classes=SP_C,
+                              device="cpu")
+        batches = [_bands(*spatial_batch(seed)) for seed in (8, 9)]
+        out[f"cm_{up}"] = evaluate(step, batches, num_classes=SP_C,
+                                   device="cpu")[2]
+    return out
+
+
+def case_spatial_grads(outdir: str, upsample_logits: bool,
+                       compute_dtype=None) -> dict:
+    """One train-mode forward and backward: the global loss (the shares
+    summed), the parameter gradients summed over ranks, the band's input
+    gradient, the BN statistics after it and the halo exchanges it made.
+    Full-resolution logits take plain CE (the JAX package's spatial test's
+    route), 1/8 logits the resize CE (K1's plain version in bf16)."""
+    from torch_semantic_segmentation_tpu_torch.ops import blocks
+    m = spatial_model(os.path.join(outdir, "init.pt"), upsample_logits,
+                      compute_dtype).train()
+    x, y = _bands(*spatial_batch())
+    x.requires_grad_(True)
+    loss_fn = (losses.cross_entropy_loss if upsample_logits
+               else losses.resize_cross_entropy_loss)
+    routed = []
+    real = blocks.fused_expand_dw
+
+    def counted(*args):
+        routed.append(args[0].shape)
+        return real(*args)
+
+    blocks.fused_expand_dw = counted
+    h0 = distributed.halo_exchanges
+    try:
+        share = loss_fn(m(x), y)
+        share.backward()
+    finally:
+        blocks.fused_expand_dw = real
+    distributed.all_reduce_gradients(m.parameters())
+    return {"loss": distributed.reduce_sum(share.detach()),
+            "grads": {k: p.grad.clone() for k, p in m.named_parameters()},
+            "dx": x.grad, "k2_routed": torch.tensor(len(routed)),
+            "halo_exchanges": torch.tensor(distributed.halo_exchanges - h0),
+            "stats": {k: v.clone() for k, v in m.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def case_spatial_steps(outdir: str) -> dict:
+    """Two SGD steps (LR 0.002) through `make_train_step` on the fused
+    route: the losses and the state after each."""
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+    model = spatial_model(os.path.join(outdir, "init.pt"), False)
+    state = create_train_state(model, OptimizerConfig(lr=LR, max_steps=4))
+    step = make_train_step(model, state, losses.resize_cross_entropy_loss,
+                           device="cpu")
+    out = {"losses": []}
+    for i, seed in enumerate((7, 10)):
+        out["losses"].append(step(*_bands(*spatial_batch(seed)))["loss"])
+        out[f"state{i + 1}"] = {k: v.clone() for k, v in
+                                model.state_dict().items()}
+    out["losses"] = torch.stack(out["losses"])
+    return out
+
+
+def case_spatial_dropout() -> dict:
+    """Train-mode dropout (element and spatial) of the band: rows of the
+    single process's masks."""
+    from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
+    rng = np.random.default_rng(11)
+    (x,) = _bands(rng.normal(size=(SP_N, 64, 8, 4)).astype(np.float32))
+    out = {}
+    for name, dims in (("dropout", ()), ("spatial", (1, 2))):
+        drop = Dropout(0.5, broadcast_dims=dims,
+                       generator=torch.Generator().manual_seed(6))
+        drop.train()
+        out[name] = torch.cat([drop(x), drop(x)])
+    return out
+
+
+def suite_spatial(outdir: str, grads_only: bool = False) -> dict:
+    grads = {"grads_full": case_spatial_grads(outdir, True),
+             "grads_low": case_spatial_grads(outdir, False)}
+    if grads_only:
+        return grads
+    return {**grads, "eval": case_spatial_eval(outdir),
+            "grads_bf16": case_spatial_grads(outdir, False, torch.bfloat16),
+            "steps": case_spatial_steps(outdir),
+            "dropout": case_spatial_dropout()}
+
+
 # --- suite "cli": the train CLI with --multihost ---
 
 def cli_flags(store: str | None = None) -> list[str]:
@@ -444,11 +581,17 @@ def main() -> int:
     suite, rank, world, store, outdir = sys.argv[1:6]
     torch.set_num_threads(1)
     os.environ.update(WORLD_SIZE=world, RANK=rank, LOCAL_RANK=rank)
-    distributed.initialize("cpu", init_method=f"file://{store}")
+    # "spatial:S" splits each data row's images over S ranks
+    # ("spatial:S:grads" runs the gradient cases only)
+    num_spatial = int(suite.split(":")[1]) if ":" in suite else 1
+    distributed.initialize("cpu", init_method=f"file://{store}",
+                           num_spatial=num_spatial)
     if suite == "parallel":
         res = suite_parallel()
     elif suite == "step":
         res = suite_step(outdir)
+    elif suite.startswith("spatial"):
+        res = suite_spatial(outdir, grads_only=suite.endswith(":grads"))
     else:
         res = suite_cli(store, outdir)
     torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))

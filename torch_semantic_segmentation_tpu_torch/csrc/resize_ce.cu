@@ -212,6 +212,8 @@ __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, size_t 
 // The forward. After the clip, y >= -CLIP, so exp(y) >= exp(-80) = 1.8e-35,
 // above FLT_MIN (1.18e-38): ex2.approx.ftz and lg2.approx.ftz never meet a
 // denormal input or output here, and flushing them to zero changes no value.
+// A NaN y stays NaN through both, into logz and the loss (the plain version's
+// torch.clamp and the Pallas kernel's jnp.clip keep it too).
 
 __device__ __forceinline__ float ex2_approx(float v) {
   float r;
@@ -224,10 +226,22 @@ __device__ __forceinline__ float lg2_approx(float v) {
   return r;
 }
 
+// y clipped to +-CLIP, a NaN kept as NaN: max.NaN and min.NaN (sm_80 on) where
+// fmaxf and fminf return the operand that is not NaN. The clip's instructions
+// and its bits for every other y.
+__device__ __forceinline__ float clip_logit(float y) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(y), "f"(-CLIP));
+  asm("min.NaN.f32 %0, %0, %1;" : "+f"(r) : "f"(CLIP));
+  return r;
+}
+
+__device__ __forceinline__ bool is_finite(float v) { return fabsf(v) <= 3.402823466e38f; }
+
 // y of one class: wl a + wh b (two exact products of bf16 values, rounded
 // once), clipped to +-CLIP.
 __device__ __forceinline__ float logit(float a, float b, float wl, float wh) {
-  return fminf(fmaxf(fmaf(wh, b, wl * a), -CLIP), CLIP);
+  return clip_logit(fmaf(wh, b, wl * a));
 }
 
 // Floats a low-res column of the H-pass row: its classes padded to an odd
@@ -458,7 +472,7 @@ resize_ce_fwd_runs(const __nv_bfloat16* __restrict__ x, const L* __restrict__ la
           wv = MAP ? 1.f : s_cw[lab[i]];
         }
         if constexpr (MAP) {
-          mv[i] = wv * (lz[i] - tl);
+          mv[i] = lab[i] >= 0 ? lz[i] - tl : 0.f;  // 0 at an ignored label, NaN logz or not
         } else {
           acc_loss += wv * (lz[i] - tl);
           acc_w += wv;
@@ -596,6 +610,64 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint4& a, unsigned b0
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
+// The terms of output column q's cotangent gw (exp(y - logz) - onehot), y
+// from the H-pass row and the column's two W taps (the backwards' own).
+struct ColCot {
+  float gw, lz, wl, wh;
+  int kl;  // the label's class in the group, -1 where none
+  const float *t0, *t1;
+};
+
+// Its class k, by the backwards' own operations.
+__device__ __forceinline__ float cot_at(const ColCot& cc, int k) {
+  float y = cc.wl * cc.t0[k] + cc.wh * cc.t1[k];
+  y = clip_logit(y);
+  const float p = expf(y - cc.lz);
+  return cc.gw * (p - (cc.kl == k ? 1.f : 0.f));
+}
+
+// A row of the backwards whose H pass, logz or cotangent weight holds a
+// value that is not finite (a NaN logit, say) takes this path; no other row
+// does. The banded product on the tensor cores sums A's dense tile, so a NaN
+// or an infinity in the cotangent would reach every low-res column of the
+// tile through A's zeros (0 * NaN), where the plain version's transposed pass
+// takes it to the two columns the output column's taps name. So such a row
+// first puts each cotangent that is not finite into the product as 0
+// (`zero_nonfinite`), and afterwards a lane adds, to each of its four
+// products (low-res column ja or ja + 8, group class k or k + 1, as mma.sync
+// lays them out), the tap times each such cotangent of an output column in
+// [q0, q1) of the span (whose columns start at oc0) that names the column:
+// the plain version's NaN or infinity, and every other sum the one without.
+__device__ __forceinline__ void zero_nonfinite(__nv_bfloat16* sd, int noc, int ld, int nk,
+                                               int nthreads) {
+  for (int i = threadIdx.x; i < noc * nk; i += nthreads) {
+    __nv_bfloat16* d = sd + size_t(i / nk) * ld + i % nk;
+    if (!is_finite(__bfloat162float(*d))) *d = __float2bfloat16(0.f);
+  }
+}
+
+template <typename Col>
+__device__ __forceinline__ void nonfinite_marks(float acc[4], int ja, int k, int ng, int q0,
+                                                int q1, int oc0, const Tables& tb,
+                                                const Col& col) {
+  for (int q = q0; q < q1; ++q) {
+    const ColCot cc = col(q);
+    const int lo = tb.col_lo[oc0 + q], hi = tb.col_hi[oc0 + q];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (k + e >= ng) continue;
+      // the cotangent as the product took it, rounded to bf16
+      const float v = __bfloat162float(__float2bfloat16(cot_at(cc, k + e)));
+      if (is_finite(v)) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (ja + 8 * r == lo) acc[2 * r + e] += cc.wl * v;
+        if (ja + 8 * r == hi) acc[2 * r + e] += cc.wh * v;
+      }
+    }
+  }
+}
+
 template <typename L>
 __global__ void __launch_bounds__(THREADS, 3)
 resize_ce_bwd_mma(const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
@@ -697,6 +769,7 @@ resize_ce_bwd_mma(const __nv_bfloat16* __restrict__ x, const L* __restrict__ lab
     const int buf = (o - o_begin) & 1;
     const int hl = tb.row_lo[o], hh = tb.row_hi[o];
     const float a = tb.row_wlo[o], b = tb.row_whi[o];
+    bool bad = false;  // a value that is not finite in this row (see zero_nonfinite)
     if (o + 1 < o_end) stage_row(o + 1, buf ^ 1);
     // the H pass: s_t[j][k] = bf16(a x[hl][tlo + j][cg0 + k] + b x[hh][...])
     {
@@ -705,38 +778,35 @@ resize_ce_bwd_mma(const __nv_bfloat16* __restrict__ x, const L* __restrict__ lab
           s_x + (2 * buf + 1) * xe + lead<__nv_bfloat16>(x_at(hh), vec) + cg0;
       for (int i = tid; i < ntc * ng; i += THREADS) {
         const int j = i / ng, k = i - j * ng;
-        s_t[i] = round_bf16(a * __bfloat162float(x0[j * c + k]) +
-                            b * __bfloat162float(x1[j * c + k]));
+        const float v = round_bf16(a * __bfloat162float(x0[j * c + k]) +
+                                   b * __bfloat162float(x1[j * c + k]));
+        s_t[i] = v;
+        bad |= !is_finite(v);
       }
     }
     __syncthreads();
-    // the cotangent bf16(gw (exp(y - logz) - onehot)) of output column q,
-    // classes [k0, k1) of the group (k0 even)
+    // the cotangent gw (exp(y - logz) - onehot) of output column q, class k
+    // of the group
     __nv_bfloat16* sd = s_d + size_t(buf) * ocmax * ld;
     const size_t px = (size_t(img) * oh + o) * ow + oc0;
     const L* lab_row = s_lab + buf * le + lead<L>(px, vec);
     const __nv_bfloat16* lz_row = s_lz + buf * ze + lead<__nv_bfloat16>(px, vec);
-    auto cotangent = [&](int q, int k0, int k1) {
+    auto col = [&](int q) {
       const long long lab = static_cast<long long>(lab_row[q]);
-      const float lz = __bfloat162float(lz_row[q]);
       const bool valid = lab >= 0 && lab < c;
-      const float gw = valid ? s_cw[lab] * scale : 0.f;
-      const int kl = valid ? int(lab) - cg0 : -1;
-      const float* t0 = s_t + s_jl[q];
-      const float* t1 = s_t + s_jh[q];
-      const float wl = s_wl[q], wh = s_wh[q];
+      return ColCot{valid ? s_cw[lab] * scale : 0.f, __bfloat162float(lz_row[q]), s_wl[q],
+                    s_wh[q], valid ? int(lab) - cg0 : -1, s_t + s_jl[q], s_t + s_jh[q]};
+    };
+    // ... rounded to bf16, classes [k0, k1) (k0 even)
+    auto cotangent = [&](int q, int k0, int k1) {
+      const ColCot cc = col(q);
+      bad |= !is_finite(cc.gw) || !is_finite(cc.lz);
       __nv_bfloat16* d = sd + size_t(q) * ld;
       for (int k = k0; k < k1; k += 2) {
         float dv[2] = {0.f, 0.f};
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (k + e < k1) {
-            float y = wl * t0[k + e] + wh * t1[k + e];
-            y = fminf(fmaxf(y, -CLIP), CLIP);
-            const float p = expf(y - lz);
-            dv[e] = gw * (p - (kl == k + e ? 1.f : 0.f));
-          }
-        }
+        for (int e = 0; e < 2; ++e)
+          if (k + e < k1) dv[e] = cot_at(cc, k + e);
         *reinterpret_cast<__nv_bfloat162*>(d + k) = __floats2bfloat162_rn(dv[0], dv[1]);
       }
     };
@@ -749,7 +819,11 @@ resize_ce_bwd_mma(const __nv_bfloat16* __restrict__ x, const L* __restrict__ lab
       cotangent(q, k, min(k + 2, ng));
     }
     cp_async_wait_all();  // the next row's staging has landed
-    __syncthreads();
+    const bool row_bad = __syncthreads_or(bad);
+    if (row_bad) {
+      zero_nonfinite(sd, noc, ld, ng, THREADS);
+      __syncthreads();
+    }
     if (has_unit) {  // the banded product, then the transposed H pass
       // the transposed W pass: dw (16 low-res columns x 8 classes) = A d over
       // the tile's k range, float32 sums of exact bf16 products
@@ -760,6 +834,8 @@ resize_ce_bwd_mma(const __nv_bfloat16* __restrict__ x, const L* __restrict__ lab
         ldsm_x2_trans(b0, b1, bp + size_t(16 * s) * ld);
         mma_bf16(acc, __ldg(fr + 32 * s), b0, b1);
       }
+      if (row_bad)
+        nonfinite_marks(acc, ja, kq - cg0, ng, max(kb, 0), min(kb + 16 * ks, noc), oc0, tb, col);
       // rows the walk has passed are finished
       for (; R < hl; ++R) {
         flush(R, cur);
@@ -776,6 +852,7 @@ resize_ce_bwd_mma(const __nv_bfloat16* __restrict__ x, const L* __restrict__ lab
         }
       }
     }
+    if (row_bad) __syncthreads();  // the marks read s_t and the staged row
   }
   if (has_unit) {
     flush(R, cur);
@@ -906,6 +983,7 @@ resize_ce_map_bwd_w(const __nv_bfloat16* __restrict__ x, const L* __restrict__ l
   __syncthreads();
   for (int o = o_begin; o < o_end; ++o) {
     const int buf = (o - o_begin) & 1;
+    bool bad = false;  // a value that is not finite in this row (see zero_nonfinite)
     if (o + 1 < o_end) stage_row(o + 1, buf ^ 1);
     // the H pass: s_t[j][k] = bf16(a x[hl][tlo + j][cg0 + k] + b x[hh][...]),
     // 0 in the pad
@@ -917,9 +995,11 @@ resize_ce_map_bwd_w(const __nv_bfloat16* __restrict__ x, const L* __restrict__ l
           s_x + (2 * buf + 1) * xe + lead<__nv_bfloat16>(x_at(tb.row_hi[o]), vec) + cg0;
       for (int i = tid; i < ntc * ngp; i += nthreads) {
         const int j = i / ngp, k = i - j * ngp;
-        s_t[i] = k < ng ? round_bf16(a * __bfloat162float(x0[j * c + k]) +
-                                     b * __bfloat162float(x1[j * c + k]))
-                        : 0.f;
+        const float v = k < ng ? round_bf16(a * __bfloat162float(x0[j * c + k]) +
+                                            b * __bfloat162float(x1[j * c + k]))
+                               : 0.f;
+        s_t[i] = v;
+        bad |= !is_finite(v);
       }
     }
     __syncthreads();  // s_t is written; the previous row's products have read s_d
@@ -935,6 +1015,7 @@ resize_ce_map_bwd_w(const __nv_bfloat16* __restrict__ x, const L* __restrict__ l
         const bool valid = lab >= 0 && lab < c;
         const float gw = valid ? ct_row[q] : 0.f;
         const float lz = __bfloat162float(lz_row[q]);
+        bad |= !is_finite(gw) || !is_finite(lz);
         const int kl = valid ? int(lab) - cg0 : -1;
         const float2* t0 = reinterpret_cast<const float2*>(s_t + s_jl[q]);
         const float2* t1 = reinterpret_cast<const float2*>(s_t + s_jh[q]);
@@ -942,8 +1023,8 @@ resize_ce_map_bwd_w(const __nv_bfloat16* __restrict__ x, const L* __restrict__ l
         __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(s_d + size_t(q) * ld);
         for (int kp = 0; kp < ngp / 2; ++kp) {
           const float2 u = t0[kp], v = t1[kp];
-          const float y0 = fminf(fmaxf(wt.x * u.x + wt.y * v.x, -CLIP), CLIP);
-          const float y1 = fminf(fmaxf(wt.x * u.y + wt.y * v.y, -CLIP), CLIP);
+          const float y0 = clip_logit(wt.x * u.x + wt.y * v.x);
+          const float y1 = clip_logit(wt.x * u.y + wt.y * v.y);
           const float d0 = gw * (expf(y0 - lz) - (kl == 2 * kp ? 1.f : 0.f));
           const float d1 = gw * (expf(y1 - lz) - (kl == 2 * kp + 1 ? 1.f : 0.f));
           d[kp] = __floats2bfloat162_rn(d0, d1);
@@ -951,7 +1032,11 @@ resize_ce_map_bwd_w(const __nv_bfloat16* __restrict__ x, const L* __restrict__ l
       }
     }
     cp_async_wait_all();  // the next row's staging has landed
-    __syncthreads();
+    const bool row_bad = __syncthreads_or(bad);
+    if (row_bad) {
+      zero_nonfinite(s_d, noc, ld, ngp, nthreads);
+      __syncthreads();
+    }
     if (has_unit) {  // the products
       // dw (16 low-res columns x 8 classes) = A d over the tile's k range,
       // float32 sums of exact bf16 products, the even and the odd k steps
@@ -981,15 +1066,34 @@ resize_ce_map_bwd_w(const __nv_bfloat16* __restrict__ x, const L* __restrict__ l
       // rows ja and ja + 8 of the tile, classes kq and kq + 1, in bf16
       __nv_bfloat16* dst = dw + (size_t(img) * oh + o) * w * c;
       const int ja = tile * 16 + (lane >> 2), kq = cg0 + ctl * 8 + 2 * (lane & 3);
+      float sum[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[i] = c0[i] + c1[i];
+      if (row_bad) {
+        const size_t px = (size_t(img) * oh + o) * ow + oc0;
+        const L* lab_row = s_lab + buf * le + lead<L>(px, vec);
+        const __nv_bfloat16* lz_row = s_lz + buf * ze + lead<__nv_bfloat16>(px, vec);
+        const float* ct_row = s_ct + buf * ce + lead<float>(px, vec);
+        auto col = [&](int q) {
+          const long long lab = static_cast<long long>(lab_row[q]);
+          const bool valid = lab >= 0 && lab < c;
+          const float2 wt = __bfloat1622float2(s_wt[q]);
+          return ColCot{valid ? ct_row[q] : 0.f, __bfloat162float(lz_row[q]), wt.x, wt.y,
+                        valid ? int(lab) - cg0 : -1, s_t + s_jl[q], s_t + s_jh[q]};
+        };
+        const int kb = mt.tile_k0[tile] - oc0;
+        nonfinite_marks(sum, ja, kq - cg0, ng, max(kb, 0), min(kb + 16 * ks, noc), oc0, tb,
+                        col);
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int j = ja + 8 * r;
         if (j >= w) continue;
-        if (kq < c) dst[size_t(j) * c + kq] = __float2bfloat16(c0[2 * r] + c1[2 * r]);
-        if (kq + 1 < c)
-          dst[size_t(j) * c + kq + 1] = __float2bfloat16(c0[2 * r + 1] + c1[2 * r + 1]);
+        if (kq < c) dst[size_t(j) * c + kq] = __float2bfloat16(sum[2 * r]);
+        if (kq + 1 < c) dst[size_t(j) * c + kq + 1] = __float2bfloat16(sum[2 * r + 1]);
       }
     }
+    if (row_bad) __syncthreads();  // the marks read s_t and the staged row
   }
 }
 

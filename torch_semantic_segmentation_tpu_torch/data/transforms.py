@@ -188,12 +188,14 @@ def augment_batch(images: torch.Tensor, labels: torch.Tensor,
     `cfg.out_dtype`, labels (N,ch,cw) int32). `generator` lies on the
     images' device; the same generator state gives the same batch.
 
-    Under a process group the images are the rank's rows of the global
-    batch: the draw is made at the global batch's size and the rank keeps
-    its columns, so rank r augments as the single process does rows r, and
-    every rank's generator stays in step."""
+    Under a process group the images are the rank's data row's rows of
+    the global batch: the draw is made at the global batch's size and the
+    rank keeps its columns, so rank r augments as the single process does
+    rows r, and every rank's generator stays in step. Under spatial
+    sharding the bands of a data row augment the same rows alike and each
+    keeps its band of the result (`distributed.band_rows`)."""
     n, h, w, _ = images.shape
-    u = torch.rand((8, n * distributed.world_size()), generator=generator,
+    u = torch.rand((8, n * distributed.data_size()), generator=generator,
                    device=images.device)
     u = distributed.shard_rows(u, dim=1)
     p = _sample_params(u, h, w, cfg)

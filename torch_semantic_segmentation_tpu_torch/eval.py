@@ -39,8 +39,14 @@ def make_multiscale_eval_step(
     """The multi-scale eval step: `step(cm, images, labels) -> cm`, on
     `device` (the card unless the caller passes "cpu"; the model must
     already be there), the model in eval mode under
-    `torch.inference_mode()`. Images are normalised NHWC floats."""
+    `torch.inference_mode()`. Images are normalised NHWC floats. Not
+    under spatial sharding (`NotImplementedError`): its rescaled inputs
+    are not bands of the frame."""
     dev = resolve_device(device)
+    if distributed.is_spatial():
+        raise NotImplementedError(
+            "the multi-scale eval step under spatial sharding: FastSCNN's "
+            "single-scale eval step (`train.make_eval_step`) takes H bands")
 
     def round_div(v: float) -> int:
         return max(int(round(v / size_divisor)) * size_divisor, size_divisor)

@@ -25,6 +25,15 @@ a max and 26 counts reduced over ranks for the bisection). The fused K1
 returns the rank's own ratio, rescaled by its Σ w over the global one.
 Without a group none of this runs.
 
+Under spatial sharding the logits and labels are an H band of the
+images. A full-resolution loss needs nothing more: the band's pixels over
+the global Σ w. A loss of low-res logits takes one halo row of logits each
+side (none at the image's global top and bottom) and pads the labels with
+k rows of `ignore_index` for each: the ×k resize of band + halo gives
+every band pixel its global logits (`ops.upsample`), the padded pixels
+weigh 0, and the halo rows' gradients go back to their bands. The fused
+kernels run as they are.
+
 `aux_weighted_loss` sums a main head's loss and the aux heads' (BiSeNet,
 ICNet). A loss that upsamples low-res logits itself declares
 `handles_resize` (`resize_cross_entropy_loss`, `resize_ohem_cross_entropy`,
@@ -118,6 +127,29 @@ def _rank_share(loss: torch.Tensor, labels: torch.Tensor,
     return loss * scale
 
 
+def _band_and_halo(logits: torch.Tensor, labels: torch.Tensor,
+                   ignore_index: int):
+    """Under spatial sharding: (the band's low-res logits with one halo row
+    each side, the band's labels padded with k rows of `ignore_index` for
+    each halo row, the padding's rows above the band). Without it, the
+    inputs and 0."""
+    if not distributed.is_spatial():
+        return logits, labels, 0
+    h, oh = logits.shape[1], labels.shape[1]
+    if oh % h:
+        raise NotImplementedError(
+            f"a loss of {h} logit rows on {oh} label rows of an H band: "
+            "spatial sharding takes an integer upsampling")
+    k = oh // h
+    top = k if distributed.spatial_rank() > 0 else 0
+    bottom = k if distributed.spatial_rank() < distributed.num_spatial() - 1 \
+        else 0
+    pad = [labels.new_full((labels.shape[0], r, labels.shape[2]),
+                           ignore_index) for r in (top, bottom)]
+    return (distributed.halo(logits, 1, 1),
+            torch.cat([pad[0], labels, pad[1]], dim=1), top)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
                        ignore_index: int = 255,
                        class_weights: torch.Tensor | None = None
@@ -142,6 +174,9 @@ def resize_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     float32, as in the JAX package."""
     c = logits.shape[-1]
     oh, ow = labels.shape[1], labels.shape[2]
+    if (logits.shape[1], logits.shape[2]) != (oh, ow):
+        logits, labels, _ = _band_and_halo(logits, labels, ignore_index)
+        oh = labels.shape[1]
     if (logits.dtype == torch.bfloat16
             and (logits.shape[1], logits.shape[2]) != (oh, ow)
             and not 0 <= ignore_index < c
@@ -249,7 +284,11 @@ def resize_ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     (N,OH,C,OW) layout in the logits' dtype and the CE in float32, as in
     the JAX package. The selection and the mean follow on the map."""
     c = logits.shape[-1]
+    band_labels = labels
     oh, ow = labels.shape[1], labels.shape[2]
+    top = 0
+    if (logits.shape[1], logits.shape[2]) != (oh, ow):
+        logits, labels, top = _band_and_halo(logits, labels, ignore_index)
     valid = labels != ignore_index
     if (logits.dtype == torch.bfloat16
             and (logits.shape[1], logits.shape[2]) != (oh, ow)
@@ -257,12 +296,16 @@ def resize_ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
             and _class_weights_constant(class_weights)):
         loss = per_pixel_resize_ce(logits, labels, align_corners=align_corners)
     else:
-        x = resize_bilinear_nhcw(logits, (oh, ow), align_corners=align_corners,
+        x = resize_bilinear_nhcw(logits, (labels.shape[1], ow),
+                                 align_corners=align_corners,
                                  out_dtype=logits.dtype)   # (N, OH, C, OW)
         xf = x.float()
         logz = torch.logsumexp(xf, dim=2)
         true_logit = _one_hot_pick(xf, labels, valid, 2)
         loss = torch.where(valid, logz - true_logit, 0.0)
+    # the band's rows of the map (the padding's rows are the halo's)
+    loss, valid, labels = (loss.narrow(1, top, oh), valid.narrow(1, top, oh),
+                           band_labels)
     flat, vflat = loss.reshape(-1), valid.reshape(-1)
     keep = _ohem_keep(flat, vflat, thresh, min_kept, None)
     return _ohem_mean(flat, keep, labels, class_weights)

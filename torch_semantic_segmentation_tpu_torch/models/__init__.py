@@ -29,6 +29,7 @@ from torch_semantic_segmentation_tpu_torch.models.fastscnn import (
 from torch_semantic_segmentation_tpu_torch.models.icnet import ICNet, icnet
 from torch_semantic_segmentation_tpu_torch.models.lednet import LEDNet, lednet
 from torch_semantic_segmentation_tpu_torch.models.unet import UNet, unet
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 _REGISTRY = {"fastscnn": fastscnn, "unet": unet,
              "deeplabv3_resnet18": deeplabv3_resnet18,
@@ -51,6 +52,8 @@ def get_model(name: str, num_classes: int = 19, *, pretrained=None,
     alignment (`compat.key_maps`), as in the JAX package."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; available: {sorted(_REGISTRY)}")
+    if name != "fastscnn":
+        check_spatial_model(name)
     model = _REGISTRY[name](num_classes, **kwargs)
     if pretrained:
         from torch_semantic_segmentation_tpu_torch.compat.torch_loader import (
@@ -75,9 +78,22 @@ def available_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
+def check_spatial_model(model) -> None:
+    """Raise NotImplementedError under spatial sharding
+    (`distributed.initialize(num_spatial > 1)`) for any model but
+    FastSCNN, the one model whose ops take H bands so far (`model` is a
+    module or a zoo name)."""
+    if not distributed.is_spatial() or isinstance(model, FastSCNN):
+        return
+    name = model if isinstance(model, str) else type(model).__name__
+    raise NotImplementedError(
+        f"spatial sharding (num_spatial={distributed.num_spatial()}) is "
+        f"ported for FastSCNN only; {name} does not take H bands yet")
+
+
 __all__ = ["BiSeNet", "ContextNet", "DeepLabV3", "ENet", "ERFNet", "ESNet",
            "FastSCNN", "ICNet", "LEDNet", "UNet", "available_models",
-           "bisenet", "contextnet", "deeplabv3_resnet18",
+           "bisenet", "check_spatial_model", "contextnet", "deeplabv3_resnet18",
            "deeplabv3_resnet34", "deeplabv3_resnet50", "deeplabv3_resnet101",
            "enet", "erfnet", "esnet", "fastscnn", "get_model", "icnet",
            "lednet", "unet"]

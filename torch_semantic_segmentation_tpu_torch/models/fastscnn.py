@@ -8,7 +8,10 @@ names and attribute paths so that its weights map one to one.
   dw conv → 1×1, plus a 1×1 of the 1/8 branch, summed → ReLU
 - Classifier: 2× ds-separable conv → dropout → 1×1 logits
 
-Input and output are NHWC, as in the JAX package.
+Input and output are NHWC, as in the JAX package. Under spatial sharding
+(`parallel.distributed.initialize(num_spatial=...)`) the input and the
+output are an H band of the image: every op that reads neighbouring rows
+takes a halo from the bands beside it.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from torch_semantic_segmentation_tpu_torch.ops import (
 )
 from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
 from torch_semantic_segmentation_tpu_torch.ops.sepconv import fuse_conv_pair
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 class LearningToDownsample(nn.Module):
@@ -171,11 +175,12 @@ class FastSCNN(nn.Module):
                 *heads]
 
     def forward(self, x: torch.Tensor):
+        # under spatial sharding x is an H band: the check is on the image
         h, w = x.shape[1], x.shape[2]
-        if h % 32 or w % 32:
+        if h * distributed.num_spatial() % 32 or w % 32:
             raise ValueError(
                 f"FastSCNN needs H and W divisible by 32 (5 stride-2 stages); "
-                f"got {h}x{w}")
+                f"got {h * distributed.num_spatial()}x{w}")
         hi = self.lds(x)               # 1/8
         lo = self.gfe(hi)              # 1/32
         logits = self.classifier(self.ffm(hi, lo))

@@ -7,7 +7,7 @@ import torch
 from torch import nn
 
 from torch_semantic_segmentation_tpu_torch.ops.conv import (
-    ConvBNAct, activation, make_conv)
+    ConvBNAct, activation, band_halo, make_conv)
 from torch_semantic_segmentation_tpu_torch.ops import mbconv
 from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
 from torch_semantic_segmentation_tpu_torch.ops.folded_bn import (
@@ -16,6 +16,7 @@ from torch_semantic_segmentation_tpu_torch.ops.mbconv import fused_expand_dw
 from torch_semantic_segmentation_tpu_torch.ops.pool import (
     adaptive_avg_pool2d, global_avg_pool)
 from torch_semantic_segmentation_tpu_torch.ops.upsample import resize_bilinear
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 class InvertedResidual(nn.Module):
@@ -49,7 +50,14 @@ class InvertedResidual(nn.Module):
         largest activation of the network, never reaches device memory.
         Returns the dw output after the dw BN and ReLU, or None where the
         block does not qualify: eval mode, another conv shape, a compute
-        dtype other than bf16, or inside `mbconv.suppress_routing()`."""
+        dtype other than bf16, or inside `mbconv.suppress_routing()`.
+
+        On an H band W′ and b′ fold from the band's moments (before any
+        halo), and the op runs on x's band + halo, cropped: x's halo rows
+        make the neighbours' expanded rows. At the image's global top and
+        bottom there is no halo and the kernel's own zero padding of the
+        expanded tensor stays: a zero row of x would expand to relu(b′),
+        not to zero."""
         exp, dw = self.expand, self.dw
         if (mbconv.routing_suppressed() or not self.training
                 or exp.bn is None or dw.bn is None
@@ -75,7 +83,10 @@ class InvertedResidual(nn.Module):
             return None
         w_fold, b_fold = folded_1x1_weights(ec, exp.bn, x)
         k = dc.weight.reshape(hidden, 3, 3).permute(1, 2, 0)
-        y = fused_expand_dw(x.contiguous(), w_fold, b_fold, k, dc.stride[0])
+        s = dc.stride[0]
+        y = distributed.on_band(
+            lambda xh: fused_expand_dw(xh.contiguous(), w_fold, b_fold, k, s),
+            x, *band_halo(3, s, 1), down=s)
         return activation(dw.act_name)(dw.bn(y))
 
 
@@ -99,12 +110,16 @@ class PyramidPooling(nn.Module):
                               act="relu", **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # on an H band each bin's pool sums over the data row's bands, and
+        # its resize back takes the band's rows: the bins themselves are
+        # the same on every band
         n, h, w, c = x.shape
         feats = [x]
         for b, conv in zip(self.bins, self.branches):
             y = conv(adaptive_avg_pool2d(x, b))
             feats.append(resize_bilinear(y, (h, w),
-                                         align_corners=self.align_corners))
+                                         align_corners=self.align_corners,
+                                         source="replicated"))
         return self.fuse(torch.cat(feats, dim=-1))
 
 

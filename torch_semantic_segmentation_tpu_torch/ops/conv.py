@@ -81,6 +81,19 @@ def batch_moments(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     return both[0], both[1]
 
 
+def band_halo(kernel: int, stride: int, padding: int,
+              dilation: int = 1) -> tuple[int, int]:
+    """(top, bottom): the halo rows an H-sharded conv of this geometry
+    takes from the bands above and below (`distributed.on_band`). The top
+    is the padding rounded up to the stride, so that the local grid stays
+    the global one (at stride 2 with padding 1, two rows, and the first
+    output row is cropped); the bottom covers what the band's last output
+    row reads past the band. A 1×1 conv takes none."""
+    top = -(-padding // stride) * stride
+    bottom = max(0, dilation * (kernel - 1) - padding - stride + 1)
+    return top, bottom
+
+
 def _pair(v) -> tuple[int, int]:
     if isinstance(v, (tuple, list)):
         return (int(v[0]), int(v[1]))
@@ -271,23 +284,35 @@ class ConvBNAct(nn.Module):
         self.act_name = "prelu" if prelu else act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._maybe_depthwise(x)
-        if y is None:
-            y = self.conv(x)
+        # on an H band: the conv on band + halo, cropped to the band, so
+        # that BN's moments never see a halo row
+        conv = self.conv
+        rows = x.shape[1] * distributed.num_spatial()
+        y = distributed.on_band(
+            lambda xh: self._conv(xh, rows), x,
+            *band_halo(conv.kernel_size[0], conv.stride[0], conv.padding[0],
+                       conv.dilation[0]), down=conv.stride[0])
         if self.bn is not None:
             y = self.bn(y)
         if self.act is not None:
             return self.act(y)
         return activation(self.act_name)(y)
 
-    def _maybe_depthwise(self, x: torch.Tensor) -> torch.Tensor | None:
+    def _conv(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        y = self._maybe_depthwise(x, rows)
+        return self.conv(x) if y is None else y
+
+    def _maybe_depthwise(self, x: torch.Tensor,
+                         rows: int | None = None) -> torch.Tensor | None:
         """The JAX package's `ConvBNAct._maybe_pallas_dw` with its opt-in
         switch on: a depthwise 3×3 (groups = C = the input's channels),
         dilation 1, padding 1, stride 2, no bias, over at least
         `DEPTHWISE_MIN_PX` input pixels, whose compute dtype is x's, goes
         through `ops.depthwise` with the float32 kernel. Returns None where
         the conv does not qualify. Folding BN gives a conv a bias, so the
-        serving path never routes here."""
+        serving path never routes here. `rows` is the input's global H
+        (x's own by default; a band with its halo counts the image's), so
+        that the route does not depend on the spatial split."""
         conv = self.conv
         c = x.shape[-1]
         if (conv.groups == 1 or conv.groups != c or conv.out_channels != c
@@ -297,7 +322,7 @@ class ConvBNAct(nn.Module):
             return None
         if not depthwise.supports(tuple(x.shape), 2, dtype=x.dtype):
             return None
-        if x.shape[0] * x.shape[1] * x.shape[2] < DEPTHWISE_MIN_PX:
+        if x.shape[0] * (rows or x.shape[1]) * x.shape[2] < DEPTHWISE_MIN_PX:
             return None
         if _compute_types(x, conv.weight, conv.compute_dtype) != x.dtype:
             return None

@@ -15,7 +15,9 @@ or rate 0.
 Under a process group the input holds the rank's rows of the global batch:
 the mask is drawn at the global batch's N (one value for all N where 0 is
 in `broadcast_dims`) and the rank keeps its rows, so every generator stays
-in step with the single process's."""
+in step with the single process's. Under spatial sharding the input is an
+H band of those rows: the mask is drawn at the global H too (where 1 is not
+in `broadcast_dims`) and the rank keeps its band."""
 
 from __future__ import annotations
 
@@ -50,8 +52,12 @@ class Dropout(nn.Module):
         shape = [1 if d in self.broadcast_dims else s
                  for d, s in enumerate(x.shape)]
         if 0 not in self.broadcast_dims:
-            shape[0] *= distributed.world_size()
+            shape[0] *= distributed.data_size()
+        if 1 not in self.broadcast_dims:
+            shape[1] *= distributed.num_spatial()
         u = torch.rand(shape, generator=self.generator, device=x.device)
         if 0 not in self.broadcast_dims:
             u = distributed.shard_rows(u)
+        if 1 not in self.broadcast_dims:
+            u = distributed.band_rows(u, 1)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))

@@ -1,7 +1,9 @@
 """Pooling on NHWC tensors: max pooling (UNet's encoder, the ResNet stem),
 the 2×2 max pool with window indices and its unpool (ENet), adaptive
 average pooling (the PPM bins) and global average pooling, the averages
-accumulated in float32."""
+accumulated in float32. Under spatial sharding the two averages take an H
+band: the band's part of the global average, summed over the data row's
+bands (`distributed.spatial_sum`)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,22 +64,31 @@ def max_unpool2x2(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 
 
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
-    """Mean over H and W in float32, cast back to x's dtype."""
-    return x.float().mean(dim=(1, 2), keepdim=keepdims).to(x.dtype)
+    """Mean over H and W in float32, cast back to x's dtype (of the whole
+    image for an H band)."""
+    if not distributed.is_spatial():
+        return x.float().mean(dim=(1, 2), keepdim=keepdims).to(x.dtype)
+    total = x.float().sum(dim=(1, 2), keepdim=keepdims)
+    rows = x.shape[1] * distributed.num_spatial()
+    return (distributed.spatial_sum(total) / (rows * x.shape[2])).to(x.dtype)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor,
                         output_size: int | tuple[int, int]) -> torch.Tensor:
-    """torch AdaptiveAvgPool2d on NHWC `x`, as two small float32 matmuls."""
+    """torch AdaptiveAvgPool2d on NHWC `x`, as two small float32 matmuls.
+    For an H band, the band's columns of the global pool matrix, summed
+    over the data row's bands before the W pass."""
     if isinstance(output_size, int):
         oh = ow = output_size
     else:
         oh, ow = output_size
     n, h, w, c = x.shape
-    if (oh, ow) == (h, w):
+    spatial = distributed.num_spatial()
+    if spatial == 1 and (oh, ow) == (h, w):
         return x
-    mh = torch.from_numpy(_pool_matrix(h, oh)).to(x.device)
+    mh = torch.from_numpy(_pool_matrix(h * spatial, oh)).to(x.device)
+    mh = mh[:, distributed.spatial_rank() * h:][:, :h]
     mw = torch.from_numpy(_pool_matrix(w, ow)).to(x.device)
-    y = torch.einsum("nhwc,oh->nowc", x.float(), mh)
+    y = distributed.spatial_sum(torch.einsum("nhwc,oh->nowc", x.float(), mh))
     y = torch.einsum("nhwc,ow->nhoc", y, mw)
     return y.to(x.dtype)

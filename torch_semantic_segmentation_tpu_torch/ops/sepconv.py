@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from torch_semantic_segmentation_tpu_torch import kernels
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 
@@ -162,12 +163,13 @@ def fuse_conv_pair(dw, pw, x: torch.Tensor) -> torch.Tensor | None:
     if (tuple(pwc.weight.shape[1:]) != (c, 1, 1) or pwc.stride != (1, 1)
             or pwc.padding != (0, 0) or pwc.groups != 1):
         return None
-    return fused_separable_conv(
-        x.contiguous(), *_kernel_weights(dw, pw, x.dtype),
-        stride=1, dilation=d,
+    weights = _kernel_weights(dw, pw, x.dtype)
+    # on an H band: band + d halo rows each side, cropped
+    return distributed.on_band(lambda xh: fused_separable_conv(
+        xh.contiguous(), *weights, stride=1, dilation=d,
         relu_mid=dw.act_name == "relu",
         relu_out=pw.act_name == "relu",
-    )
+    ), x, d, d)
 
 
 def _kernel_weights(dw, pw, dtype: torch.dtype) -> tuple:

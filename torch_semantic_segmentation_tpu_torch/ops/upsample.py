@@ -6,6 +6,15 @@ The matrix form and the accumulation types are the JAX package's, so that
 class ids after `resize_argmax` match it: float32 inputs accumulate in
 float32; bfloat16 inputs round to bfloat16 after each pass (the matrices are
 2-hot, so at most two terms meet in a sum).
+
+Under spatial sharding (`parallel.distributed`) `resize_bilinear` and
+`resize_argmax` take an H band of the image and give the band's rows of
+the global resize. For an integer ×k in H with align_corners=False the
+local grid is the global one shifted by whole rows: one halo row each
+side (none at the image's global top and bottom, where the clamp is the
+global one) and k rows cropped each side give exactly the global rows.
+An input that is the same on every band (the PPM's bins,
+`source="replicated"`) takes the band's rows of the global matrix.
 """
 
 from __future__ import annotations
@@ -14,6 +23,8 @@ import functools
 
 import numpy as np
 import torch
+
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,14 +60,54 @@ def _matrix(in_size: int, out_size: int, align_corners: bool,
 
 
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int], *,
-                    align_corners: bool = False) -> torch.Tensor:
+                    align_corners: bool = False,
+                    source: str = "band") -> torch.Tensor:
     """Bilinear-resize NHWC `x` to `size` = (H_out, W_out); accumulates in
-    float32 and casts back to x's dtype."""
+    float32 and casts back to x's dtype. Under spatial sharding `size` is
+    the band's and `x` an H band of the image (`source="band"`), or the
+    same on every band (`source="replicated"`)."""
+    if not distributed.is_spatial():
+        return _resize_bilinear(x, size, None, align_corners)
     n, h, w, c = x.shape
     oh, ow = size
-    if (oh, ow) == (h, w):
+    if source == "replicated":
+        rows = oh * distributed.num_spatial()
+        return _resize_bilinear(x, size, (rows, distributed.spatial_rank()
+                                          * oh), align_corners)
+    k = _band_scale(h, oh, align_corners)
+    if (k, ow) == (1, w):
         return x
-    wh = _matrix(h, oh, align_corners, x, torch.float32)
+    return distributed.on_band(
+        lambda xh: _resize_bilinear(xh, (xh.shape[1] * k, ow), None,
+                                    align_corners), x, 1, 1, up=k)
+
+
+def _band_scale(h: int, oh: int, align_corners: bool) -> int:
+    """The integer ×k of an H band's resize; raises where the band's rows
+    are not a translate of the global grid."""
+    if oh % h or align_corners:
+        raise NotImplementedError(
+            f"a resize of an H band from {h} to {oh} rows"
+            + (" with align_corners=True" if align_corners else "")
+            + ": spatial sharding takes integer upsampling with "
+            "align_corners=False")
+    return oh // h
+
+
+def _resize_bilinear(x: torch.Tensor, size: tuple[int, int],
+                     rows: tuple[int, int] | None,
+                     align_corners: bool) -> torch.Tensor:
+    """The resize itself; `rows` = (global H_out, first row) takes the
+    rows [first, first + H_out) of a resize to the global H_out."""
+    n, h, w, c = x.shape
+    oh, ow = size
+    if rows is None and (oh, ow) == (h, w):
+        return x
+    if rows is None:
+        wh = _matrix(h, oh, align_corners, x, torch.float32)
+    else:
+        wh = _matrix(h, rows[0], align_corners, x, torch.float32)
+        wh = wh[rows[1]:rows[1] + oh]
     ww = _matrix(w, ow, align_corners, x, torch.float32)
     y = torch.einsum("nhwc,oh->nowc", x.float(), wh)
     y = torch.einsum("nhwc,ow->nhoc", y, ww)
@@ -86,9 +137,17 @@ def resize_argmax(logits: torch.Tensor, size: tuple[int, int], *,
                   out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
     """argmax over classes of the bilinearly upsampled NHWC logits, in the
     (N, H, C, W) layout: the serving tail for models built with
-    `upsample_logits=False`."""
+    `upsample_logits=False`. Under spatial sharding the logits and `size`
+    are an H band's."""
     oh, ow = size
     if (oh, ow) == (logits.shape[1], logits.shape[2]):
         return torch.argmax(logits, dim=-1).to(out_dtype)
-    x = resize_bilinear_nhcw(logits, size, align_corners=align_corners)
+    if distributed.is_spatial():
+        k = _band_scale(logits.shape[1], oh, align_corners)
+        x = distributed.on_band(
+            lambda xh: resize_bilinear_nhcw(xh, (xh.shape[1] * k, ow),
+                                            align_corners=align_corners),
+            logits, 1, 1, up=k)
+    else:
+        x = resize_bilinear_nhcw(logits, size, align_corners=align_corners)
     return torch.argmax(x, dim=2).to(out_dtype)

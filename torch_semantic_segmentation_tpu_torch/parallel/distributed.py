@@ -21,6 +21,21 @@ draw. With no process group every collective here is the identity and
 launches nothing, so a single-process run executes exactly the code it
 always did.
 
+Spatial sharding (the JAX package's 'spatial' mesh axis, `num_spatial`):
+the world is `world / num_spatial` data rows of `num_spatial` consecutive
+ranks. A rank holds its data row's images of the global batch
+(`local_shard_range`, `shard_rows`) and an equal band of H rows of each
+(`band_rows`). GSPMD inserts the halo exchanges there; here every op that
+reads neighbouring rows calls `on_band`: it takes `halo` rows from the
+bands above and below (`halo`, an autograd function whose backward sends
+each halo row's gradient back to its owner), runs on band + halo and
+crops back to the band. No halo is taken at the image's global top and
+bottom, where the op's own padding is the global one. A reduction over H
+sums the band's part over the data row (`spatial_sum`, one process
+subgroup a data row). `world_size()` stays every rank: each holds an equal
+share of the global batch's pixels, so the moments, losses and gradients
+above still weigh each rank 1/R and sum every pixel once.
+
 `initialize()` follows torchrun's contract: `WORLD_SIZE`, `RANK`,
 `LOCAL_RANK`, and `MASTER_ADDR` / `MASTER_PORT` for `env://`. NCCL on the
 card (rank r on `cuda:LOCAL_RANK`), gloo when the caller asks for the
@@ -42,22 +57,34 @@ import torch.distributed as dist
 ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK")
 
 _device: torch.device | None = None
+_num_spatial = 1
+_row_group = None   # this rank's data row: its spatial ranks' subgroup
 
 # collectives launched since the last reset (none without a group)
 collectives = 0
+# halo exchanges (forward and backward) and the bytes this rank sent in
+# them since the last reset
+halo_exchanges = 0
+halo_bytes = 0
 
 
 def initialize(device: str | torch.device | None = None, *,
                backend: str | None = None,
-               init_method: str = "env://") -> torch.device:
+               init_method: str = "env://",
+               num_spatial: int = 1) -> torch.device:
     """Join the process group described by torchrun's environment and
     return this rank's device. `device=None` (or "cuda") is
     `cuda:LOCAL_RANK`, made the current device; "cpu" runs the rank on the
     CPU. `backend` defaults to NCCL on the card and gloo on the CPU. A
     second call in a process with a group returns the group's device.
-    Raises when a variable is missing, when there is no card or NCCL for a
-    card's rank, or when LOCAL_RANK names no card."""
-    global _device
+    `num_spatial` > 1 splits the world into `world / num_spatial` data
+    rows of that many consecutive ranks, each rank on a band of H rows of
+    its row's images (the JAX package's `data_parallel_mesh(num_data,
+    num_spatial)`), with one subgroup a data row. Raises when a variable
+    is missing, when there is no card or NCCL for a card's rank, when
+    LOCAL_RANK names no card, or when `num_spatial` does not divide the
+    world."""
+    global _device, _num_spatial, _row_group
     if dist.is_initialized():
         return _device
     missing = [k for k in ENV if k not in os.environ]
@@ -71,6 +98,9 @@ def initialize(device: str | torch.device | None = None, *,
             "MASTER_ADDR and MASTER_PORT)")
     world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
     local_rank = int(os.environ["LOCAL_RANK"])
+    if num_spatial < 1 or world % num_spatial:
+        raise ValueError(f"num_spatial={num_spatial} does not divide the "
+                         f"world of {world} ranks")
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -95,15 +125,23 @@ def initialize(device: str | torch.device | None = None, *,
         backend, init_method=init_method, world_size=world, rank=rank,
         device_id=dev if backend == "nccl" else None)
     _device = dev
+    _num_spatial = num_spatial
+    if num_spatial > 1:
+        # every rank takes part in making every subgroup, in one order
+        for row in range(world // num_spatial):
+            ranks = list(range(row * num_spatial, (row + 1) * num_spatial))
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                _row_group = group
     return dev
 
 
 def destroy() -> None:
     """Leave the process group (a no-op without one)."""
-    global _device
+    global _device, _num_spatial, _row_group
     if dist.is_initialized():
         dist.destroy_process_group()
-    _device = None
+    _device, _num_spatial, _row_group = None, 1, None
 
 
 def is_initialized() -> bool:
@@ -127,26 +165,62 @@ def is_multiprocess() -> bool:
     return world_size() > 1
 
 
+def num_spatial() -> int:
+    """Ranks a data row's images are split over along H (1 without a
+    group or without spatial sharding)."""
+    return _num_spatial if is_initialized() else 1
+
+
+def is_spatial() -> bool:
+    return num_spatial() > 1
+
+
+def spatial_rank() -> int:
+    """This rank's band: 0 holds the images' top rows."""
+    return rank() % num_spatial()
+
+
+def data_size() -> int:
+    """The data rows the global batch is split over."""
+    return world_size() // num_spatial()
+
+
+def data_rank() -> int:
+    return rank() // num_spatial()
+
+
 def local_shard_range(global_batch: int) -> tuple[int, int]:
-    """[lo, hi) rows of each global batch that this rank feeds: rank r
-    takes [r·B/R, (r+1)·B/R). Raises unless B % R == 0."""
-    n = world_size()
+    """[lo, hi) rows of each global batch that this rank feeds: data row d
+    takes [d·B/D, (d+1)·B/D), D the data rows (every rank without spatial
+    sharding). Raises unless B % D == 0."""
+    n = data_size()
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by "
                          f"{n} processes")
     per = global_batch // n
-    r = rank()
+    r = data_rank()
     return r * per, (r + 1) * per
 
 
 def shard_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Rank r's equal share of `x` along `dim` (x itself without a
-    group): the rows of a draw made at the global batch's size."""
-    n = world_size()
+    """This rank's data row's equal share of `x` along `dim` (x itself
+    without a group): the rows of a draw made at the global batch's
+    size."""
+    n = data_size()
     if n == 1:
         return x
     per = x.shape[dim] // n
-    return x.narrow(dim, rank() * per, per)
+    return x.narrow(dim, data_rank() * per, per)
+
+
+def band_rows(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's band of `x` along `dim`, the image's H: the rows of a
+    draw made at the global H (x itself without spatial sharding)."""
+    n = num_spatial()
+    if n == 1:
+        return x
+    per = x.shape[dim] // n
+    return x.narrow(dim, spatial_rank() * per, per)
 
 
 def local_batch_iterator(dataset, global_batch: int, *,
@@ -182,32 +256,157 @@ def _count() -> None:
     collectives += 1
 
 
-def _reduce(x: torch.Tensor, op) -> torch.Tensor:
+def _reduce(x: torch.Tensor, op, group=None) -> torch.Tensor:
     y = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=op)
+    dist.all_reduce(y, op=op, group=group)
     _count()
     return y
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """A SUM all-reduce whose backward is a SUM all-reduce of the
-    cotangents: each rank's input gets the gradient of the sum of every
-    rank's loss share."""
+    """A SUM all-reduce over `group` whose backward is a SUM all-reduce of
+    the cotangents: each rank's input gets the gradient of the sum of
+    every rank's loss share."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _reduce(x, dist.ReduceOp.SUM)
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce(x, dist.ReduceOp.SUM, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce(g, dist.ReduceOp.SUM)
+        return _reduce(g, dist.ReduceOp.SUM, ctx.group), None
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """Σ over ranks of `x`, with gradients (x itself without a group)."""
     if not is_initialized():
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, None)
+
+
+def spatial_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ over this rank's data row (its spatial ranks) of `x`, with
+    gradients: a reduction over H of the band's parts (x itself without
+    spatial sharding)."""
+    if not is_spatial():
+        return x
+    return _AllReduceSum.apply(x, _row_group)
+
+
+def _exchange(sends: list, recvs: list, like: torch.Tensor) -> list:
+    """Point to point within the data row: `sends` are (tensor, spatial
+    rank) and `recvs` (shape, spatial rank); returns the received tensors
+    on `like`'s device and dtype. NCCL sends the card's tensors; gloo
+    sends no CUDA tensor point to point, so under gloo they go through
+    host memory."""
+    global halo_exchanges, halo_bytes
+    base = data_rank() * num_spatial()
+    host = dist.get_backend() != "nccl"
+    dev = torch.device("cpu") if host else like.device
+    out = [torch.empty(shape, dtype=like.dtype, device=dev)
+           for shape, _ in recvs]
+    payload = [t.detach().to(dev).contiguous() for t, _ in sends]
+    if host:
+        reqs = ([dist.isend(t, base + peer) for t, (_, peer) in
+                 zip(payload, sends)]
+                + [dist.irecv(t, base + peer) for t, (_, peer) in
+                   zip(out, recvs)])
+    else:
+        reqs = dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, t, base + peer)
+             for t, (_, peer) in zip(payload, sends)]
+            + [dist.P2POp(dist.irecv, t, base + peer)
+               for t, (_, peer) in zip(out, recvs)]) if sends or recvs else []
+    for r in reqs:
+        r.wait()
+    halo_exchanges += 1
+    halo_bytes += sum(t.numel() * t.element_size() for t in payload)
+    return [t.to(like.device) for t in out]
+
+
+class _Halo(torch.autograd.Function):
+    """Band + halo along dim 1 (H of NHWC and NHW): `top` rows from the
+    band above (its last) and `bottom` from the band below (its first),
+    none past the image's global top and bottom. The backward sends each
+    halo row's gradient back to the band it came from, which adds it to
+    its own row's."""
+
+    @staticmethod
+    def forward(ctx, x, top: int, bottom: int):
+        s, n = spatial_rank(), num_spatial()
+        t = top if s > 0 else 0
+        b = bottom if s < n - 1 else 0
+        ctx.sizes = (top, bottom, t, b)
+        sends, recvs = [], []
+        if s > 0 and bottom:
+            sends.append((x[:, :bottom], s - 1))
+        if s < n - 1 and top:
+            sends.append((x[:, x.shape[1] - top:], s + 1))
+        if t:
+            recvs.append(((x.shape[0], t, *x.shape[2:]), s - 1))
+        if b:
+            recvs.append(((x.shape[0], b, *x.shape[2:]), s + 1))
+        got = _exchange(sends, recvs, x)
+        above = got.pop(0) if t else x[:, :0]
+        below = got.pop(0) if b else x[:, :0]
+        return torch.cat([above, x, below], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        top, bottom, t, b = ctx.sizes
+        s, n = spatial_rank(), num_spatial()
+        rows = g.shape[1] - t - b
+        sends, recvs = [], []
+        if t:
+            sends.append((g[:, :t], s - 1))
+        if b:
+            sends.append((g[:, t + rows:], s + 1))
+        if s < n - 1 and top:     # the band below's top halo: my last rows
+            recvs.append(((g.shape[0], top, *g.shape[2:]), s + 1))
+        if s > 0 and bottom:      # the band above's bottom halo: my first
+            recvs.append(((g.shape[0], bottom, *g.shape[2:]), s - 1))
+        got = _exchange(sends, recvs, g)
+        dx = g[:, t:t + rows].clone()
+        if s < n - 1 and top:
+            dx[:, rows - top:] += got.pop(0)
+        if s > 0 and bottom:
+            dx[:, :bottom] += got.pop(0)
+        return dx, None, None
+
+
+def halo(x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
+    """x (N, H, ...) with `top` rows of the band above before it and
+    `bottom` rows of the band below after it, none at the image's global
+    top or bottom (x itself without spatial sharding); gradients go back
+    to their bands."""
+    if not is_spatial() or not (top or bottom):
+        return x
+    if max(top, bottom) > x.shape[1]:
+        raise ValueError(f"a halo of {max(top, bottom)} rows is more than "
+                         f"the band's {x.shape[1]}")
+    return _Halo.apply(x, top, bottom)
+
+
+def on_band(fn, x: torch.Tensor, top: int, bottom: int, up: int = 1,
+            down: int = 1) -> torch.Tensor:
+    """`fn` of this rank's band of the global tensor: `fn(halo(x, top,
+    bottom))` cropped to the band's rows of the global result. `fn` maps
+    R input rows to R·up/down output rows from the same origin (a conv of
+    stride `down`, whose `top` is a multiple of it; a ×`up` resize), so
+    the band's rows start at top·up/down. Without spatial sharding,
+    `fn(x)`."""
+    if not is_spatial():
+        return fn(x)
+    t = top if spatial_rank() > 0 else 0
+    y = fn(halo(x, top, bottom))
+    rows = x.shape[1] * up // down
+    start = t * up // down
+    if y.shape[1] < start + rows:
+        raise ValueError(f"{y.shape[1]} rows out of a band + halo of "
+                         f"{x.shape[1]} + {top} + {bottom}: not the "
+                         f"{start} + {rows} the band needs")
+    return y.narrow(1, start, rows)
 
 
 def reduce_sum(x: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,12 @@ NCCL picks NVLink inside a node and the network between nodes by itself.
 
 What remains is what a caller does by hand: `replicate` makes every
 rank's parameters and buffers rank 0's, and `shard_batch` takes rank r's
-rows of a global batch that a caller holds whole. Spatial sharding (the
-'spatial' axis and `check_spatial_extent`) is not in the port.
+rows of a global batch that a caller holds whole, and with `spatial=True`
+its band of each image's rows. The 'spatial' axis is
+`distributed.initialize(num_spatial=...)`; `check_spatial_extent` is the
+JAX package's guard against degenerate bands, and `check_even_split` the
+port's own: the bands are equal and every stride-2 stage stays aligned,
+where the JAX package lets GSPMD pad an uneven split.
 """
 
 from __future__ import annotations
@@ -34,8 +38,53 @@ def replicate(module: nn.Module) -> nn.Module:
     return module
 
 
-def shard_batch(batch):
-    """Rank r's rows [r·B/R, (r+1)·B/R) of each array in a global batch
-    (images NHWC, labels NHW, ...); the batch itself without a group."""
+def check_spatial_extent(input_h: int, num_spatial: int,
+                         max_stride: int = 32) -> None:
+    """The JAX package's guard against degenerate spatial shards: raises
+    ValueError where the network's deepest feature map (input_h /
+    max_stride rows) has fewer rows than there are spatial ranks, so that
+    some band there would hold no row. In the JAX package GSPMD then
+    overcounts that stage's backward by the axis size."""
+    deepest = input_h // max_stride
+    if deepest < num_spatial:
+        raise ValueError(
+            f"degenerate spatial sharding: input H={input_h} reaches "
+            f"H={deepest} at stride {max_stride}, smaller than the "
+            f"spatial axis ({num_spatial}): some bands would be empty. "
+            f"Use input H ≥ {max_stride * num_spatial} or fewer spatial "
+            f"ranks.")
+
+
+def check_even_split(input_h: int, num_spatial: int,
+                     max_stride: int = 32) -> None:
+    """The port's guard: raises ValueError unless H % (num_spatial ·
+    max_stride) == 0, so that every band is equal and starts on every
+    stride-2 stage's grid. The JAX package lets GSPMD pad an uneven split;
+    the port has no padded bands."""
+    if input_h % (num_spatial * max_stride):
+        raise ValueError(
+            f"uneven spatial split: input H={input_h} is not a multiple "
+            f"of {num_spatial} spatial ranks x stride {max_stride}; the "
+            f"port splits H into equal bands aligned with every stride-2 "
+            f"stage and pads none (the JAX package lets GSPMD pad)")
+
+
+def shard_batch(batch, spatial: bool = False, max_stride: int = 32):
+    """This rank's part of each array in a global batch (images NHWC,
+    labels NHW, ...): its data row's rows [d·B/D, (d+1)·B/D), and with
+    `spatial=True` its band of H rows of each, after both guards on the
+    images' H (`check_spatial_extent`, `check_even_split`). The batch
+    itself without a group. Under spatial sharding the model takes bands,
+    so `spatial=False` raises there."""
+    n_spatial = distributed.num_spatial()
+    if n_spatial > 1 and not spatial:
+        raise ValueError(f"the group splits H over {n_spatial} spatial "
+                         "ranks: shard the batch with spatial=True")
     lo, hi = distributed.local_shard_range(batch[0].shape[0])
-    return tuple(x[lo:hi] for x in batch)
+    out = tuple(x[lo:hi] for x in batch)
+    if spatial:
+        h = batch[0].shape[1]
+        check_spatial_extent(h, n_spatial, max_stride)
+        check_even_split(h, n_spatial, max_stride)
+        out = tuple(distributed.band_rows(x, 1) for x in out)
+    return out

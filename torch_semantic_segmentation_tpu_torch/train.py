@@ -33,6 +33,7 @@ from torch import nn
 from torch_semantic_segmentation_tpu_torch import metrics
 from torch_semantic_segmentation_tpu_torch.device import resolve_device
 from torch_semantic_segmentation_tpu_torch.losses import cross_entropy_loss
+from torch_semantic_segmentation_tpu_torch.models import check_spatial_model
 from torch_semantic_segmentation_tpu_torch.ops import conv, mbconv
 from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
 from torch_semantic_segmentation_tpu_torch.ops.upsample import resize_argmax
@@ -201,8 +202,16 @@ def make_train_step(model: nn.Module, state: TrainState,
     with BatchNorm's running-statistics updates held back until `fn`
     returns: where `fn` raises, the parameters, the running statistics,
     the optimizer and the schedule stay as they were (`debug.checked_step`).
+
+    Under spatial sharding the batch is the rank's band of its rows
+    (`parallel.shard_batch(spatial=True)`); FastSCNN is the one model that
+    takes it, without remat (`NotImplementedError` otherwise).
     """
     dev = resolve_device(device)
+    check_spatial_model(model)
+    if remat and distributed.is_spatial():
+        raise NotImplementedError("remat under spatial sharding: the "
+                                  "recompute would exchange halos again")
     if loss_fn is None:
         loss_fn = cross_entropy_loss
     optimizer, scheduler = state
@@ -244,8 +253,11 @@ def make_eval_step(model: nn.Module, *, num_classes: int,
     `torch.inference_mode()`; 1/8-resolution logits go through the fused ×8
     resize + argmax, full-resolution ones through an argmax; the ids update
     the int64 confusion matrix (`metrics.update_confusion_matrix`). Only the
-    (C, C) matrix need leave the device."""
+    (C, C) matrix need leave the device. Under spatial sharding the batch
+    is the rank's band (FastSCNN only): each rank counts its band's pixels,
+    and `eval.evaluate` sums the matrices."""
     dev = resolve_device(device)
+    check_spatial_model(model)
     align_corners = bool(getattr(model, "align_corners", False))
 
     @torch.inference_mode()
