@@ -124,7 +124,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    own inputs, the eval forward's ids and `evaluate`'s matrix against this
    process's; the halo exchanges and bytes, the step times and the peak
    memory printed; its launches have a line of their own;
-16. print the kernels line, the nvidia-smi line and the final JSON line.
+16. spatial sharding of DeepLabV3-ResNet50 (config 4's OHEM and lr, bf16,
+   3 steps) and UNet's bilinear decoder (base 64, 1 step), each at batch
+   4 of 768x768 crops (cut from 16 and 8: every halo goes through host
+   memory under gloo) on two gloo ranks of one data row, bands of 384
+   rows: each model's steps in this process first (step 1 again, and
+   every step with each BN's batch mean one float32 step up: the
+   yardsticks), then on the ranks: the losses within phase 15's bars or
+   twice the nudge's gaps, step 1's gradient within `SP_GRAD_NOISE` times
+   the nudge's, K3 1 + 1 and K4 4 a step on each rank (8 in UNet's eval),
+   every launch of the last step held against its plain version, each
+   band's K4 output bit for bit against the unsharded K4 on the data
+   row's gathered input, and the eval forward of the single process's
+   trained weights on the bands (ids and matrix); the halo exchanges and
+   bytes, step times and peak memory printed on lines of their own;
+17. print the kernels line, the nvidia-smi line and the final JSON line.
    K3's rows count the launches of phases 8 and 9, K1's, K2's, K5's and
    K6's those of phases 4-6, 11, 12 and (K1, K2) 13's accuracy runs, and
    each row gives each path's launches and times under "paths".
@@ -725,9 +739,11 @@ def upsample_concat_inputs(n, h, w, cl, cs, dtype, seed):
 
 def check_upsample_concat() -> dict:
     """K4 against its plain version, bit for bit, float32 and bf16, at the
-    four UpBlock shapes of the UNet training path and at ragged shapes;
-    per-forward times at the path's dtype, bf16: each UpBlock's time,
-    summed over the four."""
+    four UpBlock shapes of the UNet training path and at ragged shapes,
+    and at each from output row 2 on (the rows a band below the image's
+    top asks for, phase 16) against the whole output's rows; per-forward
+    times at the path's dtype, bf16: each UpBlock's time, summed over the
+    four."""
     import torch
     import torch.nn.functional as F
     from torch_semantic_segmentation_tpu_torch.ops import upsample_concat as uc
@@ -747,6 +763,16 @@ def check_upsample_concat() -> dict:
         if not same:
             fail(f"upsample_concat {name} {dtype} differs from its plain "
                  "version")
+        if h > 2:           # rows [2, 2h - 2), as a band with two halo rows
+            band = skip[:, 2:2 * h - 2].contiguous()
+            got_b = uc.upsample_concat_forward(low, band, 2)
+            want_b = uc.upsample_concat_reference(low, band, 2)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_b, want_b)
+                    and torch.equal(got_b, got[:, 2:2 * h - 2])):
+                fail(f"upsample_concat {name} {dtype} from output row 2 "
+                     "differs from its plain version or from the whole "
+                     "output's rows")
         return err, (low, skip)
 
     for i, (n, h, w, cl, cs) in enumerate(K4_RAGGED):
@@ -3755,12 +3781,14 @@ SP_RANK_SCRIPT = "import chip_smoke\nchip_smoke.spatial_rank()\n"
 
 
 def spatial_steps(model, frames, labels, cfg, sharded: bool,
-                  steps: int = SP_STEPS) -> dict:
+                  steps: int = SP_STEPS, loss_fn=None, lr: float = 0.045,
+                  kernels=SP_KERNELS) -> dict:
     """Phase 6's first `steps` steps from the model as it is (a fresh SGD
     state, the augmentation generator from seed 0), each on the rank's
     band of the augmented batch where `sharded`: the losses, each step's
-    launches and CUDA-event span, step 1's gradient (after the reduction
-    over ranks), and the last step's kernel launches recorded."""
+    launches of `kernels` and CUDA-event span, step 1's gradient (after
+    the reduction over ranks), and the last step's kernel launches
+    recorded. Phase 16 passes its model's loss, lr and kernels."""
     import torch
     from torch_semantic_segmentation_tpu_torch.data.transforms import (
         augment_batch)
@@ -3771,9 +3799,9 @@ def spatial_steps(model, frames, labels, cfg, sharded: bool,
     from torch_semantic_segmentation_tpu_torch.train import (
         OptimizerConfig, create_train_state, make_train_step)
     gen = torch.Generator(device=frames.device).manual_seed(0)
-    state = create_train_state(model, OptimizerConfig(lr=0.045,
-                                                      max_steps=1000))
-    inner = make_train_step(model, state, resize_cross_entropy_loss,
+    state = create_train_state(model, OptimizerConfig(lr=lr, max_steps=1000))
+    inner = make_train_step(model, state,
+                            loss_fn or resize_cross_entropy_loss,
                             device=frames.device)
     grads: dict = {}
 
@@ -3790,7 +3818,8 @@ def spatial_steps(model, frames, labels, cfg, sharded: bool,
     for i in range(steps):
         batch = augment_batch(frames, labels, gen, cfg)
         if sharded:
-            batch = shard_batch(batch, spatial=True)
+            batch = shard_batch(batch, spatial=True,
+                                max_stride=model.max_stride)
         reset_launch_counts()
         h0, b0 = distributed.halo_exchanges, distributed.halo_bytes
         start = torch.cuda.Event(enable_timing=True)
@@ -3803,7 +3832,7 @@ def spatial_steps(model, frames, labels, cfg, sharded: bool,
         torch.cuda.synchronize()
         out["losses"].append(float(m["loss"]))
         out["launches"].append({k: v for k, v in launch_counts().items()
-                                if k in SP_KERNELS})
+                                if k in kernels})
         out["device_ms"].append(start.elapsed_time(end))
         out["halos"].append(distributed.halo_exchanges - h0)
         out["halo_bytes"].append(distributed.halo_bytes - b0)
@@ -3812,10 +3841,12 @@ def spatial_steps(model, frames, labels, cfg, sharded: bool,
     return out
 
 
-def spatial_eval(model, sharded: bool) -> dict:
-    """The eval forward of one batch of 8 normalised 1024x2048 frames (the
-    rank's band where `sharded`): its 1/8 logits and ids (×8 resize +
-    argmax), and `evaluate`'s matrix over the batch (summed over ranks)."""
+def spatial_eval(model, sharded: bool, batch: int = SERVE_BATCH) -> dict:
+    """The eval forward of one batch of `batch` normalised 1024x2048 frames
+    (the rank's band where `sharded`): its logits and ids (FastSCNN's 1/8
+    logits by the ×8 resize + argmax, DeepLab's 1/16 by ×16, UNet's by the
+    argmax), `evaluate`'s matrix over the batch (summed over ranks) and
+    the kernel launches of both forwards."""
     import torch
     from torch_semantic_segmentation_tpu_torch.data.transforms import (
         normalize_batch)
@@ -3826,20 +3857,22 @@ def spatial_eval(model, sharded: bool) -> dict:
     from torch_semantic_segmentation_tpu_torch.train import make_eval_step
     dev = next(model.parameters()).device
     f, lab = make_batch(301)
-    batch = (normalize_batch(torch.from_numpy(f).to(dev),
-                             out_dtype=torch.bfloat16),
-             torch.from_numpy(lab).to(dev))
+    pair = (normalize_batch(torch.from_numpy(f[:batch]).to(dev),
+                            out_dtype=torch.bfloat16),
+            torch.from_numpy(lab[:batch]).to(dev))
     if sharded:
-        batch = shard_batch(batch, spatial=True)
-    images, labels = batch
+        pair = shard_batch(pair, spatial=True, max_stride=model.max_stride)
+    images, labels = pair
     model.eval()
+    reset_launch_counts()
     with torch.inference_mode():
         logits = model(images)
         ids = resize_argmax(logits, tuple(labels.shape[1:]),
                             out_dtype=torch.int32)
     cm = evaluate(make_eval_step(model, num_classes=NUM_CLASSES, device=dev),
                   [(images, labels)], num_classes=NUM_CLASSES, device=dev)[2]
-    return {"logits": logits.float(), "ids": ids, "cm": cm}
+    return {"logits": logits.float(), "ids": ids, "cm": cm,
+            "eval_launches": {k: v for k, v in launch_counts().items() if v}}
 
 
 def spatial_rank() -> None:
@@ -3866,9 +3899,9 @@ def spatial_rank() -> None:
     distributed.destroy()
 
 
-def spatial_processes(out: str) -> list:
-    """The two ranks of phase 15, started on the one card: torchrun's
-    environment with LOCAL_RANK 0 for both."""
+def spatial_processes(out: str, script: str = SP_RANK_SCRIPT) -> list:
+    """The two ranks of phase 15 (or 16: `script`), started on the one
+    card: torchrun's environment with LOCAL_RANK 0 for both."""
     import os
     from pathlib import Path
     root = str(Path(__file__).resolve().parent)
@@ -3881,7 +3914,7 @@ def spatial_processes(out: str) -> list:
                        [root] + [p for p in [os.environ.get("PYTHONPATH")]
                                  if p]))
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", SP_RANK_SCRIPT], cwd=root, env=env,
+            [sys.executable, "-c", script], cwd=root, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs
 
@@ -3895,9 +3928,10 @@ def rel_tree(got: dict, want: dict, keys=None) -> float:
 
 
 def tree_gaps(got: dict, want: dict) -> str:
-    """The classifier's gap and the three tensors that add most to the
-    tree's, each with its own relative gap."""
-    head = [k for k in want if k.startswith("classifier.")]
+    """The classifier's gap (FastSCNN's and DeepLab's `classifier.`,
+    UNet's `head.`) and the three tensors that add most to the tree's,
+    each with its own relative gap."""
+    head = [k for k in want if k.startswith(("classifier.", "head."))]
     top = sorted(want, key=lambda k: -float(
         (got[k].double().cpu() - want[k].double().cpu()).norm()))[:3]
     return (f"classifier {rel_tree(got, want, head):.4g}; most: " + ", ".join(
@@ -4022,6 +4056,308 @@ def spatial_phase(main_path: dict) -> dict:
             "noise": noise, "yard": yard, "ids_share": share}
 
 
+# phase 16, spatial sharding of DeepLabV3-ResNet50 (BASELINE config 4's
+# loss and lr, bf16, crop 768x768) and UNet's bilinear decoder (base 64,
+# crop 768x768) on two gloo ranks of one data row, bands of 384 rows, held
+# against one process at phase 15's bars. The batch is 4 for both, cut
+# from config 4's 16 and the UNet phase's 8: every halo and collective
+# goes through host memory under gloo. The yardstick is the single
+# process's run with every train-mode BN's batch mean moved up one
+# float32 step (`nudged_moments`): these models run no K2, whose folded
+# bias phase 15 nudges. Each loss's bar is phase 15's or twice the
+# nudge's gap at that step, whichever is larger: DeepLab's first reading
+# missed 1e-4 at step 1 (2.43e-4), where the nudge alone moves the loss
+# 5.16e-4 (PERF.md §6).
+ZS_BATCH = 4
+ZS_STEPS = {"deeplab": 3, "unet": 1}
+ZS_RANK_SCRIPT = "import chip_smoke\nchip_smoke.zoo_spatial_rank()\n"
+
+
+def zoo_spatial_setup(name: str):
+    """(model, frames, labels, augmentation, loss, lr) of phase 16's
+    `name`: DeepLabV3-ResNet50 with `upsample_logits=False` and OHEM
+    (thresh 0.7, min_kept 100000; scale 0.5-2.0, lr 0.01, phase 8's
+    frames), or UNet's bilinear decoder with CE (lr 0.045, phase 7's
+    frames); bf16 compute, float32 parameters from seed 0, batch 4."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        AugmentConfig)
+    from torch_semantic_segmentation_tpu_torch.losses import (
+        cross_entropy_loss, resize_ohem_cross_entropy)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    if name == "deeplab":
+        frames, labels = make_batch(600)
+        model = get_model("deeplabv3_resnet50", NUM_CLASSES,
+                          upsample_logits=False, compute_dtype=torch.bfloat16,
+                          seed=0, device="cuda")
+        cfg = AugmentConfig(crop=(DEEPLAB_CROP, DEEPLAB_CROP),
+                            scale_range=(0.5, 2.0), out_dtype=torch.bfloat16)
+        loss = functools.partial(resize_ohem_cross_entropy,
+                                 thresh=OHEM_THRESH, min_kept=OHEM_MIN_KEPT)
+        lr = DEEPLAB_LR
+    else:
+        frames, labels = make_batch(500)
+        model = get_model("unet", NUM_CLASSES, base_ch=64, upsample="bilinear",
+                          compute_dtype=torch.bfloat16, seed=0, device="cuda")
+        cfg = AugmentConfig(crop=(UNET_CROP, UNET_CROP),
+                            out_dtype=torch.bfloat16)
+        loss, lr = cross_entropy_loss, UNET_LR
+    return (model, torch.from_numpy(frames[:ZS_BATCH]).cuda(),
+            torch.from_numpy(labels[:ZS_BATCH]).cuda(), cfg, loss, lr)
+
+
+def zoo_spatial_run(name: str, sharded: bool, steps: int | None = None):
+    """Phase 16's `name` from seed 0: `steps` training steps (its ZS_STEPS
+    by default), with the launches of every kernel a step, on the rank's
+    band where `sharded`; returns (the model, the steps' record)."""
+    import torch
+    model, frames, labels, cfg, loss, lr = zoo_spatial_setup(name)
+    keys = tuple(k for k, _, _, _ in TRAIN_WRAPPERS)
+    res = spatial_steps(model, frames, labels, cfg, sharded,
+                        steps=steps or ZS_STEPS[name], loss_fn=loss, lr=lr,
+                        kernels=keys)
+    torch.cuda.synchronize()
+    return model, res
+
+
+@contextlib.contextmanager
+def nudged_moments():
+    """Within the block every train-mode BN's batch mean is one float32
+    step up (its gradient unchanged): the BNs' bf16 outputs then round
+    differently wherever the float32 value lies within that step of a
+    rounding boundary, as a sum of the bands' parts in another order
+    makes them (a yardstick of this script only)."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.ops import conv
+    real = conv.batch_moments
+
+    def nudged(x, dims):
+        mean, sq = real(x, dims)
+        m = mean.detach()
+        return mean + (torch.nextafter(m, torch.full_like(m, np.inf)) - m), sq
+
+    conv.batch_moments = nudged
+    try:
+        yield
+    finally:
+        conv.batch_moments = real
+
+
+def k4_band_check(calls: list) -> list:
+    """Each K4 launch of a band's step again, against the unsharded K4 on
+    the data row's whole input, put together from every band's rows of
+    `low` (its halo rows dropped) and `skip` by a CPU all-gather over the
+    gloo group: the band's output equals the whole output's rows of this
+    band bit for bit. Returns each launch's max |diff|."""
+    import torch
+    import torch.distributed as dist
+    from torch_semantic_segmentation_tpu_torch.parallel import distributed
+    s, n = distributed.spatial_rank(), distributed.num_spatial()
+    out = []
+    for key, fn, _, (low, skip, row0) in calls:
+        if key != "upsample_concat":
+            continue
+        rows = skip.shape[1] // 2
+        band = low[:, row0 // 2:row0 // 2 + rows]
+        whole = []
+        for t in (band, skip):
+            parts = [torch.empty_like(t, device="cpu") for _ in range(n)]
+            dist.all_gather(parts, t.cpu().contiguous())
+            whole.append(torch.cat(parts, dim=1).to(t.device))
+        with torch.no_grad():
+            got = fn(low, skip, row0)
+            want = fn(*whole).narrow(1, 2 * s * rows, 2 * rows)
+        torch.cuda.synchronize()
+        out.append(float((got.float() - want.float()).abs().max()))
+        if not torch.equal(got, want):
+            fail(f"K4 on band {s} (low {tuple(low.shape)} from output row "
+                 f"{row0}) differs from the unsharded K4's rows: max |diff| "
+                 f"{out[-1]}")
+    return out
+
+
+def zoo_spatial_rank() -> None:
+    """One rank of phase 16, in a process of its own (`zoo_spatial_phase`
+    starts two, with torchrun's environment and SP_OUT): DeepLab's and
+    UNet's steps on the rank's band, each launch of the last step held
+    against its plain version on its own inputs (`check_recorded`), UNet's
+    K4 launches against the unsharded K4 (`k4_band_check`), then the eval
+    forward of each on the weights the single process's steps reached
+    (SP_OUT/zoo_<name>.pt: a step's noise, which the image-level BN's
+    E[x²]−E[x]² over 4 values amplifies, stays out of the eval's check);
+    writes its results to SP_OUT/zoo_rank<r>.pt."""
+    import os
+    import torch
+    from torch_semantic_segmentation_tpu_torch.parallel import distributed
+    distributed.initialize(backend="gloo", num_spatial=2)
+    out = {}
+    for name in ZS_STEPS:
+        model, res = zoo_spatial_run(name, sharded=True)
+        calls = res.pop("calls")
+        res["recorded"] = check_recorded(calls)
+        if name == "unet":
+            res["k4_band"] = k4_band_check(calls)
+        del calls
+        model.load_state_dict(torch.load(
+            os.path.join(os.environ["SP_OUT"], f"zoo_{name}.pt")))
+        res.update(spatial_eval(model, sharded=True, batch=ZS_BATCH))
+        res["grads"] = {k: v.cpu() for k, v in res["grads"].items()}
+        for k in ("logits", "ids", "cm"):
+            res[k] = res[k].cpu()
+        out[name] = res
+        del model
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(os.environ["SP_OUT"],
+                                 f"zoo_rank{distributed.rank()}.pt"))
+    distributed.barrier()
+    distributed.destroy()
+
+
+def zoo_spatial_single(name: str, out: str) -> dict:
+    """Phase 16's reference for `name` in this process: its steps and eval
+    forward without a group (the weights after the steps saved to
+    out/zoo_<name>.pt for the ranks' eval), then from the same start step
+    1 once more as it is, and every step with `nudged_moments` (the
+    yardsticks of the losses and of step 1's gradient)."""
+    import torch
+    model, single = zoo_spatial_run(name, sharded=False)
+    single.pop("calls")
+    torch.save(model.state_dict(), f"{out}/zoo_{name}.pt")
+    single.update(spatial_eval(model, sharded=False, batch=ZS_BATCH))
+    del model
+    torch.cuda.empty_cache()
+    runs = {}
+    for run, ctx, steps in (("again", contextlib.nullcontext, 1),
+                            ("nudged", nudged_moments, None)):
+        with ctx():
+            model, runs[run] = zoo_spatial_run(name, sharded=False,
+                                               steps=steps)
+        del model
+        torch.cuda.empty_cache()
+    nudged = runs["nudged"]
+    single["noise"] = rel_tree(runs["again"]["grads"], single["grads"])
+    single["yard"] = rel_tree(nudged["grads"], single["grads"])
+    single["yard_gaps"] = tree_gaps(nudged["grads"], single["grads"])
+    single["nudged_rel"] = [abs(a - b) / abs(b) for a, b in
+                            zip(nudged["losses"], single["losses"])]
+    return single
+
+
+def zoo_spatial_phase() -> dict:
+    """Phase 16: each model's single-process reference, timed; then the
+    two ranks, held against it: the losses at phase 14's bars, step 1's
+    gradient within SP_GRAD_NOISE times the nudge yardstick, K3 1 + 1 and
+    K4 4 a step on each rank, the eval ids and matrix."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        singles = {name: zoo_spatial_single(name, out) for name in ZS_STEPS}
+        t_ranks = time.perf_counter()
+        procs = spatial_processes(out, ZS_RANK_SCRIPT)
+        try:
+            for r, p in enumerate(procs):
+                text = p.communicate(timeout=600)[0]
+                if p.returncode != 0:
+                    fail(f"rank {r} of phase 16 exited {p.returncode}:\n"
+                         f"{text[-4000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        ranks = [torch.load(f"{out}/zoo_rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+    ranks_s = time.perf_counter() - t_ranks
+    result = {"ranks_s": ranks_s}
+    for name, single in singles.items():
+        got = [r[name] for r in ranks]
+        want = single["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], want)]
+        # phase 15's bars, or SP_GRAD_NOISE times the nudge's gap where
+        # that is larger (set after DeepLab's first reading, PERF.md §6)
+        loss_bars = [max(DP_STEP1_RTOL if i == 0 else DP_LATER_RTOL,
+                         SP_GRAD_NOISE * v)
+                     for i, v in enumerate(single["nudged_rel"])]
+        gap = rel_tree(got[0]["grads"], single["grads"])
+        ids = torch.cat([r["ids"] for r in got], dim=1)
+        share = float((ids == single["ids"].cpu()).float().mean())
+        moved = int((got[0]["cm"] - single["cm"].cpu()).abs().sum()) // 2
+        crop = DEEPLAB_CROP if name == "deeplab" else UNET_CROP
+        print(f"phase 16 {name} on two ranks of one card (gloo, "
+              f"num_spatial=2, bands of {crop // 2} rows of {ZS_BATCH}x{crop}"
+              f"x{crop}; batch {ZS_BATCH}, cut from "
+              f"{DEEPLAB_BATCH if name == 'deeplab' else UNET_BATCH} because "
+              f"every halo goes through host memory under gloo; not in the "
+              f"kernels line): losses {got[0]['losses']} (rank 1 "
+              f"{got[1]['losses']}); single process {want}; relative gaps "
+              f"{[f'{v:.3g}' for v in rel]} (bars "
+              f"{[f'{v:.3g}' for v in loss_bars]}: {DP_STEP1_RTOL:g} at step "
+              f"1 and {DP_LATER_RTOL:g} after, or {SP_GRAD_NOISE:g} x the "
+              f"gaps of the single process's steps with every BN's batch "
+              f"mean one float32 step up, "
+              f"{[f'{v:.3g}' for v in single['nudged_rel']]})", flush=True)
+        print(f"phase 16 {name} step 1's gradient against the single "
+              f"process's: relative L2 over the tree {gap:.4g} ("
+              f"{tree_gaps(got[0]['grads'], single['grads'])}); bar "
+              f"{SP_GRAD_NOISE:g} x {single['yard']:.4g}, the single "
+              f"process's step 1 with every BN's batch mean one float32 step"
+              f" up ({single['yard_gaps']}); the single process's step 1 "
+              f"twice: {single['noise']:.4g}", flush=True)
+        for r, res in enumerate(got):
+            extra = (f"; K4 against the unsharded K4's rows, max |diff| "
+                     f"{res['k4_band']}" if name == "unet" else "")
+            print(f"phase 16 {name} rank {r} (not in the kernels line): "
+                  f"launches a step {[{k: v for k, v in c.items() if v} for c in res['launches']]}"
+                  f"; eval {res['eval_launches']}; halo exchanges a step "
+                  f"{res['halos']}, bytes sent {res['halo_bytes']}; step CUDA"
+                  f" events {[round(t, 3) for t in res['device_ms']]} ms "
+                  f"(median {np.median(res['device_ms']):.3f}); "
+                  f"max_memory_allocated {res['peak_bytes'] / 2 ** 30:.3f} "
+                  f"GiB; kernel vs plain on the last step's own inputs, "
+                  f"worst relative L2 "
+                  f"{ {k: float(f'{v:.3g}') for k, v in res['recorded'].items()} }"
+                  + extra, flush=True)
+        print(f"phase 16 {name} single process: step CUDA events "
+              f"{[round(t, 3) for t in single['device_ms']]} ms; "
+              f"max_memory_allocated {single['peak_bytes'] / 2 ** 30:.3f} "
+              f"GiB; eval forward of the weights its steps reached, on the "
+              f"bands and here: ids equal on {share:.6f} of the pixels (bar "
+              f"{SP_IDS_SHARE}); evaluate's matrix: {moved} pixels moved of "
+              f"{int(single['cm'].sum())}", flush=True)
+        want_launches = per_step(1, name)
+        want_eval = ({} if name == "deeplab"
+                     else {"upsample_concat": 2 * K4_PER_FORWARD})
+        for r, res in enumerate(got):
+            if any(steps != want_launches for steps in res["launches"]):
+                fail(f"phase 16 {name} rank {r}'s launches "
+                     f"{res['launches']}, expected {want_launches} a step")
+            if res["eval_launches"] != want_eval:
+                fail(f"phase 16 {name} rank {r}'s eval launches "
+                     f"{res['eval_launches']}, expected {want_eval}")
+            if res["losses"] != got[0]["losses"]:
+                fail(f"phase 16 {name}: the ranks' losses differ: "
+                     f"{[x['losses'] for x in got]}")
+        if not all(np.isfinite(got[0]["losses"])) or any(
+                v > b for v, b in zip(rel, loss_bars)):
+            fail(f"phase 16 {name}: the spatial losses {got[0]['losses']} "
+                 f"are off the single process's {want} (bars {loss_bars})")
+        if not gap <= SP_GRAD_NOISE * single["yard"]:
+            fail(f"phase 16 {name}: the spatial step's gradient is "
+                 f"{gap:.4g} off the single process's (bar {SP_GRAD_NOISE:g}"
+                 f" x {single['yard']:.4g})")
+        if not share >= SP_IDS_SHARE or int(got[0]["cm"].sum()) != int(
+                single["cm"].sum()):
+            fail(f"phase 16 {name}: the spatial eval ids equal the single "
+                 f"process's on {share} of the pixels; matrices of "
+                 f"{int(got[0]['cm'].sum())} and {int(single['cm'].sum())} "
+                 "pixels")
+        result[name] = dict(ranks=got, single=single, rel=rel, grad_gap=gap,
+                            ids_share=share)
+    print(f"phase 16: ranks {ranks_s:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -4085,6 +4421,7 @@ def main() -> int:
     print(f"spatial launches (phase 15, not in the kernels line): each of "
           f"the two ranks {sp['ranks'][0]['launches']} in {SP_STEPS} steps",
           flush=True)
+    zoo_spatial_phase()
 
     def row(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",

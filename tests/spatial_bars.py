@@ -1,6 +1,6 @@
 """The bars of the port's spatial-sharding tests on the CPU
-(`tests/test_torch_spatial_step.py`, `tests/test_torch_spatial_grad.py`),
-and their helpers."""
+(`tests/test_torch_spatial_step.py`, `tests/test_torch_spatial_grad.py`,
+`tests/test_torch_spatial_zoo_step.py`), and their helpers."""
 
 import numpy as np
 import torch
@@ -39,14 +39,17 @@ def rel_tree(got: dict, want: dict, keys) -> float:
     return (d / m) ** 0.5
 
 
-def check_loss_and_gradients(got: dict, loss, grads: dict) -> None:
+def check_loss_and_gradients(got: dict, loss, grads: dict, head=HEAD,
+                             loss_rtol: float = LOSS_RTOL) -> None:
     """A rank's {"loss", "grads"} against a reference loss and gradient:
-    the loss at LOSS_RTOL, the tree at GRAD_TREE_TOL, the classifier at
-    HEAD_GRAD_TOL."""
+    the loss at `loss_rtol` (LOSS_RTOL), the tree at GRAD_TREE_TOL, the
+    classifier (the parameters whose names start with `head`, FastSCNN's
+    by default) at HEAD_GRAD_TOL."""
     keys = list(grads)
-    head = [k for k in keys if k.startswith(HEAD)]
+    head = [k for k in keys if k.startswith(head)]
+    assert head
     np.testing.assert_allclose(float(got["loss"]), float(loss),
-                               rtol=LOSS_RTOL)
+                               rtol=loss_rtol)
     tree = rel_tree(got["grads"], grads, keys)
     assert tree <= GRAD_TREE_TOL, tree
     gap = rel_tree(got["grads"], grads, head)

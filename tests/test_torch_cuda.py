@@ -707,6 +707,28 @@ def test_upsample_concat_kernel_equals_plain_version(cuda, n, h, w, cl, cs,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("row0,rows", [(0, 10), (2, 8), (2, 10), (6, 6)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_upsample_concat_kernel_from_a_row(cuda, row0, rows, dtype):
+    """K4 from output row `row0` for `rows` rows (an H band with its halo
+    rows, spatial sharding): the plain version's bits, and the whole
+    output's rows."""
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    low = torch.randn((2, 6, 7, 16), generator=g, device=cuda).to(dtype)
+    skip = torch.randn((2, 12, 14, 8), generator=g, device=cuda).to(dtype)
+    whole = upsample_concat.upsample_concat_forward(low, skip)
+    band = skip[:, row0:row0 + rows].contiguous()
+    got = upsample_concat.upsample_concat_forward(low, band, row0)
+    want = upsample_concat.upsample_concat_reference(low, band, row0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, whole[:, row0:row0 + rows])
+    with pytest.raises(ValueError, match="2H, 2W"):
+        upsample_concat.upsample_concat_forward(low, band, 12 - rows + 1)
+
+
+@pytest.mark.cuda
 def test_upsample_concat_autograd_and_wrapper_checks(cuda):
     low = torch.randn(1, 4, 6, 8, device=cuda).to(torch.bfloat16)
     skip = torch.randn(1, 8, 12, 8, device=cuda).to(torch.bfloat16)

@@ -5,7 +5,8 @@ It imports only the port, torch and numpy.
     python tests/torch_mp_worker.py SUITE RANK WORLD STORE OUTDIR
 
 joins a gloo group of WORLD ranks through `file://STORE` (SUITE
-"spatial:S" with `num_spatial=S`: each rank on a band of H rows), runs every case
+"spatial:S" or "zoo:S" with `num_spatial=S`: each rank on a band of H
+rows), runs every case
 of SUITE on its rows of each case's global batch and saves
 {case: result} to OUTDIR/rank<RANK>.pt. The parent test runs the same case
 functions in its own process without a group, where they see the whole
@@ -377,10 +378,11 @@ def spatial_batch(seed: int = 7):
     return x, y
 
 
-def _bands(*arrays):
+def _bands(*arrays, max_stride: int = 32):
     """The rank's band of its rows of each global array (the arrays
-    themselves without a group)."""
-    return shard_batch(tuple(_t(a) for a in arrays), spatial=True)
+    themselves without a group), after the guards at `max_stride`."""
+    return shard_batch(tuple(_t(a) for a in arrays), spatial=True,
+                       max_stride=max_stride)
 
 
 def spatial_model(init: str, upsample_logits: bool, compute_dtype=None):
@@ -497,6 +499,263 @@ def suite_spatial(outdir: str, grads_only: bool = False) -> dict:
             "dropout": case_spatial_dropout()}
 
 
+# --- suite "zoo:S": DeepLabV3 and UNet on H bands (num_spatial=S) ---
+
+ZOO_N, ZOO_H, ZOO_W = 2, 128, 64         # the JAX package's spatial test
+ZOO_STEP_N = 4     # ASPP's image-level BN normalises over N values a channel
+ZOO_UNET = dict(base_ch=8)
+# OHEM that selects: about half the pixels lie below -log(0.2), and
+# min_kept (60% of the batch's pixels) moves the threshold under that
+ZOO_OHEM = dict(thresh=0.2, min_kept=int(0.6 * ZOO_STEP_N * ZOO_H * ZOO_W))
+# (top, bottom) of the halo cases, in band rows R: less than a band, a
+# band, past the next band, and past every band of 4
+HALO_CASES = [(0.5, 0.5), (1, 1), (1.25, 0.25), (0, 1.25), (2.25, 3)]
+# (kernel, stride, dilation) of the on_band cases: dilated 3x3s reaching
+# half a band, past the next band and past two, ResNet's stem
+ON_BAND_CASES = [(3, 1, 0.5), (3, 1, 1.25), (3, 1, 2.25), (3, 2, 1),
+                 (7, 2, 1)]
+
+
+def zoo_batch(seed: int = 7, n: int = ZOO_N):
+    """A global batch of n images at the JAX spatial test's H and W, with
+    ignored labels across the middle band boundary and at the top."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, ZOO_H, ZOO_W, 3)).astype(np.float32)
+    y = rng.integers(0, C, (n, ZOO_H, ZOO_W)).astype(np.int32)
+    y[:, :6, :9] = 255
+    y[:, 60:70, 20:30] = 255
+    return x, y
+
+
+def halo_input(s: int) -> torch.Tensor:
+    """The halo cases' global tensor: 2 images of 16 rows (float64, exact
+    sums), R = 16 / S rows a band."""
+    rng = np.random.default_rng(40 + s)
+    return _t(rng.normal(size=(2, 16, 3, 2)))
+
+
+def halo_rows_of(case, rows: int) -> tuple[int, int]:
+    top, bottom = case
+    return int(top * rows), int(bottom * rows)
+
+
+def case_halos() -> dict:
+    """`halo` of the rank's band for each of HALO_CASES, and the band's
+    gradient of Σ_ranks (y · c), c drawn for each (case, rank); then
+    `on_band` with a conv of each of ON_BAND_CASES (float64): its output
+    and the band's gradient of Σ (out · c)."""
+    n = distributed.num_spatial()
+    x = distributed.band_rows(distributed.shard_rows(halo_input(n)))
+    rows = x.shape[1]
+    out = {}
+    for i, case in enumerate(HALO_CASES):
+        xb = x.clone().requires_grad_(True)
+        y = distributed.halo(xb, *halo_rows_of(case, rows))
+        c = halo_cotangent(i, distributed.rank(), y.shape)
+        (y * c).sum().backward()
+        out[f"halo{i}"] = {"y": y.detach(), "dx": xb.grad}
+    for i, (k, stride, dil) in enumerate(ON_BAND_CASES):
+        out[f"on_band{i}"] = on_band_case(x, i, k, stride, dil)
+    return out
+
+
+def halo_cotangent(i: int, rank: int, shape) -> torch.Tensor:
+    return _t(np.random.default_rng(1000 * i + rank).normal(size=shape))
+
+
+def on_band_conv(i: int, k: int, stride: int, dil, rows: int):
+    """(fn, top, bottom): a conv of ON_BAND_CASES[i] at band rows `rows`
+    (its dilation in band rows for a 3x3, 1 otherwise) with the halo
+    `ops.conv.band_halo` gives it."""
+    import torch.nn.functional as F
+    from torch_semantic_segmentation_tpu_torch.ops.conv import band_halo
+    d = max(1, int(dil * rows)) if k == 3 and stride == 1 else 1
+    pad = d * (k - 1) // 2
+    wt = _t(np.random.default_rng(60 + i).normal(size=(2, 2, k, k)))
+
+    def fn(t):
+        y = F.conv2d(t.permute(0, 3, 1, 2), wt, stride=stride, padding=pad,
+                     dilation=d)
+        return y.permute(0, 2, 3, 1)
+    return (fn, *band_halo(k, stride, pad, d))
+
+
+def on_band_case(x: torch.Tensor, i: int, k: int, stride: int, dil) -> dict:
+    fn, top, bottom = on_band_conv(i, k, stride, dil, x.shape[1])
+    xb = x.clone().requires_grad_(True)
+    y = distributed.on_band(fn, xb, top, bottom, down=stride)
+    c = halo_cotangent(100 + i, distributed.rank(), y.shape)
+    (y * c).sum().backward()
+    return {"y": y.detach(), "dx": xb.grad}
+
+
+def zoo_model(name: str, init: str | None = None, **kw):
+    """A zoo model on the CPU, from `init` where one is given (the JAX
+    package's weights) and from seed 0 otherwise."""
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    kw = {**(ZOO_UNET if name == "unet" else {}), **kw}
+    m = get_model(name, C, device="cpu", **kw)
+    if init is not None:
+        m.load_state_dict(torch.load(init, weights_only=True))
+    return m
+
+
+ZOO_EVAL = (("deeplab", "deeplabv3_resnet18", {}),
+            ("unet_deconv", "unet", {"upsample": "deconv"}),
+            ("unet_bilinear", "unet", {"upsample": "bilinear"}))
+
+
+def case_zoo_eval(outdir: str) -> dict:
+    """The eval forward's logits of the rank's band for each model of
+    ZOO_EVAL on the JAX package's weights (`<key>.pt`) and the JAX spatial
+    test's input; ResNet-50's (the BottleneckBlock path, the port's own
+    weights); `evaluate`'s matrix of DeepLab's 1/16 logits (×16 resize +
+    argmax) and of UNet's bilinear decoder over two batches."""
+    from torch_semantic_segmentation_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from torch_semantic_segmentation_tpu_torch.eval import evaluate
+    from torch_semantic_segmentation_tpu_torch.train import make_eval_step
+    x = synthetic_batch(ZOO_N, ZOO_H, ZOO_W, C, seed=7)[0]
+    (xb,) = _bands(x, max_stride=16)
+    out = {}
+    with torch.no_grad():
+        for key, name, kw in ZOO_EVAL:
+            m = zoo_model(name, os.path.join(outdir, f"{key}.pt"), **kw)
+            out[key] = m.eval()(xb)
+        out["deeplab50"] = zoo_model("deeplabv3_resnet50").eval()(xb)
+    batches = [_bands(*zoo_batch(seed), max_stride=16) for seed in (8, 9)]
+    for key, name, kw in (("deeplab", "deeplabv3_resnet18",
+                           {"upsample_logits": False}),
+                          ("unet_bilinear", "unet", {"upsample": "bilinear"})):
+        m = zoo_model(name, os.path.join(outdir, f"{key}.pt"), **kw)
+        step = make_eval_step(m, num_classes=C, device="cpu")
+        out[f"cm_{key}"] = evaluate(step, batches, num_classes=C,
+                                    device="cpu")[2]
+    return out
+
+
+def suite_zoo(outdir: str) -> dict:
+    return {"halos": case_halos(), "eval": case_zoo_eval(outdir)}
+
+
+def zoo_loss(route: str):
+    """(model name, model keywords, loss) of a train-step route:
+    DeepLab's OHEM on its 1/16 logits in float32 (the exact top-k), with
+    its aux head too, in float32 and on bf16 logits (K3's plain version on
+    both heads), and on full-resolution logits by bisection; UNet's two
+    decoders with CE."""
+    import functools
+    if route == "deeplab_exact":
+        return ("deeplabv3_resnet18", {"upsample_logits": False},
+                functools.partial(losses.resize_ohem_cross_entropy,
+                                  **ZOO_OHEM))
+    if route.startswith("deeplab_aux"):
+        dtype = torch.bfloat16 if route.endswith("k3") else torch.float32
+        head = losses.SegLoss(
+            lambda lg, y: losses.resize_ohem_cross_entropy(
+                lg.to(dtype), y, **ZOO_OHEM), handles_resize=True)
+        return ("deeplabv3_resnet18", {"upsample_logits": False, "aux": True},
+                functools.partial(losses.aux_weighted_loss, loss_fn=head))
+    if route == "deeplab_bisect":
+        return ("deeplabv3_resnet18", {},
+                functools.partial(losses.ohem_cross_entropy, exact=False,
+                                  **ZOO_OHEM))
+    return ("unet", {"upsample": route.split("_")[1]},
+            losses.cross_entropy_loss)
+
+
+ZOO_ROUTES = ("deeplab_exact", "deeplab_aux", "deeplab_aux_k3",
+              "deeplab_bisect", "unet_deconv", "unet_bilinear")
+
+
+def case_zoo_grads(route: str) -> dict:
+    """One train-mode forward and backward of a route (the model from seed
+    0, dropout on: the bands draw the single process's masks): the global
+    loss, the parameter gradients summed over ranks, the BN statistics
+    after it, the K3 and halo exchanges it made."""
+    from torch_semantic_segmentation_tpu_torch.ops import resize_ce
+    name, kw, loss_fn = zoo_loss(route)
+    m = zoo_model(name, **kw).train()
+    x, y = _bands(*zoo_batch(7, ZOO_STEP_N), max_stride=m.max_stride)
+    k3 = []
+    real = resize_ce.resize_ce_map_reference
+    resize_ce.resize_ce_map_reference = (
+        lambda *a: k3.append(a[0].shape) or real(*a))
+    h0 = distributed.halo_exchanges
+    try:
+        share = loss_fn(m(x), y)
+        share.backward()
+    finally:
+        resize_ce.resize_ce_map_reference = real
+    distributed.all_reduce_gradients(m.parameters())
+    return {"loss": distributed.reduce_sum(share.detach()),
+            "grads": {k: p.grad.clone() for k, p in m.named_parameters()},
+            "k3": torch.tensor(len(k3)),
+            "halo_exchanges": torch.tensor(distributed.halo_exchanges - h0),
+            "stats": {k: v.clone() for k, v in m.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def case_zoo_steps(route: str) -> dict:
+    """Two SGD steps (LR 0.002) of a route through `make_train_step`: the
+    losses and the state after each."""
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+    name, kw, loss_fn = zoo_loss(route)
+    model = zoo_model(name, **kw)
+    state = create_train_state(model, OptimizerConfig(lr=LR, max_steps=4))
+    step = make_train_step(model, state, loss_fn, device="cpu")
+    out = {"losses": []}
+    for i, seed in enumerate((7, 10)):
+        batch = _bands(*zoo_batch(seed, ZOO_STEP_N),
+                       max_stride=model.max_stride)
+        out["losses"].append(step(*batch)["loss"])
+        out[f"state{i + 1}"] = {k: v.clone() for k, v in
+                                model.state_dict().items()}
+    out["losses"] = torch.stack(out["losses"])
+    return out
+
+
+def aspp_inputs():
+    """ASPP's global input (4 images of 16 rows, each its own offset, so
+    that the image-level branch's 4 values a channel are well apart) and
+    the cotangent of its output."""
+    rng = np.random.default_rng(50)
+    x = rng.normal(size=(ZOO_STEP_N, 16, 6, 16)).astype(np.float32)
+    x += 0.5 * np.arange(ZOO_STEP_N, dtype=np.float32)[:, None, None, None]
+    return x, rng.normal(size=(ZOO_STEP_N, 16, 6, 8)).astype(np.float32)
+
+
+def case_aspp() -> dict:
+    """ASPP alone in train mode, rates (2, 6, 9) on bands of 4 or 8 rows:
+    its output, the band's input gradient and the parameter gradients
+    summed over ranks of Σ (y · c), and the image-level branch's BN
+    statistics, whose N values a channel are the same on every band of a
+    data row (`batch_moments` weighs each rank 1/R)."""
+    from torch_semantic_segmentation_tpu_torch.ops import ASPP
+    aspp = ASPP(16, 8, rates=(2, 6, 9),
+                generator=torch.Generator().manual_seed(5)).train()
+    x, c = _bands(*aspp_inputs(), max_stride=4)
+    x.requires_grad_(True)
+    y = aspp(x)
+    (y * c).sum().backward()
+    distributed.all_reduce_gradients(aspp.parameters())
+    return {"y": y.detach(), "dx": x.grad,
+            "grads": {k: p.grad.clone() for k, p in aspp.named_parameters()},
+            "stats": {k: v.clone() for k, v in aspp.state_dict().items()
+                      if k.startswith("image_pool.bn.running")}}
+
+
+ZOO_STEP_ROUTES = ("deeplab_exact", "unet_bilinear")
+
+
+def suite_zoo_step() -> dict:
+    res = {f"grads_{r}": case_zoo_grads(r) for r in ZOO_ROUTES}
+    res["aspp"] = case_aspp()
+    res.update({f"steps_{r}": case_zoo_steps(r) for r in ZOO_STEP_ROUTES})
+    return res
+
+
 # --- suite "cli": the train CLI with --multihost ---
 
 def cli_flags(store: str | None = None) -> list[str]:
@@ -581,8 +840,9 @@ def main() -> int:
     suite, rank, world, store, outdir = sys.argv[1:6]
     torch.set_num_threads(1)
     os.environ.update(WORLD_SIZE=world, RANK=rank, LOCAL_RANK=rank)
-    # "spatial:S" splits each data row's images over S ranks
-    # ("spatial:S:grads" runs the gradient cases only)
+    # "spatial:S" and "zoo:S" split each data row's images over S ranks
+    # ("spatial:S:grads" runs the gradient cases only, "zoo:S:step" the
+    # zoo's train steps)
     num_spatial = int(suite.split(":")[1]) if ":" in suite else 1
     distributed.initialize("cpu", init_method=f"file://{store}",
                            num_spatial=num_spatial)
@@ -592,6 +852,9 @@ def main() -> int:
         res = suite_step(outdir)
     elif suite.startswith("spatial"):
         res = suite_spatial(outdir, grads_only=suite.endswith(":grads"))
+    elif suite.startswith("zoo"):
+        res = (suite_zoo_step() if suite.endswith(":step")
+               else suite_zoo(outdir))
     else:
         res = suite_cli(store, outdir)
     torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))

@@ -1,9 +1,13 @@
 // Fused x2 bilinear upsample + skip concat, on Hopper.
 //
-//   out[n, y, x, :Cl] = up2x(low)[n, y, x, :]     out[n, y, x, Cl:] = skip[n, y, x, :]
+//   out[n, y, x, :Cl] = up2x(low)[n, row0 + y, x, :]     out[n, y, x, Cl:] = skip[n, y, x, :]
 //
-// low (N,H,W,Cl), skip (N,2H,2W,Cs) and out (N,2H,2W,Cl+Cs), all of one type,
-// bf16 or float32. The upsample is align_corners=False with the edge clamped:
+// low (N,H,W,Cl), skip (N,OH,2W,Cs) and out (N,OH,2W,Cl+Cs), all of one type,
+// bf16 or float32: the output rows [row0, row0 + OH) of the upsample, with
+// row0 + OH <= 2H. The whole image has row0 = 0 and OH = 2H; an H band of
+// it (spatial sharding) passes low with one halo row each side, where the
+// band is not at the image's edge, and takes its own 2*rows rows, so that
+// each output row has the taps, and the bits, of the whole image's. The upsample is align_corners=False with the edge clamped:
 // output row 2i is 0.25*x[i-1] + 0.75*x[i], row 2i+1 is 0.75*x[i] + 0.25*x[i+1]
 // (indices clamped to [0, H-1]); first along H, then the same along W on the H
 // pass's float32 values. Each product and sum is float32, rounded on its own (no
@@ -120,10 +124,10 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 upsample2x_concat_kernel(const T* __restrict__ low, const T* __restrict__ skip,
                          T* __restrict__ out, int h, int w, int cl, int cs,
-                         long long pixels, bool vec) {
+                         int row0, int oh, long long pixels, bool vec) {
   const int ct = cl + cs;
   const int groups = (ct + VEC - 1) / VEC;
-  const int oh = 2 * h, ow = 2 * w;
+  const int ow = 2 * w;
   const long long items = pixels * groups;
   for (long long it = blockIdx.x * (long long)THREADS + threadIdx.x; it < items;
        it += (long long)gridDim.x * THREADS) {
@@ -131,7 +135,7 @@ upsample2x_concat_kernel(const T* __restrict__ low, const T* __restrict__ skip,
     const int c0 = int(it - px * groups) * VEC;
     const int ox = int(px % ow);
     const long long r = px / ow;
-    const int oy = int(r % oh);
+    const int oy = int(r % oh) + row0;  // the row of the whole upsample
     const long long img = r / oh;
     T* dst = out + px * ct + c0;
     if (vec) {
@@ -178,8 +182,8 @@ upsample2x_concat_kernel(const T* __restrict__ low, const T* __restrict__ skip,
 
 template <typename T>
 int launch(const void* low, const void* skip, void* out, int n, int h, int w, int cl,
-           int cs, cudaStream_t stream) {
-  const long long pixels = (long long)n * 2 * h * 2 * w;
+           int cs, int row0, int oh, cudaStream_t stream) {
+  const long long pixels = (long long)n * oh * 2 * w;
   const int groups = (cl + cs + VEC - 1) / VEC;
   const long long items = pixels * groups;
   if (items == 0) return int(cudaSuccess);
@@ -190,7 +194,7 @@ int launch(const void* low, const void* skip, void* out, int n, int h, int w, in
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
   upsample2x_concat_kernel<T><<<unsigned(blocks), THREADS, 0, stream>>>(
       static_cast<const T*>(low), static_cast<const T*>(skip), static_cast<T*>(out), h, w,
-      cl, cs, pixels, vec);
+      cl, cs, row0, oh, pixels, vec);
   return int(cudaGetLastError());
 }
 
@@ -198,16 +202,18 @@ int launch(const void* low, const void* skip, void* out, int n, int h, int w, in
 
 extern "C" {
 
-// dtype: 0 float32, 1 bf16. Launch on `stream`; returns the launch's
-// cudaError_t (0 on success).
+// dtype: 0 float32, 1 bf16; output rows [row0, row0 + oh) of 2h. Launch on
+// `stream`; returns the launch's cudaError_t (0 on success).
 int upsample2x_concat(const void* low, const void* skip, void* out, int dtype, int n,
-                      int h, int w, int cl, int cs, int device, void* stream) {
+                      int h, int w, int cl, int cs, int row0, int oh, int device,
+                      void* stream) {
+  if (row0 < 0 || oh < 0 || row0 + oh > 2 * h) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(low, skip, out, n, h, w, cl, cs, s);
-    case 1: return launch<__nv_bfloat16>(low, skip, out, n, h, w, cl, cs, s);
+    case 0: return launch<float>(low, skip, out, n, h, w, cl, cs, row0, oh, s);
+    case 1: return launch<__nv_bfloat16>(low, skip, out, n, h, w, cl, cs, row0, oh, s);
   }
   return int(cudaErrorInvalidValue);
 }

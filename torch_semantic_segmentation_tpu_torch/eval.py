@@ -45,8 +45,9 @@ def make_multiscale_eval_step(
     dev = resolve_device(device)
     if distributed.is_spatial():
         raise NotImplementedError(
-            "the multi-scale eval step under spatial sharding: FastSCNN's "
-            "single-scale eval step (`train.make_eval_step`) takes H bands")
+            "the multi-scale eval step under spatial sharding: the "
+            "single-scale eval step (`train.make_eval_step`) takes H bands "
+            "of FastSCNN, DeepLabV3 and UNet")
 
     def round_div(v: float) -> int:
         return max(int(round(v / size_divisor)) * size_divisor, size_divisor)

@@ -52,8 +52,7 @@ def get_model(name: str, num_classes: int = 19, *, pretrained=None,
     alignment (`compat.key_maps`), as in the JAX package."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; available: {sorted(_REGISTRY)}")
-    if name != "fastscnn":
-        check_spatial_model(name)
+    check_spatial_model(name)
     model = _REGISTRY[name](num_classes, **kwargs)
     if pretrained:
         from torch_semantic_segmentation_tpu_torch.compat.torch_loader import (
@@ -78,17 +77,32 @@ def available_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
+# the models whose ops take H bands (spatial sharding), as classes and as
+# zoo names
+SPATIAL_MODELS = (FastSCNN, DeepLabV3, UNet)
+
+
+def _spatial_name(name: str) -> bool:
+    return name in ("fastscnn", "unet") or name.startswith("deeplabv3_")
+
+
 def check_spatial_model(model) -> None:
     """Raise NotImplementedError under spatial sharding
     (`distributed.initialize(num_spatial > 1)`) for any model but
-    FastSCNN, the one model whose ops take H bands so far (`model` is a
-    module or a zoo name)."""
-    if not distributed.is_spatial() or isinstance(model, FastSCNN):
+    FastSCNN, DeepLabV3 (every depth) and UNet, the models whose ops take
+    H bands so far (`model` is a module or a zoo name). The message names
+    the zoo models still refused."""
+    if not distributed.is_spatial():
+        return
+    if (_spatial_name(model) if isinstance(model, str)
+            else isinstance(model, SPATIAL_MODELS)):
         return
     name = model if isinstance(model, str) else type(model).__name__
+    refused = [n for n in sorted(_REGISTRY) if not _spatial_name(n)]
     raise NotImplementedError(
         f"spatial sharding (num_spatial={distributed.num_spatial()}) is "
-        f"ported for FastSCNN only; {name} does not take H bands yet")
+        f"ported for FastSCNN, DeepLabV3 and UNet; {name} does not take H "
+        f"bands yet (still refused: {', '.join(refused)})")
 
 
 __all__ = ["BiSeNet", "ContextNet", "DeepLabV3", "ENet", "ERFNet", "ESNet",

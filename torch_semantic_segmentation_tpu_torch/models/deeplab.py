@@ -6,7 +6,10 @@ With `upsample_logits=False` the model returns logits at the output stride
 (1/16 by default), for `losses.resize_ohem_cross_entropy` or
 `losses.resize_cross_entropy_loss`, which upsample inside the loss; with
 `aux=True` it also returns an FCN head's logits on the stage-3 features.
-Input and output are NHWC, as in the JAX package.
+Input and output are NHWC, as in the JAX package. Under spatial sharding
+they are an H band of the image: each conv and the stem's max pool take
+the halo their geometry needs, which past ASPP's rates at 1/16 spans
+several bands, and the image-level branch pools over the whole image.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ class DeepLabV3(nn.Module):
     output stride with `upsample_logits=False`; with `aux=True`,
     (main, aux). `generator` draws the initial weights;
     `dropout_generator`, on the device the model runs on, draws every
-    train-mode dropout mask."""
+    train-mode dropout mask. `max_stride` is its deepest map's stride,
+    the output stride, for the spatial guards
+    (`parallel.shard_batch(spatial=True, max_stride=...)`)."""
 
     def __init__(self, num_classes: int = 19, *, depth: int = 50, output_stride: int = 16,
                  aspp_channels: int = 256, aux: bool = False,
@@ -40,6 +45,7 @@ class DeepLabV3(nn.Module):
         self.aux = aux
         self.align_corners = align_corners
         self.upsample_logits = upsample_logits
+        self.max_stride = output_stride
         self.backbone = ResNet(depth, output_stride=output_stride, **kw)
         # the ASPP rates double at output stride 8 (DeepLabV3 §4.2)
         rates = (12, 24, 36) if output_stride == 8 else (6, 12, 18)

@@ -138,7 +138,11 @@ class FastSCNN(nn.Module):
     `upsample_logits=False`; with `aux=True`, (main, aux_lds, aux_gfe).
     `generator` draws the initial weights; `dropout_generator`, on the
     device the model runs on, draws every train-mode dropout mask.
+    `max_stride` is its deepest map's stride, for the spatial guards
+    (`parallel.shard_batch(spatial=True, max_stride=...)`).
     """
+
+    max_stride = 32
 
     def __init__(self, num_classes: int = 19, in_ch: int = 3, *,
                  aux: bool = False, align_corners: bool = False,

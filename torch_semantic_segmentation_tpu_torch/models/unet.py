@@ -12,7 +12,10 @@ conv at the low resolution followed by a ×2 bilinear resize
 (`upsample="bilinear"`). With align_corners=False the bilinear resize and
 the concat run as one op (`ops.upsample_concat`, the Hopper kernel K4 on
 the card). Input and output are NHWC full-resolution tensors, as in the
-JAX package.
+JAX package. Under spatial sharding they are an H band of the image: the
+3×3 convs take a halo row from each neighbouring band, the 2×2/s2 pools
+and transposed convs none (the bands' rows stay even at every level), and
+K4 one row of its low-res input each side.
 """
 
 from __future__ import annotations
@@ -80,8 +83,13 @@ class UpBlock(nn.Module):
 
 
 class UNet(nn.Module):
-    """UNet. Input NHWC float with H, W % 16 == 0; returns full-resolution
-    logits (N, H, W, num_classes)."""
+    """UNet. Input NHWC float with H, W % 16 == 0 (an H band's rows too,
+    under spatial sharding); returns full-resolution logits (N, H, W,
+    num_classes). `max_stride` is its deepest map's stride, for the
+    spatial guards (`parallel.shard_batch(spatial=True,
+    max_stride=...)`)."""
+
+    max_stride = 16
 
     def __init__(self, num_classes: int = 19, in_ch: int = 3, *,
                  base_ch: int = 64, upsample: str = "deconv",

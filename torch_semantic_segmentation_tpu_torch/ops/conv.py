@@ -152,7 +152,10 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     The weight is torch's (in, out, kh, kw), the layout the JAX package's
     `compat.export_torch_state_dict` writes; both are drawn from
     uniform(±1/√(in·kh·kw)), as the JAX package's `ConvTranspose2d` draws
-    them. It runs on ATen/cuDNN: the JAX package left it to XLA."""
+    them. It runs on ATen/cuDNN: the JAX package left it to XLA. On an H
+    band only a kernel equal to its stride without padding runs (each
+    input row makes its own `stride` output rows); any other geometry
+    raises NotImplementedError there."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size, *, stride=1,
                  padding=0, output_padding=0, use_bias: bool = True,
@@ -170,6 +173,17 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                 self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if distributed.is_spatial() and (
+                self.kernel_size[0] != self.stride[0] or self.padding[0]
+                or self.output_padding[0] or self.dilation[0] != 1):
+            raise NotImplementedError(
+                f"a {self.kernel_size[0]}x{self.kernel_size[1]}/s"
+                f"{self.stride[0]} transposed conv with padding "
+                f"{self.padding[0]} and output padding "
+                f"{self.output_padding[0]} on an H band: spatial sharding "
+                "takes only a transposed conv whose kernel is its stride, "
+                "unpadded (UNet's 2x2/s2), which maps each band row to "
+                "its own output rows without a halo")
         dt = _compute_types(x, self.weight, self.compute_dtype)
         bias = self.bias.to(dt) if self.bias is not None else None
         y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),

@@ -1,9 +1,9 @@
 """Pooling on NHWC tensors: max pooling (UNet's encoder, the ResNet stem),
 the 2×2 max pool with window indices and its unpool (ENet), adaptive
 average pooling (the PPM bins) and global average pooling, the averages
-accumulated in float32. Under spatial sharding the two averages take an H
-band: the band's part of the global average, summed over the data row's
-bands (`distributed.spatial_sum`)."""
+accumulated in float32. Under spatial sharding the max pool takes an H
+band with its halo, and the two averages the band's part of the global
+average, summed over the data row's bands (`distributed.spatial_sum`)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch_semantic_segmentation_tpu_torch.ops.conv import band_halo
 from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
@@ -33,9 +34,18 @@ def max_pool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
     """Max pool of NHWC `x` (the JAX package's `ops/pool.max_pool2d`): a
     square window, the stride (the window by default) and symmetric
     padding with −inf. The gradient of a window whose maximum is tied goes
-    to its first maximum in row-major order, as in the JAX package."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride or window, padding)
-    return y.permute(0, 2, 3, 1)
+    to its first maximum in row-major order, as in the JAX package. On an
+    H band the pool runs on band + the halo a conv of its geometry takes
+    (`band_halo`; none for the 2×2/s2 pool), so the −inf padding falls at
+    the image's global edges only and the halo rows are real rows."""
+    stride = stride or window
+
+    def pool(t: torch.Tensor) -> torch.Tensor:
+        y = F.max_pool2d(t.permute(0, 3, 1, 2), window, stride, padding)
+        return y.permute(0, 2, 3, 1)
+
+    return distributed.on_band(pool, x, *band_halo(window, stride, padding),
+                               down=stride)
 
 
 def max_pool2x2_with_indices(x: torch.Tensor

@@ -29,12 +29,14 @@ ranks. A rank holds its data row's images of the global batch
 reads neighbouring rows calls `on_band`: it takes `halo` rows from the
 bands above and below (`halo`, an autograd function whose backward sends
 each halo row's gradient back to its owner), runs on band + halo and
-crops back to the band. No halo is taken at the image's global top and
-bottom, where the op's own padding is the global one. A reduction over H
-sums the band's part over the data row (`spatial_sum`, one process
-subgroup a data row). `world_size()` stays every rank: each holds an equal
-share of the global batch's pixels, so the moments, losses and gradients
-above still weigh each rank 1/R and sum every pixel once.
+crops back to the band. A halo longer than a band (ASPP's rate 18 at
+1/16) gathers from as many bands as it spans. No halo row is taken past
+the image's global top and bottom, where the op's own padding is the
+global one. A reduction over H sums the band's part over the data row
+(`spatial_sum`, one process subgroup a data row). `world_size()` stays
+every rank: each holds an equal share of the global batch's pixels, so
+the moments, losses and gradients above still weigh each rank 1/R and
+sum every pixel once.
 
 `initialize()` follows torchrun's contract: `WORLD_SIZE`, `RANK`,
 `LOCAL_RANK`, and `MASTER_ADDR` / `MASTER_PORT` for `env://`. NCCL on the
@@ -325,66 +327,96 @@ def _exchange(sends: list, recvs: list, like: torch.Tensor) -> list:
     return [t.to(like.device) for t in out]
 
 
+def halo_rows(top: int, bottom: int, rows: int) -> tuple[int, int]:
+    """(t, b): the rows of a halo of `top` and `bottom` rows that reach a
+    band of `rows` rows, this rank's: as many as lie between the band and
+    the image's global top and bottom, so none at the image's edges and
+    fewer near them (0, 0 without spatial sharding)."""
+    if not is_spatial():
+        return 0, 0
+    s, n = spatial_rank(), num_spatial()
+    return min(top, s * rows), min(bottom, (n - 1 - s) * rows)
+
+
+def _spans(halo: int, rows: int, peers: int) -> list[tuple[int, int]]:
+    """[(k, m)]: a halo of `halo` rows over bands of `rows` rows takes m
+    rows from the band k away (k = 1 the nearest, a whole band where the
+    halo reaches past it), for the `peers` bands there are that way."""
+    out = []
+    for k in range(1, peers + 1):
+        m = min(rows, halo - (k - 1) * rows)
+        if m <= 0:
+            break
+        out.append((k, m))
+    return out
+
+
 class _Halo(torch.autograd.Function):
     """Band + halo along dim 1 (H of NHWC and NHW): `top` rows from the
-    band above (its last) and `bottom` from the band below (its first),
-    none past the image's global top and bottom. The backward sends each
+    bands above and `bottom` from the bands below, from as many bands as
+    the halo spans (the nearest band's last or first rows, then the next
+    one's, ...), none past the image's global top and bottom. Each pair of
+    bands exchanges at most one message each way. The backward sends each
     halo row's gradient back to the band it came from, which adds it to
     its own row's."""
 
     @staticmethod
     def forward(ctx, x, top: int, bottom: int):
         s, n = spatial_rank(), num_spatial()
-        t = top if s > 0 else 0
-        b = bottom if s < n - 1 else 0
-        ctx.sizes = (top, bottom, t, b)
-        sends, recvs = [], []
-        if s > 0 and bottom:
-            sends.append((x[:, :bottom], s - 1))
-        if s < n - 1 and top:
-            sends.append((x[:, x.shape[1] - top:], s + 1))
-        if t:
-            recvs.append(((x.shape[0], t, *x.shape[2:]), s - 1))
-        if b:
-            recvs.append(((x.shape[0], b, *x.shape[2:]), s + 1))
+        rows = x.shape[1]
+        # what this band gives: its last rows to the bands below (their
+        # top halos), its first rows to the bands above (their bottom)
+        give_down = _spans(top, rows, n - 1 - s)
+        give_up = _spans(bottom, rows, s)
+        # what it takes: the top halo farthest band first, the bottom
+        # halo nearest first, in the order the rows lie
+        above = _spans(top, rows, s)[::-1]
+        below = _spans(bottom, rows, n - 1 - s)
+        ctx.plan = (rows, give_down, give_up, above, below)
+        sends = ([(x[:, rows - m:], s + k) for k, m in give_down]
+                 + [(x[:, :m], s - k) for k, m in give_up])
+        recvs = ([((x.shape[0], m, *x.shape[2:]), s - k) for k, m in above]
+                 + [((x.shape[0], m, *x.shape[2:]), s + k)
+                    for k, m in below])
         got = _exchange(sends, recvs, x)
-        above = got.pop(0) if t else x[:, :0]
-        below = got.pop(0) if b else x[:, :0]
-        return torch.cat([above, x, below], dim=1)
+        return torch.cat([*got[:len(above)], x, *got[len(above):]], dim=1)
 
     @staticmethod
     def backward(ctx, g):
-        top, bottom, t, b = ctx.sizes
-        s, n = spatial_rank(), num_spatial()
-        rows = g.shape[1] - t - b
-        sends, recvs = [], []
-        if t:
-            sends.append((g[:, :t], s - 1))
-        if b:
-            sends.append((g[:, t + rows:], s + 1))
-        if s < n - 1 and top:     # the band below's top halo: my last rows
-            recvs.append(((g.shape[0], top, *g.shape[2:]), s + 1))
-        if s > 0 and bottom:      # the band above's bottom halo: my first
-            recvs.append(((g.shape[0], bottom, *g.shape[2:]), s - 1))
+        rows, give_down, give_up, above, below = ctx.plan
+        s = spatial_rank()
+        t = sum(m for _, m in above)
+        sends, at = [], 0
+        for k, m in above:
+            sends.append((g[:, at:at + m], s - k))
+            at += m
+        at += rows
+        for k, m in below:
+            sends.append((g[:, at:at + m], s + k))
+            at += m
+        recvs = ([((g.shape[0], m, *g.shape[2:]), s + k)
+                  for k, m in give_down]
+                 + [((g.shape[0], m, *g.shape[2:]), s - k)
+                    for k, m in give_up])
         got = _exchange(sends, recvs, g)
         dx = g[:, t:t + rows].clone()
-        if s < n - 1 and top:
-            dx[:, rows - top:] += got.pop(0)
-        if s > 0 and bottom:
-            dx[:, :bottom] += got.pop(0)
+        for (_, m), d in zip(give_down, got[:len(give_down)]):
+            dx[:, rows - m:] += d
+        for (_, m), d in zip(give_up, got[len(give_down):]):
+            dx[:, :m] += d
         return dx, None, None
 
 
 def halo(x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
-    """x (N, H, ...) with `top` rows of the band above before it and
-    `bottom` rows of the band below after it, none at the image's global
-    top or bottom (x itself without spatial sharding); gradients go back
-    to their bands."""
+    """x (N, H, ...) with `top` rows of the bands above before it and
+    `bottom` rows of the bands below after it, gathered from as many bands
+    as they span and none past the image's global top and bottom
+    (`halo_rows` says how many arrive; x itself without spatial
+    sharding); gradients go back to their bands."""
     if not is_spatial() or not (top or bottom):
         return x
-    if max(top, bottom) > x.shape[1]:
-        raise ValueError(f"a halo of {max(top, bottom)} rows is more than "
-                         f"the band's {x.shape[1]}")
+    if min(top, bottom) < 0:
+        raise ValueError(f"a halo of {top}, {bottom} rows")
     return _Halo.apply(x, top, bottom)
 
 
@@ -394,11 +426,16 @@ def on_band(fn, x: torch.Tensor, top: int, bottom: int, up: int = 1,
     bottom))` cropped to the band's rows of the global result. `fn` maps
     R input rows to R·up/down output rows from the same origin (a conv of
     stride `down`, whose `top` is a multiple of it; a ×`up` resize), so
-    the band's rows start at top·up/down. Without spatial sharding,
-    `fn(x)`."""
+    the band's rows start at t·up/down, t the top halo rows that arrived
+    (`halo_rows`). Where a halo stops at the image's global top or bottom,
+    `fn`'s own padding falls where the single process pads. Without
+    spatial sharding, `fn(x)`."""
     if not is_spatial():
         return fn(x)
-    t = top if spatial_rank() > 0 else 0
+    t, _ = halo_rows(top, bottom, x.shape[1])
+    if t * up % down:
+        raise ValueError(f"a top halo of {t} rows is off the stride-{down} "
+                         "grid")
     y = fn(halo(x, top, bottom))
     rows = x.shape[1] * up // down
     start = t * up // down
