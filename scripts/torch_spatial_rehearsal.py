@@ -4,10 +4,10 @@ two H bands) at a tiny size, without a card.
     python scripts/torch_spatial_rehearsal.py [--crop 64|128] [--sensitivity]
 
 Runs `chip_smoke.zoo_spatial_phase` itself, in float32 on CPU gloo ranks,
-with its setup cut down: DeepLab-R50 and UNet (base 16) on 4 frames of
-128x256 (crop 64; 256x256 for crop 128) cut to crop x crop, the loss
-casting DeepLab's logits to bf16 so that K3's plain version runs on each
-band, `torch.cuda.Event` and the memory calls stubbed, and every kernel
+with its setup cut down: DeepLab-R50, UNet (base 16), and ENet, ERFNet
+and ESNet at full width, on 4 frames of 128x256 (crop 64; 256x256 for
+crop 128) cut to crop x crop, the loss casting DeepLab's logits to bf16
+so that K3's plain version runs on each band, `torch.cuda.Event` and the memory calls stubbed, and every kernel
 wrapper counting its calls as launches (the CPU runs the plain versions).
 It prints phase 16's lines and stops at the first bar a reading misses,
 as the phase does on the card.
@@ -21,6 +21,7 @@ nudged_moments`, one group at a time): where the step's noise comes from.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -82,6 +83,14 @@ def patch(crop: int) -> None:
         from torch_semantic_segmentation_tpu_torch.losses import (
             cross_entropy_loss, resize_ohem_cross_entropy)
         from torch_semantic_segmentation_tpu_torch.models import get_model
+        if name not in ("deeplab", "unet"):
+            model, loss, cfg, lr, seed = c.zoo_spatial_model(
+                name, device="cpu", compute_dtype=torch.float32)
+            cfg = dataclasses.replace(cfg, crop=(crop, crop),
+                                      out_dtype=torch.float32)
+            frames, labels = small_batch(seed)
+            return (model, torch.from_numpy(frames[:c.ZS_BATCH]),
+                    torch.from_numpy(labels[:c.ZS_BATCH]), cfg, loss, lr)
         frames, labels = small_batch(600 if name == "deeplab" else 500)
         if name == "deeplab":
             model = get_model("deeplabv3_resnet50", c.NUM_CLASSES,

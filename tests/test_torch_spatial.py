@@ -132,27 +132,32 @@ def test_shard_batch_guards_without_a_group():
 
 
 def test_other_models_and_multiscale_refuse_spatial(monkeypatch):
-    """Under spatial sharding any zoo model but FastSCNN, DeepLabV3 and
-    UNet, remat and the multi-scale eval step raise, naming FastSCNN;
-    FastSCNN builds (`tests/test_torch_spatial_zoo.py` holds the gate
-    over all 13 names)."""
+    """Under spatial sharding any zoo model but FastSCNN, DeepLabV3, UNet,
+    ENet, ERFNet and ESNet, remat and the multi-scale eval step raise,
+    naming FastSCNN; FastSCNN and ENet build and make their train step
+    (`tests/test_torch_spatial_zoo.py` holds the gate over all 13
+    names)."""
     from torch_semantic_segmentation_tpu_torch.eval import (
         make_multiscale_eval_step)
     from torch_semantic_segmentation_tpu_torch.models import (
         check_spatial_model, get_model)
     from torch_semantic_segmentation_tpu_torch.train import (
         OptimizerConfig, create_train_state, make_train_step)
-    enet = get_model("enet", 5, device="cpu")
+    lednet = get_model("lednet", 5, device="cpu")
     monkeypatch.setattr(distributed, "is_spatial", lambda: True)
     monkeypatch.setattr(distributed, "num_spatial", lambda: 2)
-    for name in ("enet", "bisenet"):
+    for name in ("lednet", "bisenet"):
         with pytest.raises(NotImplementedError, match="FastSCNN"):
             get_model(name, 5, device="cpu")
     with pytest.raises(NotImplementedError, match="FastSCNN"):
-        check_spatial_model(enet)
+        check_spatial_model(lednet)
     with pytest.raises(NotImplementedError, match="FastSCNN"):
-        make_train_step(enet, create_train_state(enet, OptimizerConfig()),
+        make_train_step(lednet, create_train_state(lednet,
+                                                   OptimizerConfig()),
                         device="cpu")
+    enet = get_model("enet", 5, device="cpu")
+    make_train_step(enet, create_train_state(enet, OptimizerConfig()),
+                    device="cpu")
     fast = get_model("fastscnn", 5, device="cpu")
     state = create_train_state(fast, OptimizerConfig())
     make_train_step(fast, state, device="cpu")

@@ -11,7 +11,8 @@ batch, and the JAX package runs its own spatial forward.
   (BN calibrated) against this process's.
 - One train-mode forward and backward on both routes (full-resolution
   logits with plain CE, the JAX test's; 1/8 logits with the resize CE):
-  the loss at 1e-6, the BN statistics, and the parameter gradients,
+  the loss at 1e-6, the BN statistics, the halo exchanges (34 a step),
+  and the parameter gradients,
   summed over ranks, against this process's by relative L2 over the whole
   tree (`spatial_bars.GRAD_TREE_TOL`) and over the classifier, past the
   FFM's ReLU (`HEAD_GRAD_TOL`). `tests/test_torch_spatial_grad.py` holds
@@ -128,6 +129,19 @@ def test_loss_and_gradients_match_the_single_process(runs, layout, route):
     data = 1 if layout == "s2" else 2
     dx = bars.ranks_bands(got[layout], key, "dx", data)
     assert dx.shape == want["dx"].shape
+
+
+# a train step's halo exchanges, forward and backward (the input needs a
+# gradient here), as they were before `Conv2d` took the halo that
+# `ConvBNAct` used to take for it: its 1x1 convs take none
+HALO_EXCHANGES = 34
+
+
+@pytest.mark.parametrize("layout", ["s2", "d2s2"])
+@pytest.mark.parametrize("route", ["full", "low"])
+def test_halo_exchanges_a_step(runs, layout, route):
+    for r in runs[0][layout]:
+        assert int(r[f"grads_{route}"]["halo_exchanges"]) == HALO_EXCHANGES
 
 
 # PyTorch's CPU kernel for the weight gradient of a bf16 depthwise conv at

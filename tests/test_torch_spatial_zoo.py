@@ -20,7 +20,8 @@ its band of its rows of the global batch:
 In this process, on the bands of one tensor (`Bands`): the band-aware max
 pool (−inf padding at the image's edges only), K4's band route through its
 plain version (bit for bit with the unsharded rows), the transposed conv's
-geometries, and the gate over the 13 zoo names."""
+geometries, and the gate over the 13 zoo names. ENet, ERFNet and ESNet
+on bands: `tests/test_torch_spatial_decoders.py`."""
 
 import os
 import shutil
@@ -258,8 +259,10 @@ def test_k4_rows_and_their_checks():
 
 def test_transposed_conv_on_bands():
     """UNet's 2×2/s2 transposed conv maps each band row to its own two
-    rows: the global result's rows; the 3×3/s2/p1/op1 of ERFNet, ESNet and
-    ENet raises under spatial sharding."""
+    rows, and the 3×3/s2/p1/op1 of ERFNet, ESNet and ENet takes one bottom
+    halo row: the global result's rows. Any other geometry, here a 3×3/s2
+    without padding, raises under spatial sharding, naming the two it
+    takes."""
     x = _rng_tensor(27, 2, 8, 6, 4)
     up = ConvTranspose2d(4, 3, 2, stride=2,
                          generator=torch.Generator().manual_seed(0))
@@ -268,30 +271,41 @@ def test_transposed_conv_on_bands():
     torch.testing.assert_close(torch.cat(got, dim=1), want, rtol=0, atol=0)
     odd = ConvTranspose2d(4, 3, 3, stride=2, padding=1, output_padding=1,
                           generator=torch.Generator().manual_seed(0))
-    odd(x)
+    want = odd(x)
+    got = Bands(4).run(odd, x)
+    torch.testing.assert_close(torch.cat(got, dim=1), want, rtol=1e-6,
+                               atol=1e-6)
+    other = ConvTranspose2d(4, 3, 3, stride=2,
+                            generator=torch.Generator().manual_seed(0))
+    other(x)
     with Bands(2).rank(0):
-        with pytest.raises(NotImplementedError, match="transposed conv"):
-            odd(x[:, :4])
+        with pytest.raises(NotImplementedError,
+                           match="transposed conv.*3x3/s2 with padding 1"):
+            other(x[:, :4])
 
 
 SPATIAL_NAMES = ("fastscnn", "unet", "deeplabv3_resnet18",
                  "deeplabv3_resnet34", "deeplabv3_resnet50",
-                 "deeplabv3_resnet101")
+                 "deeplabv3_resnet101", "enet", "erfnet", "esnet")
 
 
 @pytest.mark.parametrize("name", available_models())
 def test_the_gate(monkeypatch, name):
-    """Under spatial sharding FastSCNN, DeepLabV3 (every depth) and UNet
-    are admitted by name and by module; any other zoo name raises, naming
-    the three and the models still refused."""
+    """Under spatial sharding FastSCNN, DeepLabV3 (every depth), UNet,
+    ENet, ERFNet and ESNet are admitted by name and by module; any other
+    zoo name (BiSeNet, ICNet, LEDNet, ContextNet) raises, naming the six
+    and the models still refused."""
     monkeypatch.setattr(distributed, "is_spatial", lambda: True)
     monkeypatch.setattr(distributed, "num_spatial", lambda: 2)
     if name in SPATIAL_NAMES:
         check_spatial_model(name)
         return
+    refused = [n for n in available_models() if n not in SPATIAL_NAMES]
+    assert refused == ["bisenet", "contextnet", "icnet", "lednet"]
     with pytest.raises(NotImplementedError,
-                       match=f"FastSCNN, DeepLabV3 and UNet; {name}.*"
-                             f"still refused: .*{name}"):
+                       match=f"FastSCNN, DeepLabV3, UNet, ENet, ERFNet and "
+                             f"ESNet; {name}.*still refused: "
+                             + ", ".join(refused)):
         check_spatial_model(name)
     with pytest.raises(NotImplementedError):
         get_model(name, 5, device="cpu")
@@ -299,12 +313,17 @@ def test_the_gate(monkeypatch, name):
 
 def test_the_gate_by_module(monkeypatch):
     unet = get_model("unet", 5, base_ch=4, device="cpu")
-    enet = get_model("enet", 5, device="cpu")
+    admitted = [get_model(n, 5, device="cpu")
+                for n in ("enet", "erfnet", "esnet")]
+    lednet = get_model("lednet", 5, device="cpu")
     monkeypatch.setattr(distributed, "is_spatial", lambda: True)
     monkeypatch.setattr(distributed, "num_spatial", lambda: 2)
     check_spatial_model(unet)
-    with pytest.raises(NotImplementedError, match="ENet"):
-        check_spatial_model(enet)
+    for m in admitted:
+        check_spatial_model(m)
+        assert m.max_stride == 8
+    with pytest.raises(NotImplementedError, match="LEDNet"):
+        check_spatial_model(lednet)
     assert unet.max_stride == 16
     assert get_model("deeplabv3_resnet18", 5, device="cpu",
                      output_stride=8).max_stride == 8

@@ -16,7 +16,7 @@ without a group.
   `reduce_sum`s); UNet's two decoders with CE. The loss at
   `spatial_bars.LOSS_RTOL`, the summed gradient over the tree at
   `GRAD_TREE_TOL` and over the classifier at `HEAD_GRAD_TOL`, the BN
-  statistics at rtol 1e-5, atol 1e-6.
+  statistics at rtol 1e-5, atol 1e-6, and the halo exchanges a step.
 - The aux route on bf16 logits, where both heads go through K3's plain
   version on band + one halo row: the loss at the bf16 route's 1e-3, the
   gradient within the single process's bf16-to-float32 gap (as
@@ -83,6 +83,23 @@ def test_loss_and_gradients_match_the_single_process(runs, layout, route):
                                       head=HEADS[route.split("_")[0]])
         assert int(g["halo_exchanges"]) > 0 and int(g["k3"]) == 0
         _stats_match(g["stats"], want["stats"])
+
+
+# a train step's halo exchanges, forward and backward (the image needs no
+# gradient), as they were before `Conv2d` took the halo that `ConvBNAct`
+# used to take for it: the raw convs of DeepLab and UNet are 1x1s, which
+# take none
+HALO_EXCHANGES = {"deeplab_exact": 43, "deeplab_aux": 47,
+                  "deeplab_aux_k3": 47, "deeplab_bisect": 43,
+                  "unet_deconv": 35, "unet_bilinear": 43}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("route", w.ZOO_ROUTES)
+def test_halo_exchanges_a_step(runs, layout, route):
+    for r in runs[0][layout]:
+        assert int(r[f"grads_{route}"]["halo_exchanges"]) == \
+            HALO_EXCHANGES[route]
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))

@@ -1,12 +1,12 @@
 """Ranks of the port's data-parallel tests (`tests/test_torch_parallel*.py`,
-`tests/test_torch_multihost_cli.py`, `tests/test_torch_spatial_step.py`).
+`tests/test_torch_multihost_cli.py`, `tests/test_torch_spatial*.py`).
 It imports only the port, torch and numpy.
 
     python tests/torch_mp_worker.py SUITE RANK WORLD STORE OUTDIR
 
 joins a gloo group of WORLD ranks through `file://STORE` (SUITE
-"spatial:S" or "zoo:S" with `num_spatial=S`: each rank on a band of H
-rows), runs every case
+"spatial:S", "zoo:S" or "dec:S" with `num_spatial=S`: each rank on a band
+of H rows), runs every case
 of SUITE on its rows of each case's global batch and saves
 {case: result} to OUTDIR/rank<RANK>.pt. The parent test runs the same case
 functions in its own process without a group, where they see the whole
@@ -639,12 +639,17 @@ def suite_zoo(outdir: str) -> dict:
 
 
 def zoo_loss(route: str):
-    """(model name, model keywords, loss) of a train-step route:
-    DeepLab's OHEM on its 1/16 logits in float32 (the exact top-k), with
+    """(model name, model keywords, loss) of a train-step route: ENet,
+    ERFNet and ESNet with CE (ENet's weighing its classes); DeepLab's OHEM on its 1/16 logits in float32 (the exact top-k), with
     its aux head too, in float32 and on bf16 logits (K3's plain version on
     both heads), and on full-resolution logits by bisection; UNet's two
     decoders with CE."""
     import functools
+    if route in DEC_MODELS:
+        return (route, {}, functools.partial(
+            losses.cross_entropy_loss, class_weights=torch.tensor(
+                DEC_CLASS_WEIGHTS)) if route == "enet"
+            else losses.cross_entropy_loss)
     if route == "deeplab_exact":
         return ("deeplabv3_resnet18", {"upsample_logits": False},
                 functools.partial(losses.resize_ohem_cross_entropy,
@@ -668,15 +673,17 @@ ZOO_ROUTES = ("deeplab_exact", "deeplab_aux", "deeplab_aux_k3",
               "deeplab_bisect", "unet_deconv", "unet_bilinear")
 
 
-def case_zoo_grads(route: str) -> dict:
+def case_zoo_grads(route: str, dtype=torch.float32) -> dict:
     """One train-mode forward and backward of a route (the model from seed
-    0, dropout on: the bands draw the single process's masks): the global
-    loss, the parameter gradients summed over ranks, the BN statistics
-    after it, the K3 and halo exchanges it made."""
+    0, dropout on: the bands draw the single process's masks), its
+    parameters and input cast to `dtype`: the global loss, the parameter
+    gradients summed over ranks, the BN statistics after it, the K3 and
+    halo exchanges it made."""
     from torch_semantic_segmentation_tpu_torch.ops import resize_ce
     name, kw, loss_fn = zoo_loss(route)
-    m = zoo_model(name, **kw).train()
+    m = zoo_model(name, **kw).to(dtype).train()
     x, y = _bands(*zoo_batch(7, ZOO_STEP_N), max_stride=m.max_stride)
+    x = x.to(dtype)
     k3 = []
     real = resize_ce.resize_ce_map_reference
     resize_ce.resize_ce_map_reference = (
@@ -696,9 +703,10 @@ def case_zoo_grads(route: str) -> dict:
                       if k.endswith(("running_mean", "running_var"))}}
 
 
-def case_zoo_steps(route: str) -> dict:
-    """Two SGD steps (LR 0.002) of a route through `make_train_step`: the
-    losses and the state after each."""
+def case_zoo_steps(route: str, seeds=(7, 10)) -> dict:
+    """SGD steps (LR 0.002) of a route through `make_train_step`, one on
+    the batch of each of `seeds` (two by default): the losses and the
+    state after each."""
     from torch_semantic_segmentation_tpu_torch.train import (
         OptimizerConfig, create_train_state, make_train_step)
     name, kw, loss_fn = zoo_loss(route)
@@ -706,7 +714,7 @@ def case_zoo_steps(route: str) -> dict:
     state = create_train_state(model, OptimizerConfig(lr=LR, max_steps=4))
     step = make_train_step(model, state, loss_fn, device="cpu")
     out = {"losses": []}
-    for i, seed in enumerate((7, 10)):
+    for i, seed in enumerate(seeds):
         batch = _bands(*zoo_batch(seed, ZOO_STEP_N),
                        max_stride=model.max_stride)
         out["losses"].append(step(*batch)["loss"])
@@ -753,6 +761,46 @@ def suite_zoo_step() -> dict:
     res = {f"grads_{r}": case_zoo_grads(r) for r in ZOO_ROUTES}
     res["aspp"] = case_aspp()
     res.update({f"steps_{r}": case_zoo_steps(r) for r in ZOO_STEP_ROUTES})
+    return res
+
+
+# --- suite "dec:S": ENet, ERFNet and ESNet on H bands (num_spatial=S) ---
+
+DEC_MODELS = ("enet", "erfnet", "esnet")
+DEC_STEP_MODELS = ("enet", "erfnet")
+# ENet's loss weighs the classes, as BASELINE config 1's does
+DEC_CLASS_WEIGHTS = (1.0, 2.5, 0.5, 4.0, 1.5)
+
+
+def case_dec_eval(outdir: str) -> dict:
+    """The eval forward's logits of the rank's band for each of DEC_MODELS
+    on the JAX package's weights (`<name>.pt`) and the JAX spatial test's
+    input, and `evaluate`'s matrix of each over two batches."""
+    from torch_semantic_segmentation_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from torch_semantic_segmentation_tpu_torch.eval import evaluate
+    from torch_semantic_segmentation_tpu_torch.train import make_eval_step
+    x = synthetic_batch(ZOO_N, ZOO_H, ZOO_W, C, seed=7)[0]
+    (xb,) = _bands(x, max_stride=8)
+    batches = [_bands(*zoo_batch(seed), max_stride=8) for seed in (8, 9)]
+    out = {}
+    for name in DEC_MODELS:
+        m = zoo_model(name, os.path.join(outdir, f"{name}.pt")).eval()
+        with torch.no_grad():
+            out[name] = m(xb)
+        step = make_eval_step(m, num_classes=C, device="cpu")
+        out[f"cm_{name}"] = evaluate(step, batches, num_classes=C,
+                                     device="cpu")[2]
+    return out
+
+
+def suite_dec(outdir: str) -> dict:
+    res = {"eval": case_dec_eval(outdir)}
+    for r in DEC_MODELS:
+        res[f"grads_{r}"] = case_zoo_grads(r)
+        res[f"grads64_{r}"] = case_zoo_grads(r, torch.float64)
+    res.update({f"steps_{r}": case_zoo_steps(r, seeds=(7,))
+                for r in DEC_STEP_MODELS})
     return res
 
 
@@ -840,9 +888,9 @@ def main() -> int:
     suite, rank, world, store, outdir = sys.argv[1:6]
     torch.set_num_threads(1)
     os.environ.update(WORLD_SIZE=world, RANK=rank, LOCAL_RANK=rank)
-    # "spatial:S" and "zoo:S" split each data row's images over S ranks
-    # ("spatial:S:grads" runs the gradient cases only, "zoo:S:step" the
-    # zoo's train steps)
+    # "spatial:S", "zoo:S" and "dec:S" split each data row's images over S
+    # ranks ("spatial:S:grads" runs the gradient cases only, "zoo:S:step"
+    # the zoo's train steps)
     num_spatial = int(suite.split(":")[1]) if ":" in suite else 1
     distributed.initialize("cpu", init_method=f"file://{store}",
                            num_spatial=num_spatial)
@@ -855,6 +903,8 @@ def main() -> int:
     elif suite.startswith("zoo"):
         res = (suite_zoo_step() if suite.endswith(":step")
                else suite_zoo(outdir))
+    elif suite.startswith("dec"):
+        res = suite_dec(outdir)
     else:
         res = suite_cli(store, outdir)
     torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))

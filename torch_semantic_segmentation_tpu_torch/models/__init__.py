@@ -79,19 +79,20 @@ def available_models() -> list[str]:
 
 # the models whose ops take H bands (spatial sharding), as classes and as
 # zoo names
-SPATIAL_MODELS = (FastSCNN, DeepLabV3, UNet)
+SPATIAL_MODELS = (FastSCNN, DeepLabV3, UNet, ENet, ERFNet, ESNet)
 
 
 def _spatial_name(name: str) -> bool:
-    return name in ("fastscnn", "unet") or name.startswith("deeplabv3_")
+    return (name in ("fastscnn", "unet", "enet", "erfnet", "esnet")
+            or name.startswith("deeplabv3_"))
 
 
 def check_spatial_model(model) -> None:
     """Raise NotImplementedError under spatial sharding
     (`distributed.initialize(num_spatial > 1)`) for any model but
-    FastSCNN, DeepLabV3 (every depth) and UNet, the models whose ops take
-    H bands so far (`model` is a module or a zoo name). The message names
-    the zoo models still refused."""
+    FastSCNN, DeepLabV3 (every depth), UNet, ENet, ERFNet and ESNet, the
+    models whose ops take H bands so far (`model` is a module or a zoo
+    name). The message names the zoo models still refused."""
     if not distributed.is_spatial():
         return
     if (_spatial_name(model) if isinstance(model, str)
@@ -101,8 +102,9 @@ def check_spatial_model(model) -> None:
     refused = [n for n in sorted(_REGISTRY) if not _spatial_name(n)]
     raise NotImplementedError(
         f"spatial sharding (num_spatial={distributed.num_spatial()}) is "
-        f"ported for FastSCNN, DeepLabV3 and UNet; {name} does not take H "
-        f"bands yet (still refused: {', '.join(refused)})")
+        f"ported for FastSCNN, DeepLabV3, UNet, ENet, ERFNet and ESNet; "
+        f"{name} does not take H bands yet (still refused: "
+        f"{', '.join(refused)})")
 
 
 __all__ = ["BiSeNet", "ContextNet", "DeepLabV3", "ENet", "ERFNet", "ESNet",

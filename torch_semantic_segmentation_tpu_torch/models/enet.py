@@ -117,10 +117,15 @@ class Bottleneck(nn.Module):
 
 
 class ENet(nn.Module):
-    """ENet. Input NHWC float with H, W % 8 == 0; returns full-resolution
-    logits (N, H, W, num_classes). `generator` draws the initial weights;
+    """ENet. Input NHWC float with H, W % 8 == 0 (an H band's rows too,
+    under spatial sharding); returns full-resolution logits (N, H, W,
+    num_classes). `generator` draws the initial weights;
     `dropout_generator`, on the device the model runs on, draws every
-    train-mode dropout mask."""
+    train-mode dropout mask. `max_stride` is its deepest map's stride,
+    for the spatial guards (`parallel.shard_batch(spatial=True,
+    max_stride=...)`)."""
+
+    max_stride = 8
 
     def __init__(self, num_classes: int = 19, in_ch: int = 3, *,
                  compute_dtype: torch.dtype | None = None,
@@ -168,6 +173,9 @@ class ENet(nn.Module):
                                         use_bias=True, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # on an H band these are the band's rows: its pool windows and
+        # stride-2 grids must be the image's, so a band needs H % 8 too
+        # (`check_even_split` makes every band a multiple of 8)
         h, w = x.shape[1], x.shape[2]
         if h % 8 or w % 8:
             raise ValueError(

@@ -92,10 +92,15 @@ class UpsamplerBlock(nn.Module):
 
 
 class ERFNet(nn.Module):
-    """ERFNet. Input NHWC float with H, W % 8 == 0; returns
-    full-resolution logits (N, H, W, num_classes). `generator` draws the
-    initial weights; `dropout_generator`, on the device the model runs on,
-    draws every train-mode dropout mask."""
+    """ERFNet. Input NHWC float with H, W % 8 == 0 (an H band's rows too,
+    under spatial sharding); returns full-resolution logits (N, H, W,
+    num_classes). `generator` draws the initial weights;
+    `dropout_generator`, on the device the model runs on, draws every
+    train-mode dropout mask. `max_stride` is its deepest map's stride,
+    for the spatial guards (`parallel.shard_batch(spatial=True,
+    max_stride=...)`)."""
+
+    max_stride = 8
 
     def __init__(self, num_classes: int = 19, in_ch: int = 3, *,
                  compute_dtype: torch.dtype | None = None,

@@ -117,7 +117,11 @@ def _compute_types(x: torch.Tensor, param: torch.Tensor,
 
 
 class Conv2d(nn.Conv2d):
-    """`nn.Conv2d` on NHWC tensors with a call-time compute dtype."""
+    """`nn.Conv2d` on NHWC tensors with a call-time compute dtype. On an H
+    band the conv runs on band + the halo its geometry takes and is
+    cropped to the band's rows (`on_band`), so a conv with kh > 1 pads
+    only at the image's global top and bottom; a 1×1 or 1×K conv takes
+    no halo and makes no exchange."""
 
     def __init__(self, *args, compute_dtype: torch.dtype | None = None,
                  **kwargs):
@@ -125,6 +129,20 @@ class Conv2d(nn.Conv2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.on_band(self.local, x)
+
+    def on_band(self, fn, x: torch.Tensor) -> torch.Tensor:
+        """`fn`, this conv or a kernel that computes it, of this rank's H
+        band: `distributed.on_band` with the halo of the conv's geometry
+        (`band_halo`); fn(x) without spatial sharding."""
+        return distributed.on_band(
+            fn, x, *band_halo(self.kernel_size[0], self.stride[0],
+                              self.padding[0], self.dilation[0]),
+            down=self.stride[0])
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv of x's rows as they are, with no halo: what `on_band`
+        runs on band + halo."""
         dt = _compute_types(x, self.weight, self.compute_dtype)
         bias = self.bias.to(dt) if self.bias is not None else None
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
@@ -153,9 +171,14 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     `compat.export_torch_state_dict` writes; both are drawn from
     uniform(±1/√(in·kh·kw)), as the JAX package's `ConvTranspose2d` draws
     them. It runs on ATen/cuDNN: the JAX package left it to XLA. On an H
-    band only a kernel equal to its stride without padding runs (each
-    input row makes its own `stride` output rows); any other geometry
-    raises NotImplementedError there."""
+    band two geometries run: a kernel equal to its stride without padding
+    (UNet's 2×2/s2: each input row makes its own `stride` output rows, no
+    halo), and the 3×3/s2 with padding 1 and output padding 1 (ENet's and
+    ERFNet's upsamplers: output row 2m reads input row m, row 2m+1 rows m
+    and m+1, so band rows [a, b) make output rows [2a, 2b) from one bottom
+    halo row; at the image's global bottom none arrives and the output
+    padding's zero row falls where the single process puts it). Any other
+    geometry raises NotImplementedError there."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size, *, stride=1,
                  padding=0, output_padding=0, use_bias: bool = True,
@@ -173,17 +196,23 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                 self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if distributed.is_spatial() and (
-                self.kernel_size[0] != self.stride[0] or self.padding[0]
-                or self.output_padding[0] or self.dilation[0] != 1):
-            raise NotImplementedError(
-                f"a {self.kernel_size[0]}x{self.kernel_size[1]}/s"
-                f"{self.stride[0]} transposed conv with padding "
-                f"{self.padding[0]} and output padding "
-                f"{self.output_padding[0]} on an H band: spatial sharding "
-                "takes only a transposed conv whose kernel is its stride, "
-                "unpadded (UNet's 2x2/s2), which maps each band row to "
-                "its own output rows without a halo")
+        if not distributed.is_spatial():
+            return self.local(x)
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        op, d = self.output_padding[0], self.dilation[0]
+        if d == 1 and k == s and not p and not op:
+            return self.local(x)
+        if (k, s, p, op, d) == (3, 2, 1, 1, 1):
+            return distributed.on_band(self.local, x, 0, 1, up=2)
+        raise NotImplementedError(
+            f"a {k}x{self.kernel_size[1]}/s{s} transposed conv with padding "
+            f"{p}, output padding {op} and dilation {d} on an H band: "
+            "spatial sharding takes a kernel equal to its stride, unpadded "
+            "(UNet's 2x2/s2), and the 3x3/s2 with padding 1 and output "
+            "padding 1 (ENet's and ERFNet's upsamplers)")
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """The transposed conv of x's rows as they are, with no halo."""
         dt = _compute_types(x, self.weight, self.compute_dtype)
         bias = self.bias.to(dt) if self.bias is not None else None
         y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
@@ -197,11 +226,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     flax's `nnx.BatchNorm` numerics.
 
     Training mode (flax's `_compute_stats` and `_normalize`): the batch
-    mean and the biased variance E[x²]−E[x]² (clipped at 0) in float32 over
-    N, H and W (of the global batch under a process group:
-    `batch_moments`); the running stats move in place as
-    `(1−m)·running + m·batch`; the output is
-    `(x − mean)·(rsqrt(var+eps)·scale) + bias` in float32, cast to the
+    mean and the biased variance E[x²]−E[x]² (clipped at 0) in float32,
+    or float64 for a float64 input, over N, H and W (of the global batch
+    under a process group: `batch_moments`); the running stats move in
+    place as `(1−m)·running + m·batch`; the output is
+    `(x − mean)·(rsqrt(var+eps)·scale) + bias` in that type, cast to the
     compute dtype. Gradients flow through the batch statistics. Not
     `nn.SyncBatchNorm`, which keeps the running variance unbiased where
     flax keeps it biased."""
@@ -233,13 +262,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_types(x, self.weight, self.compute_dtype)
         if self.training:
-            xf = x.to(dt).float()
+            # flax's statistics are at least float32 (float64 stays so)
+            st = torch.promote_types(dt, torch.float32)
+            xf = x.to(dt).to(st)
             mean, sq = batch_moments(xf, (0, 1, 2))
             var = torch.clamp(sq - mean * mean, min=0.0)
             self.update_running_stats(mean, var)
             # flax promotes scale and bias to the compute dtype first
-            mul = torch.rsqrt(var + self.eps) * self.weight.to(dt).float()
-            return ((xf - mean) * mul + self.bias.to(dt).float()).to(dt)
+            mul = torch.rsqrt(var + self.eps) * self.weight.to(dt).to(st)
+            return ((xf - mean) * mul + self.bias.to(dt).to(st)).to(dt)
         # flax's _normalize: (x - mean) * (rsqrt(var + eps) * scale) + bias
         mul = torch.rsqrt(self.running_var.to(dt) + self.eps) * self.weight.to(dt)
         return (x.to(dt) - self.running_mean.to(dt)) * mul + self.bias.to(dt)
@@ -298,14 +329,10 @@ class ConvBNAct(nn.Module):
         self.act_name = "prelu" if prelu else act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # on an H band: the conv on band + halo, cropped to the band, so
-        # that BN's moments never see a halo row
-        conv = self.conv
+        # on an H band: the conv (or K6) on band + halo, cropped to the
+        # band, so that BN's moments never see a halo row
         rows = x.shape[1] * distributed.num_spatial()
-        y = distributed.on_band(
-            lambda xh: self._conv(xh, rows), x,
-            *band_halo(conv.kernel_size[0], conv.stride[0], conv.padding[0],
-                       conv.dilation[0]), down=conv.stride[0])
+        y = self.conv.on_band(lambda xh: self._conv(xh, rows), x)
         if self.bn is not None:
             y = self.bn(y)
         if self.act is not None:
@@ -314,7 +341,7 @@ class ConvBNAct(nn.Module):
 
     def _conv(self, x: torch.Tensor, rows: int) -> torch.Tensor:
         y = self._maybe_depthwise(x, rows)
-        return self.conv(x) if y is None else y
+        return self.conv.local(x) if y is None else y
 
     def _maybe_depthwise(self, x: torch.Tensor,
                          rows: int | None = None) -> torch.Tensor | None:

@@ -2,7 +2,8 @@
 the 2×2 max pool with window indices and its unpool (ENet), adaptive
 average pooling (the PPM bins) and global average pooling, the averages
 accumulated in float32. Under spatial sharding the max pool takes an H
-band with its halo, and the two averages the band's part of the global
+band with its halo, the 2×2 pool with indices and its unpool a band of
+even rows as it is, and the two averages the band's part of the global
 average, summed over the data row's bands (`distributed.spatial_sum`)."""
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ def max_pool2x2_with_indices(x: torch.Tensor
     in the JAX package the value is the max over the window's 4-wide
     axis, so a tied window splits its gradient equally among its maxima
     (`torch.amax`), where `nn.MaxPool2d(return_indices=True)` gives it
-    all to one."""
+    all to one. Each window is its own: an H band of even rows takes no
+    halo."""
     n, h, w, c = x.shape
     xr = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
     xr = xr.reshape(n, h // 2, w // 2, 4, c)       # windows, row-major
@@ -65,7 +67,8 @@ def max_pool2x2_with_indices(x: torch.Tensor
 def max_unpool2x2(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """Each value of NHWC `x` placed at its window index (from
     `max_pool2x2_with_indices`, possibly of another tensor) in its 2×2
-    output window, zeros elsewhere: a one-hot product, no scatter."""
+    output window, zeros elsewhere: a one-hot product, no scatter. Each
+    window is its own: an H band takes no halo."""
     n, h2, w2, c = x.shape
     slots = torch.arange(4, device=x.device).view(1, 1, 1, 4, 1)
     y = x.unsqueeze(3) * (indices.unsqueeze(3) == slots).to(x.dtype)

@@ -428,10 +428,14 @@ def on_band(fn, x: torch.Tensor, top: int, bottom: int, up: int = 1,
     stride `down`, whose `top` is a multiple of it; a ×`up` resize), so
     the band's rows start at t·up/down, t the top halo rows that arrived
     (`halo_rows`). Where a halo stops at the image's global top or bottom,
-    `fn`'s own padding falls where the single process pads. Without
-    spatial sharding, `fn(x)`."""
+    `fn`'s own padding falls where the single process pads. A band whose
+    rows the stride does not divide raises: its rows of the result would
+    not start on the global grid. Without spatial sharding, `fn(x)`."""
     if not is_spatial():
         return fn(x)
+    if x.shape[1] * up % down:
+        raise ValueError(f"a band of {x.shape[1]} rows is off the "
+                         f"stride-{down} grid")
     t, _ = halo_rows(top, bottom, x.shape[1])
     if t * up % down:
         raise ValueError(f"a top halo of {t} rows is off the stride-{down} "
