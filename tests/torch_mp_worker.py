@@ -5,12 +5,11 @@ It imports only the port, torch and numpy.
     python tests/torch_mp_worker.py SUITE RANK WORLD STORE OUTDIR
 
 joins a gloo group of WORLD ranks through `file://STORE` (SUITE
-"spatial:S", "zoo:S" or "dec:S" with `num_spatial=S`: each rank on a band
-of H rows), runs every case
-of SUITE on its rows of each case's global batch and saves
-{case: result} to OUTDIR/rank<RANK>.pt. The parent test runs the same case
-functions in its own process without a group, where they see the whole
-batch, and compares.
+"spatial:S", "zoo:S", "dec:S" or "cas:S" with `num_spatial=S`: each rank
+on a band of H rows), runs every case of SUITE on its rows of each
+case's global batch and saves {case: result} to OUTDIR/rank<RANK>.pt.
+The parent test runs the same case functions in its own process without
+a group, where they see the whole batch, and compares.
 
 Each case builds its global inputs from a seed with numpy, takes the
 rank's rows (`parallel.shard_batch`), runs, and returns a dict of tensors.
@@ -645,6 +644,15 @@ def zoo_loss(route: str):
     both heads), and on full-resolution logits by bisection; UNet's two
     decoders with CE."""
     import functools
+    if route.split("_")[0] in CAS_MODELS:
+        dtype = torch.bfloat16 if route.endswith("k3") else None
+        head = losses.SegLoss(
+            lambda lg, y: losses.resize_ohem_cross_entropy(
+                lg if dtype is None else lg.to(dtype), y, **ZOO_OHEM),
+            handles_resize=True)
+        return (route.split("_")[0], CAS_KW,
+                functools.partial(losses.aux_weighted_loss, loss_fn=head,
+                                  aux_weight=1.0))
     if route in DEC_MODELS:
         return (route, {}, functools.partial(
             losses.cross_entropy_loss, class_weights=torch.tensor(
@@ -804,6 +812,72 @@ def suite_dec(outdir: str) -> dict:
     return res
 
 
+# --- suite "cas:S": BiSeNet and ICNet on H bands (num_spatial=S) ---
+
+CAS_MODELS = ("bisenet", "icnet")
+# both on ResNet-18, at config 5's route: 1/8, 1/8 and 1/16 heads
+# (BiSeNet), 1/4, 1/8 and 1/16 (ICNet), each to the OHEM at its own ratio
+CAS_KW = {"depth": 18, "upsample_logits": False}
+# the float32 OHEM aux route, the same on bf16 logits (each head through
+# K3's plain version), in train mode
+CAS_ROUTES = ("bisenet", "bisenet_k3", "icnet", "icnet_k3")
+
+
+def case_cas_eval(outdir: str) -> dict:
+    """The eval forward's three heads of the rank's band for each of
+    CAS_MODELS on the JAX package's weights (`<name>.pt`, full-resolution
+    main head) and the JAX spatial test's input, and `evaluate`'s matrix
+    of each over two batches on config 5's route (the low-res main head
+    through the ×k resize + argmax)."""
+    from torch_semantic_segmentation_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from torch_semantic_segmentation_tpu_torch.eval import evaluate
+    from torch_semantic_segmentation_tpu_torch.train import make_eval_step
+    x = synthetic_batch(ZOO_N, ZOO_H, ZOO_W, C, seed=7)[0]
+    (xb,) = _bands(x)
+    batches = [_bands(*zoo_batch(seed)) for seed in (8, 9)]
+    out = {}
+    for name in CAS_MODELS:
+        init = os.path.join(outdir, f"{name}.pt")
+        m = zoo_model(name, init, depth=18).eval()
+        with torch.no_grad():
+            out[name] = list(m(xb))
+        step = make_eval_step(zoo_model(name, init, **CAS_KW),
+                              num_classes=C, device="cpu")
+        out[f"cm_{name}"] = evaluate(step, batches, num_classes=C,
+                                     device="cpu")[2]
+    return out
+
+
+def digest(tensors: dict) -> torch.Tensor:
+    """Each tensor's sum and sum of squares, in float64 by numpy (whose
+    order of summation no thread count changes): a rank's copy of what
+    every rank holds alike (the gradients summed over ranks, the state
+    after a step) equals rank 0's where the digests are equal."""
+    flat = [t.detach().double().reshape(-1).numpy() for t in tensors.values()]
+    return torch.tensor([np.sum(a) for a in flat]
+                        + [np.sum(a * a) for a in flat], dtype=torch.float64)
+
+
+def suite_cas(outdir: str) -> dict:
+    """The cases of "cas:S". Every rank holds the same summed gradients
+    and state: rank 0 saves them whole, the others their `digest` (whole,
+    each rank's would take 0.5 GB of disk: the two models have about 13M
+    parameters each)."""
+    res = {"eval": case_cas_eval(outdir)}
+    for r in CAS_ROUTES:
+        res[f"grads_{r}"] = case_zoo_grads(r)
+    for r in CAS_MODELS:
+        res[f"grads64_{r}"] = case_zoo_grads(r, torch.float64)
+        res[f"steps_{r}"] = case_zoo_steps(r, seeds=(7,))
+    if distributed.rank() > 0:
+        for key, case in res.items():
+            for part in ("grads", "state1"):
+                if part in case:
+                    case[part] = digest(case[part])
+    return res
+
+
 # --- suite "cli": the train CLI with --multihost ---
 
 def cli_flags(store: str | None = None) -> list[str]:
@@ -888,7 +962,8 @@ def main() -> int:
     suite, rank, world, store, outdir = sys.argv[1:6]
     torch.set_num_threads(1)
     os.environ.update(WORLD_SIZE=world, RANK=rank, LOCAL_RANK=rank)
-    # "spatial:S", "zoo:S" and "dec:S" split each data row's images over S
+    # "spatial:S", "zoo:S", "dec:S" and "cas:S" split each data row's
+    # images over S
     # ranks ("spatial:S:grads" runs the gradient cases only, "zoo:S:step"
     # the zoo's train steps)
     num_spatial = int(suite.split(":")[1]) if ":" in suite else 1
@@ -905,6 +980,8 @@ def main() -> int:
                else suite_zoo(outdir))
     elif suite.startswith("dec"):
         res = suite_dec(outdir)
+    elif suite.startswith("cas"):
+        res = suite_cas(outdir)
     else:
         res = suite_cli(store, outdir)
     torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))

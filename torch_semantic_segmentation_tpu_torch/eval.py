@@ -47,7 +47,8 @@ def make_multiscale_eval_step(
         raise NotImplementedError(
             "the multi-scale eval step under spatial sharding: the "
             "single-scale eval step (`train.make_eval_step`) takes H bands "
-            "of FastSCNN, DeepLabV3, UNet, ENet, ERFNet and ESNet")
+            "of FastSCNN, DeepLabV3, UNet, ENet, ERFNet, ESNet, BiSeNet and "
+            "ICNet")
 
     def round_div(v: float) -> int:
         return max(int(round(v / size_divisor)) * size_divisor, size_divisor)

@@ -79,19 +79,21 @@ def available_models() -> list[str]:
 
 # the models whose ops take H bands (spatial sharding), as classes and as
 # zoo names
-SPATIAL_MODELS = (FastSCNN, DeepLabV3, UNet, ENet, ERFNet, ESNet)
+SPATIAL_MODELS = (FastSCNN, DeepLabV3, UNet, ENet, ERFNet, ESNet, BiSeNet,
+                  ICNet)
 
 
 def _spatial_name(name: str) -> bool:
-    return (name in ("fastscnn", "unet", "enet", "erfnet", "esnet")
+    return (name in ("fastscnn", "unet", "enet", "erfnet", "esnet",
+                     "bisenet", "icnet")
             or name.startswith("deeplabv3_"))
 
 
 def check_spatial_model(model) -> None:
     """Raise NotImplementedError under spatial sharding
     (`distributed.initialize(num_spatial > 1)`) for any model but
-    FastSCNN, DeepLabV3 (every depth), UNet, ENet, ERFNet and ESNet, the
-    models whose ops take H bands so far (`model` is a module or a zoo
+    FastSCNN, DeepLabV3 (every depth), UNet, ENet, ERFNet, ESNet, BiSeNet
+    and ICNet, the models whose ops take H bands so far (`model` is a module or a zoo
     name). The message names the zoo models still refused."""
     if not distributed.is_spatial():
         return
@@ -102,7 +104,8 @@ def check_spatial_model(model) -> None:
     refused = [n for n in sorted(_REGISTRY) if not _spatial_name(n)]
     raise NotImplementedError(
         f"spatial sharding (num_spatial={distributed.num_spatial()}) is "
-        f"ported for FastSCNN, DeepLabV3, UNet, ENet, ERFNet and ESNet; "
+        f"ported for FastSCNN, DeepLabV3, UNet, ENet, ERFNet, ESNet, "
+        f"BiSeNet and ICNet; "
         f"{name} does not take H bands yet (still refused: "
         f"{', '.join(refused)})")
 

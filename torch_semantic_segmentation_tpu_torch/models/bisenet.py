@@ -131,9 +131,21 @@ class BiSeNetHead(nn.Module):
 
 
 class BiSeNet(nn.Module):
-    """BiSeNet. Input NHWC float with H, W % 32 == 0. Returns (main, aux16,
-    aux32) logits with `aux=True`, else main; at full resolution, or at
-    1/8, 1/8 and 1/16 with `upsample_logits=False`."""
+    """BiSeNet. Input NHWC float with H, W % 32 == 0 (an H band's rows
+    too, under spatial sharding). Returns (main, aux16, aux32) logits with
+    `aux=True`, else main; at full resolution, or at 1/8, 1/8 and 1/16
+    with `upsample_logits=False`. `max_stride` is its deepest map's
+    stride (the context path's ResNet at output stride 32), for the
+    spatial guards (`parallel.shard_batch(spatial=True,
+    max_stride=...)`).
+
+    On an H band the three global means (the ARMs' gates, the context
+    tail, the FFM's squeeze-excite) are the whole image's: each band's
+    part summed over its data row (`global_avg_pool`), the same on every
+    band, whose gradient the sum sends back to every band's part; the
+    gates' BNs take their moments over the global batch as any BN does."""
+
+    max_stride = 32
 
     def __init__(self, num_classes: int = 19, *, depth: int = 18,
                  aux: bool = True, align_corners: bool = False,

@@ -55,8 +55,21 @@ class CascadeFeatureFusion(nn.Module):
 
 
 class ICNet(nn.Module):
-    """ICNet. Input NHWC float with H, W % 32 == 0. Returns (main, aux1,
-    aux2) logits with `aux=True`, else main."""
+    """ICNet. Input NHWC float with H, W % 32 == 0 (an H band's rows too,
+    under spatial sharding). Returns (main, aux1, aux2) logits with
+    `aux=True`, else main. `max_stride` is its deepest map's stride (the
+    1/2 input, the stem, the max pool, stage 2 and sub2's 1/2 reach
+    1/32), for the spatial guards (`parallel.shard_batch(spatial=True,
+    max_stride=...)`).
+
+    On an H band the forward reads h from the band, so `h // 2`, `h // 4`
+    and (h, w) are the band's rows of the global sizes: the guards make
+    every band a multiple of 32 rows starting on a multiple of 32, so
+    each of those sizes is the band's exact share of the global one, and
+    the ×1/2 resizes (no halo), the ×2 and ×4 upsamples (one halo row)
+    and the stride-2 convs all stay on the global grid."""
+
+    max_stride = 32
 
     def __init__(self, num_classes: int = 19, *, depth: int = 50,
                  aux: bool = True, align_corners: bool = False,

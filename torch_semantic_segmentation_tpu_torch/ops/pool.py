@@ -1,7 +1,9 @@
 """Pooling on NHWC tensors: max pooling (UNet's encoder, the ResNet stem),
 the 2×2 max pool with window indices and its unpool (ENet), adaptive
 average pooling (the PPM bins) and global average pooling, the averages
-accumulated in float32. Under spatial sharding the max pool takes an H
+accumulated in float32 (in float64 for a float64 input: the CPU tests
+hold the bands in float64 at 1e-10, where a float32 sum of the bands'
+parts in another order would leave them 1e-7 apart). Under spatial sharding the max pool takes an H
 band with its halo, the 2×2 pool with indices and its unpool a band of
 even rows as it is, and the two averages the band's part of the global
 average, summed over the data row's bands (`distributed.spatial_sum`)."""
@@ -76,12 +78,17 @@ def max_unpool2x2(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return y.reshape(n, 2 * h2, 2 * w2, c)
 
 
+def _accumulate(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or as it is in float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     """Mean over H and W in float32, cast back to x's dtype (of the whole
     image for an H band)."""
     if not distributed.is_spatial():
-        return x.float().mean(dim=(1, 2), keepdim=keepdims).to(x.dtype)
-    total = x.float().sum(dim=(1, 2), keepdim=keepdims)
+        return _accumulate(x).mean(dim=(1, 2), keepdim=keepdims).to(x.dtype)
+    total = _accumulate(x).sum(dim=(1, 2), keepdim=keepdims)
     rows = x.shape[1] * distributed.num_spatial()
     return (distributed.spatial_sum(total) / (rows * x.shape[2])).to(x.dtype)
 
@@ -99,9 +106,10 @@ def adaptive_avg_pool2d(x: torch.Tensor,
     spatial = distributed.num_spatial()
     if spatial == 1 and (oh, ow) == (h, w):
         return x
-    mh = torch.from_numpy(_pool_matrix(h * spatial, oh)).to(x.device)
+    xf = _accumulate(x)
+    mh = torch.from_numpy(_pool_matrix(h * spatial, oh)).to(xf)
     mh = mh[:, distributed.spatial_rank() * h:][:, :h]
-    mw = torch.from_numpy(_pool_matrix(w, ow)).to(x.device)
-    y = distributed.spatial_sum(torch.einsum("nhwc,oh->nowc", x.float(), mh))
+    mw = torch.from_numpy(_pool_matrix(w, ow)).to(xf)
+    y = distributed.spatial_sum(torch.einsum("nhwc,oh->nowc", xf, mh))
     y = torch.einsum("nhwc,ow->nhoc", y, mw)
     return y.to(x.dtype)

@@ -13,8 +13,13 @@ the global resize. For an integer ×k in H with align_corners=False the
 local grid is the global one shifted by whole rows: one halo row each
 side (none at the image's global top and bottom, where the clamp is the
 global one) and k rows cropped each side give exactly the global rows.
-An input that is the same on every band (the PPM's bins,
-`source="replicated"`) takes the band's rows of the global matrix.
+An integer ×1/k (ICNet's input and sub2 at 1/2) takes no halo: output
+row i reads source row k·i + (k−1)/2, between rows k·i and k·i + k − 1,
+so a band of k·oh rows holds every row its oh output rows read, the
+clamp never acts, and the band's own resize is exactly the global rows,
+forward and backward. An input that is the same on every band (the
+PPM's bins, `source="replicated"`) takes the band's rows of the global
+matrix. Any other resize of a band raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -63,9 +68,10 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int], *,
                     align_corners: bool = False,
                     source: str = "band") -> torch.Tensor:
     """Bilinear-resize NHWC `x` to `size` = (H_out, W_out); accumulates in
-    float32 and casts back to x's dtype. Under spatial sharding `size` is
-    the band's and `x` an H band of the image (`source="band"`), or the
-    same on every band (`source="replicated"`)."""
+    float32 (float64 for a float64 x, as the pools do) and casts back to
+    x's dtype. Under spatial sharding `size` is the band's and `x` an H
+    band of the image (`source="band"`), or the same on every band
+    (`source="replicated"`)."""
     if not distributed.is_spatial():
         return _resize_bilinear(x, size, None, align_corners)
     n, h, w, c = x.shape
@@ -74,24 +80,32 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int], *,
         rows = oh * distributed.num_spatial()
         return _resize_bilinear(x, size, (rows, distributed.spatial_rank()
                                           * oh), align_corners)
-    k = _band_scale(h, oh, align_corners)
-    if (k, ow) == (1, w):
+    halo, up, down = _band_scale(h, oh, align_corners)
+    if (up, down, ow) == (1, 1, w):
         return x
     return distributed.on_band(
-        lambda xh: _resize_bilinear(xh, (xh.shape[1] * k, ow), None,
-                                    align_corners), x, 1, 1, up=k)
+        lambda xh: _resize_bilinear(xh, (xh.shape[1] * up // down, ow),
+                                    None, align_corners),
+        x, halo, halo, up=up, down=down)
 
 
-def _band_scale(h: int, oh: int, align_corners: bool) -> int:
-    """The integer ×k of an H band's resize; raises where the band's rows
-    are not a translate of the global grid."""
-    if oh % h or align_corners:
-        raise NotImplementedError(
-            f"a resize of an H band from {h} to {oh} rows"
-            + (" with align_corners=True" if align_corners else "")
-            + ": spatial sharding takes integer upsampling with "
-            "align_corners=False")
-    return oh // h
+def _band_scale(h: int, oh: int,
+                align_corners: bool) -> tuple[int, int, int]:
+    """(halo, up, down) of an H band's resize from h to oh rows: an
+    integer ×k (1, k, 1), whose band takes one halo row each side, or ×1/k
+    (0, 1, k), which takes none; raises where the band's rows are not a
+    translate of the global grid."""
+    if not align_corners:
+        if oh >= h and oh % h == 0:
+            return 1, oh // h, 1
+        if 0 < oh < h and h % oh == 0:
+            return 0, 1, h // oh
+    raise NotImplementedError(
+        f"a resize of an H band from {h} to {oh} rows"
+        + (" with align_corners=True" if align_corners else "")
+        + ": spatial sharding takes an integer upsampling, or an integer "
+        "downsampling whose factor divides the band's rows, with "
+        "align_corners=False")
 
 
 def _resize_bilinear(x: torch.Tensor, size: tuple[int, int],
@@ -103,13 +117,14 @@ def _resize_bilinear(x: torch.Tensor, size: tuple[int, int],
     oh, ow = size
     if rows is None and (oh, ow) == (h, w):
         return x
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     if rows is None:
-        wh = _matrix(h, oh, align_corners, x, torch.float32)
+        wh = _matrix(h, oh, align_corners, x, acc)
     else:
-        wh = _matrix(h, rows[0], align_corners, x, torch.float32)
+        wh = _matrix(h, rows[0], align_corners, x, acc)
         wh = wh[rows[1]:rows[1] + oh]
-    ww = _matrix(w, ow, align_corners, x, torch.float32)
-    y = torch.einsum("nhwc,oh->nowc", x.float(), wh)
+    ww = _matrix(w, ow, align_corners, x, acc)
+    y = torch.einsum("nhwc,oh->nowc", x.to(acc), wh)
     y = torch.einsum("nhwc,ow->nhoc", y, ww)
     return y.to(x.dtype)
 
@@ -143,11 +158,12 @@ def resize_argmax(logits: torch.Tensor, size: tuple[int, int], *,
     if (oh, ow) == (logits.shape[1], logits.shape[2]):
         return torch.argmax(logits, dim=-1).to(out_dtype)
     if distributed.is_spatial():
-        k = _band_scale(logits.shape[1], oh, align_corners)
+        halo, up, down = _band_scale(logits.shape[1], oh, align_corners)
         x = distributed.on_band(
-            lambda xh: resize_bilinear_nhcw(xh, (xh.shape[1] * k, ow),
-                                            align_corners=align_corners),
-            logits, 1, 1, up=k)
+            lambda xh: resize_bilinear_nhcw(
+                xh, (xh.shape[1] * up // down, ow),
+                align_corners=align_corners),
+            logits, halo, halo, up=up, down=down)
     else:
         x = resize_bilinear_nhcw(logits, size, align_corners=align_corners)
     return torch.argmax(x, dim=2).to(out_dtype)

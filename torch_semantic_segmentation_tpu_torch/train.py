@@ -205,8 +205,9 @@ def make_train_step(model: nn.Module, state: TrainState,
 
     Under spatial sharding the batch is the rank's band of its rows
     (`parallel.shard_batch(spatial=True)`); FastSCNN, DeepLabV3, UNet,
-    ENet, ERFNet and ESNet take it (`models.check_spatial_model`), without
-    remat (`NotImplementedError` otherwise).
+    ENet, ERFNet, ESNet, BiSeNet and ICNet take it
+    (`models.check_spatial_model`), without remat (`NotImplementedError`
+    otherwise).
     """
     dev = resolve_device(device)
     check_spatial_model(model)
@@ -255,9 +256,9 @@ def make_eval_step(model: nn.Module, *, num_classes: int,
     resize + argmax, full-resolution ones through an argmax; the ids update
     the int64 confusion matrix (`metrics.update_confusion_matrix`). Only the
     (C, C) matrix need leave the device. Under spatial sharding the batch
-    is the rank's band (FastSCNN, DeepLabV3, UNet, ENet, ERFNet and
-    ESNet): each rank counts its band's pixels, and `eval.evaluate` sums
-    the matrices."""
+    is the rank's band (FastSCNN, DeepLabV3, UNet, ENet, ERFNet, ESNet,
+    BiSeNet and ICNet): each rank counts its band's pixels, and
+    `eval.evaluate` sums the matrices."""
     dev = resolve_device(device)
     check_spatial_model(model)
     align_corners = bool(getattr(model, "align_corners", False))
