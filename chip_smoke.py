@@ -3956,12 +3956,14 @@ def rel_tree(got: dict, want: dict, keys=None) -> float:
 
 
 def tree_gaps(got: dict, want: dict) -> str:
-    """The classifier's gap (FastSCNN's and DeepLab's `classifier.`,
-    UNet's `head.`, ENet's `fullconv.`, ERFNet's and ESNet's
-    `output_conv.`) and the three tensors that add most to the tree's,
-    each with its own relative gap."""
+    """The classifier's gap (FastSCNN's, DeepLab's and ContextNet's
+    `classifier.`, UNet's `head.`, ENet's `fullconv.`, ERFNet's and
+    ESNet's `output_conv.`, LEDNet's APN projections) and the three
+    tensors that add most to the tree's, each with its own relative
+    gap."""
     head = [k for k in want if k.startswith(
-        ("classifier.", "head.", "fullconv.", "output_conv."))]
+        ("classifier.", "head.", "fullconv.", "output_conv.", "apn.main.",
+         "apn.pool_proj."))]
     top = sorted(want, key=lambda k: -float(
         (got[k].double().cpu() - want[k].double().cpu()).norm()))[:3]
     return (f"classifier {rel_tree(got, want, head):.4g}; most: " + ", ".join(
@@ -4123,10 +4125,13 @@ def spatial_phase(main_path: dict) -> dict:
 # 0.045, bands of 384 rows; BiSeNet-R18 and ICNet-R50 at BASELINE config
 # 5 (1024x1024 crops, scale 0.75-2.0, lr 0.025, OHEM 0.7 / 100000 on
 # each of the three heads at its own ratio through K3, aux weight 1.0),
-# bands of 512 rows. The batch is 4 for all, config 1's own for ENet and
-# cut from config 4's and config 5's 16, the UNet phase's 8 and the zoo
-# benches' 8: every halo and collective goes through host memory under
-# gloo. The yardstick is the single process's run with every train-mode
+# bands of 512 rows; LEDNet and ContextNet at the zoo benches' 768x768
+# and lr 0.045 on their fused route (1/8 logits, the x8 resize inside the
+# loss through K1; ContextNet's twelve blocks through K2 and its ds1
+# through K6), bands of 384 rows. The batch is 4 for all, config 1's own
+# for ENet and cut from config 4's and config 5's 16, the UNet phase's 8
+# and the zoo benches' 8 (ContextNet's 32): every halo and collective goes
+# through host memory under gloo. The yardstick is the single process's run with every train-mode
 # BN's batch mean moved up one float32 step (`nudged_moments`): these
 # models run no K2, whose folded bias phase 15 nudges. Each loss's bar is
 # phase 15's or twice the nudge's gap at that step, whichever is larger:
@@ -4137,23 +4142,41 @@ def spatial_phase(main_path: dict) -> dict:
 # in another order, and the variance's cancellation amplifies the
 # squares' step. So the yardstick is the larger of two nudges, the means
 # alone and the means and mean squares, at every step and for the
-# gradient. ZS_HALOS is each model's halo exchanges a step on each rank
-# (forward, and backward for all but the image's halo): DeepLab's and
-# UNet's as measured on the card, the others' as counted
-# (`scripts/spatial_halo_plan.py`).
+# gradient; ContextNet runs K2, so its yardstick is the largest of those
+# two and phase 15's nudge of K2's folded bias. ZS_HALOS is each model's
+# halo exchanges a step on each rank (forward, and backward for all but
+# the image's halo): DeepLab's and UNet's as measured on the card, the
+# others' as counted (`scripts/spatial_halo_plan.py`). BiSeNet and ICNet
+# also run config 5's multi-scale + flip eval step on the bands
+# (ZS_MULTISCALE), held against one process's step on the same frames.
 ZS_BATCH = 4
 ZS_STEPS = {"deeplab": 3, "unet": 1, "enet": 2, "erfnet": 1, "esnet": 1,
-            "bisenet": 1, "icnet": 1}
+            "bisenet": 1, "icnet": 1, "lednet": 1, "contextnet": 1}
 ZS_CROP = {"deeplab": DEEPLAB_CROP, "unet": UNET_CROP, "enet": ENET_CROP,
            "erfnet": ZOO_CROP, "esnet": ZOO_CROP, "bisenet": CONFIG5_CROP,
-           "icnet": CONFIG5_CROP}
+           "icnet": CONFIG5_CROP, "lednet": ZOO_CROP, "contextnet": ZOO_CROP}
 # the batch each model's configuration trains at
 ZS_CONFIG_BATCH = {"deeplab": DEEPLAB_BATCH, "unet": UNET_BATCH,
-                   "enet": ENET_BATCH, "erfnet": STRETCH_BATCH["erfnet"],
-                   "esnet": STRETCH_BATCH["esnet"], "bisenet": CONFIG5_BATCH,
-                   "icnet": CONFIG5_BATCH}
+                   "enet": ENET_BATCH, "bisenet": CONFIG5_BATCH,
+                   "icnet": CONFIG5_BATCH, **STRETCH_BATCH}
 ZS_HALOS = {"deeplab": 43, "unet": 43, "enet": 57, "erfnet": 77,
-            "esnet": 69, "bisenet": 64, "icnet": 56}
+            "esnet": 69, "bisenet": 64, "icnet": 56, "lednet": 123,
+            "contextnet": 44}
+# K6 routes a depthwise conv of at least DEPTHWISE_MIN_PX (2^18) input
+# pixels of the global image: at batch 4 ContextNet's ds1 (4x384x384) in
+# a step, and ds1 and ds2 (4x512x1024, 4x256x512) in the eval of 4
+# 1024x2048 frames; ds2 in a step (4x192x192) and context body[2] in the
+# eval (4x128x256) lie under it, where phase 11's batches of 32 and 8
+# route them. So ContextNet's K6 launches a step and an eval forward, in
+# place of `per_step`'s 2 and phase 11's 3 (`spatial_eval` runs two
+# forwards)
+ZS_K6 = {"contextnet": (1, 2)}
+ZS_MULTISCALE = ("bisenet", "icnet")
+# the halo exchanges of one multi-scale + flip call on each of the two
+# bands, as counted (`scripts/spatial_halo_plan.py --multiscale`) and read
+# on the card: the matrices' pixel bar is far too wide to see a resize
+# that drops or misplaces a halo row, so the count holds the route
+ZS_MS_HALOS = {"bisenet": 376, "icnet": 328}
 ZS_RANK_SCRIPT = "import chip_smoke\nchip_smoke.zoo_spatial_rank()\n"
 
 
@@ -4165,15 +4188,18 @@ def zoo_spatial_model(name: str, device: str = "cuda", compute_dtype=None):
     config 1's class-weighted CE (scale 0.5-2.0, lr 0.05, the ENet
     phase's frames); ERFNet or ESNet with CE (lr 0.045, phase 11's
     frames); BiSeNet-R18 or ICNet-R50 with config 5's loss (scale
-    0.75-2.0, lr 0.025, phase 9's frames); float32 parameters from seed
-    0, bf16 compute (or `compute_dtype`)."""
+    0.75-2.0, lr 0.025, phase 9's frames); LEDNet or ContextNet with
+    `upsample_logits=False` and the resize CE (K1; lr 0.045, phase 11's
+    frames); float32 parameters from seed 0, bf16 compute (or
+    `compute_dtype`)."""
     import torch
     from torch_semantic_segmentation_tpu_torch.data.cityscapes import (
         enet_class_weights)
     from torch_semantic_segmentation_tpu_torch.data.transforms import (
         AugmentConfig)
     from torch_semantic_segmentation_tpu_torch.losses import (
-        cross_entropy_loss, resize_ohem_cross_entropy)
+        cross_entropy_loss, resize_cross_entropy_loss,
+        resize_ohem_cross_entropy)
     from torch_semantic_segmentation_tpu_torch.models import get_model
     kw = dict(compute_dtype=compute_dtype or torch.bfloat16, seed=0,
               device=device)
@@ -4198,6 +4224,10 @@ def zoo_spatial_model(name: str, device: str = "cuda", compute_dtype=None):
         cfg = AugmentConfig(crop=crop, scale_range=CONFIG5_SCALE,
                             out_dtype=torch.bfloat16)
         return model, config5_loss(), cfg, CONFIG5_LR, 700
+    if name in STRETCH_LOW_RES:
+        model = get_model(name, NUM_CLASSES, upsample_logits=False, **kw)
+        cfg = AugmentConfig(crop=crop, out_dtype=torch.bfloat16)
+        return model, resize_cross_entropy_loss, cfg, ZOO_LR, 1100
     model = get_model(name, NUM_CLASSES, **kw)
     if name == "enet":
         cfg = AugmentConfig(crop=crop, scale_range=ENET_SCALE,
@@ -4264,6 +4294,47 @@ def nudged_moments(squares: bool = False):
         conv.batch_moments = real
 
 
+def zoo_multiscale(model, sharded: bool) -> dict:
+    """Config 5's multi-scale + flip eval step (scales 0.5 .. 1.75) over
+    one batch of MULTISCALE_BATCH normalised 1024x2048 frames of
+    `make_batch(301)` (`spatial_eval`'s), bf16, on the rank's band where
+    `sharded`, through `evaluate` (the matrix summed over ranks): the
+    matrix, mIoU, host and CUDA-event ms of the one call, its halo
+    exchanges and kernel launches."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        normalize_batch)
+    from torch_semantic_segmentation_tpu_torch.eval import (
+        evaluate, make_multiscale_eval_step)
+    from torch_semantic_segmentation_tpu_torch.parallel import (
+        distributed, shard_batch)
+    dev = next(model.parameters()).device
+    f, lab = make_batch(301)
+    pair = (normalize_batch(torch.from_numpy(f[:MULTISCALE_BATCH]).to(dev),
+                            out_dtype=torch.bfloat16),
+            torch.from_numpy(lab[:MULTISCALE_BATCH]).to(dev))
+    if sharded:
+        pair = shard_batch(pair, spatial=True, max_stride=model.max_stride)
+    step = make_multiscale_eval_step(model, num_classes=NUM_CLASSES,
+                                     device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    h0 = distributed.halo_exchanges
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    _, miou, cm = evaluate(step, [pair], num_classes=NUM_CLASSES, device=dev)
+    end.record()
+    torch.cuda.synchronize()
+    return {"cm": cm.cpu(), "miou": float(miou),
+            "ms": 1e3 * (time.perf_counter() - t0),
+            "event_ms": start.elapsed_time(end),
+            "halos": distributed.halo_exchanges - h0,
+            "launches": {k: v for k, v in launch_counts().items() if v},
+            "valid": int((pair[1] != 255).sum())}
+
+
 def k4_band_check(calls: list) -> list:
     """Each K4 launch of a band's step again, against the unsharded K4 on
     the data row's whole input, put together from every band's rows of
@@ -4305,7 +4376,8 @@ def zoo_spatial_rank() -> None:
     K4 launches against the unsharded K4 (`k4_band_check`), then the eval
     forward of each on the weights the single process's steps reached
     (SP_OUT/zoo_<name>.pt: a step's noise, which the image-level BN's
-    E[x²]−E[x]² over 4 values amplifies, stays out of the eval's check);
+    E[x²]−E[x]² over 4 values amplifies, stays out of the eval's check),
+    and for BiSeNet and ICNet the multi-scale step (`zoo_multiscale`);
     writes its results to SP_OUT/zoo_rank<r>.pt."""
     import os
     import torch
@@ -4322,6 +4394,8 @@ def zoo_spatial_rank() -> None:
         model.load_state_dict(torch.load(
             os.path.join(os.environ["SP_OUT"], f"zoo_{name}.pt")))
         res.update(spatial_eval(model, sharded=True, batch=ZS_BATCH))
+        if name in ZS_MULTISCALE:
+            res["multiscale"] = zoo_multiscale(model, sharded=True)
         res["grads"] = {k: v.cpu() for k, v in res["grads"].items()}
         for k in ("logits", "ids", "cm"):
             res[k] = res[k].cpu()
@@ -4337,17 +4411,22 @@ def zoo_spatial_rank() -> None:
 def zoo_spatial_single(name: str, out: str) -> dict:
     """Phase 16's reference for `name` in this process: its steps and eval
     forward without a group (the weights after the steps saved to
-    out/zoo_<name>.pt for the ranks' eval), the eval ids of those weights
-    at float32 compute (the yardstick of the eval ids), then from the
-    same start step 1 once more as it is, and every step with
-    `nudged_moments`, once with the BNs' batch means nudged and once with
-    their means and mean squares (the yardsticks of the losses and of
-    step 1's gradient: at each, the larger of the two gaps)."""
+    out/zoo_<name>.pt for the ranks' eval; BiSeNet's and ICNet's
+    multi-scale step too), the eval ids of those weights at float32
+    compute (the yardstick of the eval ids), then from the same start
+    step 1 once more as it is, and every step with `nudged_moments`, once
+    with the BNs' batch means nudged and once with their means and mean
+    squares; for ContextNet also step 1 through the plain versions with
+    and without K2's folded bias one float32 step up (phase 15's
+    yardstick). The yardsticks of the losses and of step 1's gradient are
+    at each the largest of those gaps."""
     import torch
     model, single = zoo_spatial_run(name, sharded=False)
     single.pop("calls")
     torch.save(model.state_dict(), f"{out}/zoo_{name}.pt")
     single.update(spatial_eval(model, sharded=False, batch=ZS_BATCH))
+    if name in ZS_MULTISCALE:
+        single["multiscale"] = zoo_multiscale(model, sharded=False)
     # the eval ids' yardstick: the same weights at float32 compute (the
     # model's last use)
     for m in model.modules():
@@ -4358,27 +4437,34 @@ def zoo_spatial_single(name: str, out: str) -> dict:
     del model
     torch.cuda.empty_cache()
     runs = {}
-    for run, ctx, steps in (
-            ("again", contextlib.nullcontext, 1),
-            ("means", nudged_moments, None),
-            ("squares", functools.partial(nudged_moments, squares=True),
-             None)):
+    plans = [("again", contextlib.nullcontext, 1),
+             ("means", nudged_moments, None),
+             ("squares", functools.partial(nudged_moments, squares=True),
+              None)]
+    if name == "contextnet":
+        plans += [("plain", functools.partial(swapped, plain_versions), 1),
+                  ("k2_bias", functools.partial(swapped,
+                                                nudged_plain_versions), 1)]
+    for run, ctx, steps in plans:
         with ctx():
             model, runs[run] = zoo_spatial_run(name, sharded=False,
                                                steps=steps)
         del model
         torch.cuda.empty_cache()
     single["noise"] = rel_tree(runs["again"]["grads"], single["grads"])
-    yards = {k: rel_tree(runs[k]["grads"], single["grads"])
-             for k in ("means", "squares")}
-    nudged = runs[max(yards, key=yards.get)]
+    # each nudge against its own reference: K2's against the plain versions'
+    pairs = {k: (runs[k], single) for k in ("means", "squares")}
+    if "k2_bias" in runs:
+        pairs["k2_bias"] = (runs["k2_bias"], runs["plain"])
+    yards = {k: rel_tree(a["grads"], b["grads"]) for k, (a, b) in pairs.items()}
+    decided = max(yards, key=yards.get)
     single["yards"] = yards
-    single["yard"] = max(yards.values())
-    single["yard_gaps"] = tree_gaps(nudged["grads"], single["grads"])
+    single["yard"] = yards[decided]
+    single["yard_by"] = decided
+    single["yard_gaps"] = tree_gaps(*(r["grads"] for r in pairs[decided]))
     single["nudged_rels"] = {
-        k: [abs(a - b) / abs(b) for a, b in
-            zip(runs[k]["losses"], single["losses"])]
-        for k in ("means", "squares")}
+        k: [abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"])]
+        for k, (a, b) in pairs.items()}
     single["nudged_rel"] = [max(v) for v in zip(
         *single["nudged_rels"].values())]
     single["again_rel"] = abs(runs["again"]["losses"][0]
@@ -4386,13 +4472,61 @@ def zoo_spatial_single(name: str, out: str) -> dict:
     return single
 
 
+def zoo_multiscale_check(name: str, bands: list, single: dict,
+                         ids_bar: float) -> dict:
+    """The bands' multi-scale step (`zoo_multiscale`, one result a rank)
+    against the single process's: each matrix counts every valid pixel
+    once, no kernel launches, ZS_MS_HALOS halo exchanges a band, and
+    half their L1 distance, a lower bound on the pixels whose id moved,
+    is at most (1 − the eval ids' bar) of the valid pixels. Prints both
+    mIoUs, step times and the bands' halo exchanges (gloo's: no speed
+    figure)."""
+    import torch
+    valid = single["valid"]
+    moved = int((bands[0]["cm"] - single["cm"]).abs().sum()) // 2
+    bar = (1.0 - ids_bar) * valid
+    for r, res in enumerate(bands):
+        print(f"phase 16 {name} multi-scale + flip eval bf16 "
+              f"{MULTISCALE_BATCH}x{SERVE_H}x{SERVE_W}, scales 0.5 .. 1.75, "
+              f"rank {r} on a band of {SERVE_H // 2} rows (gloo; no speed "
+              f"figure): mIoU {res['miou']:.6f}; one call {res['ms']:.1f} ms "
+              f"on the host clock ({res['event_ms']:.1f} on CUDA events); "
+              f"halo exchanges {res['halos']}; launches {res['launches']}; "
+              f"matrix total {int(res['cm'].sum())} of {valid}", flush=True)
+    print(f"phase 16 {name} multi-scale + flip eval, single process: mIoU "
+          f"{single['miou']:.6f}; one call {single['ms']:.1f} ms on the host "
+          f"clock ({single['event_ms']:.1f} on CUDA events); matrices "
+          f"{moved} pixels apart (half their L1 distance; bar {bar:.1f}: "
+          f"1 - {ids_bar:.6f} of the {valid} valid pixels)", flush=True)
+    for res in [*bands, single]:
+        if int(res["cm"].sum()) != valid or res["cm"].dtype != torch.int64:
+            fail(f"phase 16 {name}: a multi-scale matrix holds "
+                 f"{int(res['cm'].sum())} pixels, not the {valid} valid ones")
+        if res["launches"]:
+            fail(f"phase 16 {name}: the multi-scale step launched "
+                 f"{res['launches']}")
+    for r, res in enumerate(bands):
+        if res["halos"] != ZS_MS_HALOS[name]:
+            fail(f"phase 16 {name} rank {r}: the multi-scale call made "
+                 f"{res['halos']} halo exchanges, expected "
+                 f"{ZS_MS_HALOS[name]}")
+    if not torch.equal(bands[0]["cm"], bands[1]["cm"]):
+        fail(f"phase 16 {name}: the ranks' multi-scale matrices differ")
+    if not moved <= bar:
+        fail(f"phase 16 {name}: the bands' multi-scale matrix is {moved} "
+             f"pixels from the single process's (bar {bar:.1f})")
+    return {"moved": moved, "bar": bar, "bands": bands, "single": single}
+
+
 def zoo_spatial_phase() -> dict:
     """Phase 16: each model's single-process reference, timed; then the
     two ranks, held against it: the losses at phase 14's bars, step 1's
     gradient within SP_GRAD_NOISE times the nudge yardstick, K3 1 + 1
-    (DeepLab) or 3 + 3 (BiSeNet, ICNet) and K4 4 a step on each rank
-    (ENet, ERFNet and ESNet launch no kernel),
-    ZS_HALOS halo exchanges a step, the eval ids and matrix."""
+    (DeepLab) or 3 + 3 (BiSeNet, ICNet), K4 4 (UNet), K1 1 + 1 (LEDNet,
+    ContextNet), K2 12 + 12 and K6 1 + 1 (ContextNet) a step on each rank
+    (ENet, ERFNet and ESNet launch no kernel), ZS_HALOS halo exchanges a
+    step, the eval ids and matrix, and BiSeNet's and ICNet's multi-scale
+    step (`zoo_multiscale_check`)."""
     import tempfile
     import torch
     t0 = time.perf_counter()
@@ -4459,12 +4593,16 @@ def zoo_spatial_phase() -> dict:
         print(f"phase 16 {name} step 1's gradient against the single "
               f"process's: relative L2 over the tree {gap:.4g} ("
               f"{tree_gaps(got[0]['grads'], single['grads'])}); bar "
-              f"{SP_GRAD_NOISE:g} x {single['yard']:.4g}, the larger of the "
+              f"{SP_GRAD_NOISE:g} x {single['yard']:.4g}, the largest of the "
               f"single process's step 1 with every BN's batch mean, or its "
-              f"mean and mean square, one float32 step up "
-              f"({ {k: float(f'{v:.4g}') for k, v in single['yards'].items()} }"
-              f"; {single['yard_gaps']}); the single process's step 1 "
-              f"twice: {single['noise']:.4g}", flush=True)
+              f"mean and mean square, one float32 step up"
+              + (", or the plain versions' step 1 with K2's folded bias one "
+                 "float32 step up against it unmoved" if "k2_bias" in
+                 single["yards"] else "")
+              + f" ({ {k: float(f'{v:.4g}') for k, v in single['yards'].items()} }"
+              f"; decided by {single['yard_by']}: {single['yard_gaps']}); "
+              f"the single process's step 1 twice: {single['noise']:.4g}",
+              flush=True)
         for r, res in enumerate(got):
             extra = (f"; K4 against the unsharded K4's rows, max |diff| "
                      f"{res['k4_band']}" if name == "unet" else "")
@@ -4497,6 +4635,11 @@ def zoo_spatial_phase() -> dict:
         want_launches = per_step(1, name)
         want_eval = ({"upsample_concat": 2 * K4_PER_FORWARD}
                      if name == "unet" else {})
+        if name in ZS_K6:
+            k6_step, k6_eval = ZS_K6[name]
+            want_launches.update(depthwise_fwd=k6_step,
+                                 depthwise_bwd=k6_step)
+            want_eval = {"depthwise_fwd": 2 * k6_eval} if k6_eval else {}
         for r, res in enumerate(got):
             if any(steps != want_launches for steps in res["launches"]):
                 fail(f"phase 16 {name} rank {r}'s launches "
@@ -4525,6 +4668,10 @@ def zoo_spatial_phase() -> dict:
                  f"matrices of "
                  f"{int(got[0]['cm'].sum())} and {int(single['cm'].sum())} "
                  "pixels")
+        if name in ZS_MULTISCALE:
+            result[name + "_multiscale"] = zoo_multiscale_check(
+                name, [r["multiscale"] for r in got], single["multiscale"],
+                ids_bar)
         result[name] = dict(ranks=got, single=single, rel=rel, grad_gap=gap,
                             ids_share=share, ids_bar=ids_bar)
     print(f"phase 16: ranks {ranks_s:.1f} s, phase "

@@ -2,19 +2,24 @@
 tiny size, without a card.
 
     python scripts/torch_spatial_rehearsal.py [--crop 64|128]
-        [--models deeplab unet enet erfnet esnet bisenet icnet]
+        [--models deeplab unet enet erfnet esnet bisenet icnet lednet
+                  contextnet]
         [--sensitivity]
 
 Runs `chip_smoke.zoo_spatial_phase` itself, in float32 on CPU gloo ranks,
 for every model of its `ZS_STEPS` or those named, with its setup cut
-down: DeepLab-R50, UNet (base 16), and ENet, ERFNet, ESNet, BiSeNet-R18
-and ICNet-R50 at full width, on 4 frames of 128x256 (crop 64; 256x256
-for crop 128) cut to crop x crop, the loss casting DeepLab's, BiSeNet's
-and ICNet's logits to bf16 so that K3's plain version runs on each band,
-`torch.cuda.Event` and the memory calls stubbed, and every kernel wrapper
-counting its calls as launches (the CPU runs the plain versions). It
-prints phase 16's lines and stops at the first bar a reading misses, as
-the phase does on the card. In float32 the nudges move BiSeNet's step-1
+down: DeepLab-R50, UNet (base 16), and ENet, ERFNet, ESNet, BiSeNet-R18,
+ICNet-R50, LEDNet and ContextNet at full width, on 4 frames of 128x256
+(crop 64; 256x256 for crop 128) cut to crop x crop, the loss casting
+DeepLab's, BiSeNet's and ICNet's logits to bf16 so that K3's plain
+version runs on each band, and LEDNet's and ContextNet's so that K1's
+does, `torch.cuda.Event` and the memory calls stubbed, and every kernel
+wrapper counting its calls as launches (the CPU runs the plain
+versions). LEDNet's 1/64 needs crop 128 on two bands. ContextNet's K2
+and K6 take bf16 compute only, so in float32 its step and eval expect
+neither (bf16 on the CPU makes the FFM's dilated depthwise conv's weight
+gradient unstable). It prints phase 16's lines and stops at the first
+bar a reading misses, as the phase does on the card. In float32 the nudges move BiSeNet's step-1
 gradient by 7.3e-5 only, where the bands' bf16 sums of K3's cotangent
 at the halo rows move it 1.08e-3, so BiSeNet misses its gradient bar
 here; on the card, in bf16, the nudges' 0.19 sits beside the bands'
@@ -100,6 +105,9 @@ def patch(crop: int, models=None) -> None:
             if name in dict(c.CONFIG5_MODELS):
                 def loss(outs, y, _config5=loss):
                     return _config5([o.to(torch.bfloat16) for o in outs], y)
+            if name in c.STRETCH_LOW_RES:
+                def loss(logits, y, _resize_ce=loss):
+                    return _resize_ce(logits.to(torch.bfloat16), y)
             cfg = dataclasses.replace(cfg, crop=(crop, crop),
                                       out_dtype=torch.float32)
             frames, labels = small_batch(seed)
@@ -124,6 +132,16 @@ def patch(crop: int, models=None) -> None:
         return (model, torch.from_numpy(frames[:c.ZS_BATCH]),
                 torch.from_numpy(labels[:c.ZS_BATCH]), cfg, loss, lr)
 
+    real_per_step = c.per_step
+
+    def per_step(steps: int, model: str = "fastscnn") -> dict:
+        counts = real_per_step(steps, model)
+        if model == "contextnet":        # float32: no K2 (nor K6 below)
+            counts.update(mbconv_fwd=0, mbconv_bwd=0)
+        return counts
+
+    c.per_step = per_step
+    c.ZS_K6 = {"contextnet": (0, 0)}
     c.make_batch = small_batch
     c.zoo_spatial_setup = setup
     init = distributed.initialize

@@ -132,40 +132,71 @@ def test_shard_batch_guards_without_a_group():
 
 
 def test_other_models_and_multiscale_refuse_spatial(monkeypatch):
-    """Under spatial sharding any zoo model but FastSCNN, DeepLabV3, UNet,
-    ENet, ERFNet, ESNet, BiSeNet and ICNet, remat and the multi-scale
-    eval step raise, naming FastSCNN; FastSCNN and ENet build and make
-    their train step (`tests/test_torch_spatial_zoo.py` holds the gate
+    """Under spatial sharding what stays refused: a module that is not a
+    zoo class (the gate, the train step), remat, an uneven split and a
+    multi-scale scale whose rows do not split into bands of the model's
+    stride; every zoo model builds and makes its train, eval and
+    multi-scale steps (`tests/test_torch_spatial_zoo.py` holds the gate
     over all 13 names)."""
     from torch_semantic_segmentation_tpu_torch.eval import (
         make_multiscale_eval_step)
     from torch_semantic_segmentation_tpu_torch.models import (
-        check_spatial_model, get_model)
+        available_models, check_spatial_model, get_model)
     from torch_semantic_segmentation_tpu_torch.train import (
-        OptimizerConfig, create_train_state, make_train_step)
+        OptimizerConfig, create_train_state, make_eval_step, make_train_step)
     lednet = get_model("lednet", 5, device="cpu")
-    monkeypatch.setattr(distributed, "is_spatial", lambda: True)
-    monkeypatch.setattr(distributed, "num_spatial", lambda: 2)
-    for name in ("lednet", "contextnet"):
-        with pytest.raises(NotImplementedError, match="FastSCNN"):
-            get_model(name, 5, device="cpu")
-    with pytest.raises(NotImplementedError, match="FastSCNN"):
-        check_spatial_model(lednet)
-    with pytest.raises(NotImplementedError, match="FastSCNN"):
-        make_train_step(lednet, create_train_state(lednet,
-                                                   OptimizerConfig()),
-                        device="cpu")
     enet = get_model("enet", 5, device="cpu")
-    make_train_step(enet, create_train_state(enet, OptimizerConfig()),
-                    device="cpu")
+    other = torch.nn.Conv2d(3, 5, 1)
+    monkeypatch.setattr(distributed, "is_spatial", lambda: True)
+    monkeypatch.setattr(distributed, "num_spatial", lambda: 4)
+    for name in available_models():
+        check_spatial_model(name)
+    for m in (get_model("contextnet", 5, device="cpu"), lednet, enet):
+        check_spatial_model(m)
+        make_train_step(m, create_train_state(m, OptimizerConfig()),
+                        device="cpu")
+        make_eval_step(m, num_classes=5, device="cpu")
+        make_multiscale_eval_step(m, num_classes=5, device="cpu")
+    with pytest.raises(NotImplementedError, match="Conv2d is not one of"):
+        check_spatial_model(other)
+    with pytest.raises(NotImplementedError, match="Conv2d is not one of"):
+        make_train_step(other, create_train_state(lednet, OptimizerConfig()),
+                        device="cpu")
     fast = get_model("fastscnn", 5, device="cpu")
     state = create_train_state(fast, OptimizerConfig())
     make_train_step(fast, state, device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
         make_train_step(fast, state, remat=True, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="FastSCNN, .*ESNet, BiSeNet and ICNet"):
-        make_multiscale_eval_step(fast, num_classes=5, device="cpu")
+    with pytest.raises(ValueError, match="uneven spatial split"):
+        check_even_split(96, 4, lednet.max_stride)
+    # LEDNet on bands of 64 rows of a 256-row image: scale 0.5 gives 128
+    # rows, which 4 bands of a multiple of 64 rows cannot hold
+    step = make_multiscale_eval_step(lednet, num_classes=5, device="cpu")
+    with pytest.raises(ValueError, match="scale 0.5: 128 rows do not split "
+                       "into 4 spatial bands of a multiple of the model's "
+                       "max_stride 64"):
+        step(torch.zeros(5, 5, dtype=torch.int64), torch.zeros(1, 64, 32, 3),
+             torch.zeros(1, 64, 32, dtype=torch.int64))
+
+
+def test_shard_batch_refuses_lednet_at_128_rows_on_4_bands(monkeypatch):
+    """LEDNet's APN reaches 1/64: on 4 spatial ranks a 128-row image has 2
+    rows there, fewer than the bands, so `shard_batch` at LEDNet's
+    `max_stride` refuses it as degenerate, where the JAX package's
+    default of 32 (4 rows at 1/32) lets it through; 256 rows pass."""
+    from torch_semantic_segmentation_tpu_torch.models import LEDNet
+    monkeypatch.setattr(distributed, "num_spatial", lambda: 4)
+    monkeypatch.setattr(distributed, "world_size", lambda: 4)
+    monkeypatch.setattr(distributed, "rank", lambda: 1)
+    x, y = torch.zeros(2, 128, 32, 3), torch.zeros(2, 128, 32)
+    with pytest.raises(ValueError, match="degenerate spatial sharding: "
+                       "input H=128 reaches H=2 at stride 64"):
+        shard_batch((x, y), spatial=True, max_stride=LEDNet.max_stride)
+    a, b = shard_batch((x, y), spatial=True, max_stride=32)
+    assert a.shape == (2, 32, 32, 3) and b.shape == (2, 32, 32)
+    x2 = torch.arange(2 * 256, dtype=torch.float32).reshape(2, 256, 1, 1)
+    (a,) = shard_batch((x2,), spatial=True, max_stride=LEDNet.max_stride)
+    assert torch.equal(a, x2[:, 64:128])
 
 
 # --- the convolutions ---

@@ -309,9 +309,19 @@ def test_downsampling_resize_on_bands(n, k, dtype):
     (4, 8, True),        # and upsampling
 ])
 def test_band_resize_refusals(h, oh, align_corners):
-    """Every resize of a band that is not an integer x k or x 1/k with
-    align_corners=False raises, naming the band's sizes."""
+    """A resize of a band with align_corners=True raises, naming the
+    band's sizes; with align_corners=False a ratio that is no integer x k
+    or x 1/k of the band takes the general route (one halo row each side)
+    and gives the unsharded rows bit for bit, the argmax after it too
+    (`tests/test_torch_spatial_multiscale.py` holds it at the multi-scale
+    step's ratios)."""
     x = _rng_tensor(64, 1, 2 * h, 4, 3)
+    if not align_corners:
+        for fn in (upsample.resize_bilinear, upsample.resize_argmax):
+            want = fn(x, (2 * oh, 4))
+            got = Bands(2).run(lambda xb, fn=fn: fn(xb, (oh, 4)), x)
+            assert torch.equal(torch.cat(got, dim=1), want)
+        return
     with Bands(2).rank(0):
         with pytest.raises(NotImplementedError,
                            match=f"from {h} to {oh} rows"):

@@ -284,35 +284,51 @@ def test_transposed_conv_on_bands():
             other(x[:, :4])
 
 
-SPATIAL_NAMES = ("fastscnn", "unet", "deeplabv3_resnet18",
-                 "deeplabv3_resnet34", "deeplabv3_resnet50",
-                 "deeplabv3_resnet101", "enet", "erfnet", "esnet",
-                 "bisenet", "icnet")
+# each zoo name's deepest stride under the gate, at the keywords that
+# build it small on the CPU
+BUILD_KW = {"unet": {"base_ch": 4}, "bisenet": {"depth": 18},
+            "icnet": {"depth": 18}}
+MAX_STRIDE = {"fastscnn": 32, "unet": 16, "enet": 8, "erfnet": 8,
+              "esnet": 8, "bisenet": 32, "icnet": 32, "lednet": 64,
+              "contextnet": 32, **{f"deeplabv3_resnet{d}": 16
+                                   for d in (18, 34, 50, 101)}}
+
+
+class _NotZoo(torch.nn.Module):
+    def forward(self, x):
+        return x
 
 
 @pytest.mark.parametrize("name", available_models())
 def test_the_gate(monkeypatch, name):
-    """Under spatial sharding FastSCNN, DeepLabV3 (every depth), UNet,
-    ENet, ERFNet, ESNet, BiSeNet and ICNet are admitted by name and by
-    module; any other zoo name (LEDNet, ContextNet) raises, naming the
-    eight and the models still refused."""
+    """Under spatial sharding every one of the 13 zoo names is admitted by
+    name and builds, with its `max_stride`; a name outside the zoo stays
+    a KeyError, and a module of another class is refused
+    (`test_the_gate_by_module`)."""
     monkeypatch.setattr(distributed, "is_spatial", lambda: True)
     monkeypatch.setattr(distributed, "num_spatial", lambda: 2)
-    if name in SPATIAL_NAMES:
-        check_spatial_model(name)
-        return
-    refused = [n for n in available_models() if n not in SPATIAL_NAMES]
-    assert refused == ["contextnet", "lednet"]
-    with pytest.raises(NotImplementedError,
-                       match=f"FastSCNN, DeepLabV3, UNet, ENet, ERFNet, "
-                             f"ESNet, BiSeNet and ICNet; {name}.*still "
-                             "refused: " + ", ".join(refused)):
-        check_spatial_model(name)
-    with pytest.raises(NotImplementedError):
-        get_model(name, 5, device="cpu")
+    assert sorted(MAX_STRIDE) == available_models()
+    check_spatial_model(name)
+    m = get_model(name, 5, device="cpu", **BUILD_KW.get(name, {}))
+    check_spatial_model(m)
+    assert m.max_stride == MAX_STRIDE[name]
+    with pytest.raises(NotImplementedError, match="not one of them"):
+        check_spatial_model(f"{name}_x")
+    with pytest.raises(KeyError):
+        get_model(f"{name}_x", 5, device="cpu")
 
 
 def test_the_gate_by_module(monkeypatch):
+    """Every zoo class is admitted as a module, LEDNet with `max_stride`
+    64 (the APN's 1/64) and ContextNet with 32; a module of another class
+    raises, naming itself and the zoo, from the gate and from each entry
+    point that takes a model (the train, eval and multi-scale steps)."""
+    from torch_semantic_segmentation_tpu_torch.eval import (
+        make_multiscale_eval_step)
+    from torch_semantic_segmentation_tpu_torch.models import (
+        ContextNet, LEDNet)
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_eval_step, make_train_step)
     unet = get_model("unet", 5, base_ch=4, device="cpu")
     admitted = [get_model(n, 5, device="cpu")
                 for n in ("enet", "erfnet", "esnet")]
@@ -320,6 +336,7 @@ def test_the_gate_by_module(monkeypatch):
                 for n in ("bisenet", "icnet")]
     lednet = get_model("lednet", 5, device="cpu")
     contextnet = get_model("contextnet", 5, device="cpu")
+    other = _NotZoo()
     monkeypatch.setattr(distributed, "is_spatial", lambda: True)
     monkeypatch.setattr(distributed, "num_spatial", lambda: 2)
     check_spatial_model(unet)
@@ -329,10 +346,19 @@ def test_the_gate_by_module(monkeypatch):
     for m in cascades:
         check_spatial_model(m)
         assert m.max_stride == 32
-    with pytest.raises(NotImplementedError, match="LEDNet"):
-        check_spatial_model(lednet)
-    with pytest.raises(NotImplementedError, match="ContextNet"):
-        check_spatial_model(contextnet)
+    check_spatial_model(lednet)
+    check_spatial_model(contextnet)
+    assert lednet.max_stride == LEDNet.max_stride == 64
+    assert contextnet.max_stride == ContextNet.max_stride == 32
+    for make in (lambda m: make_train_step(m, create_train_state(
+                     lednet, OptimizerConfig()), device="cpu"),
+                 lambda m: make_eval_step(m, num_classes=5, device="cpu"),
+                 lambda m: make_multiscale_eval_step(m, num_classes=5,
+                                                     device="cpu"),
+                 check_spatial_model):
+        with pytest.raises(NotImplementedError,
+                           match="_NotZoo is not one of them"):
+            make(other)
     assert unet.max_stride == 16
     assert get_model("deeplabv3_resnet18", 5, device="cpu",
                      output_stride=8).max_stride == 8

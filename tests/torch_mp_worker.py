@@ -5,8 +5,8 @@ It imports only the port, torch and numpy.
     python tests/torch_mp_worker.py SUITE RANK WORLD STORE OUTDIR
 
 joins a gloo group of WORLD ranks through `file://STORE` (SUITE
-"spatial:S", "zoo:S", "dec:S" or "cas:S" with `num_spatial=S`: each rank
-on a band of H rows), runs every case of SUITE on its rows of each
+"spatial:S", "zoo:S", "dec:S", "cas:S", "str:S" or "ms:S" with
+`num_spatial=S`: each rank on a band of H rows), runs every case of SUITE on its rows of each
 case's global batch and saves {case: result} to OUTDIR/rank<RANK>.pt.
 The parent test runs the same case functions in its own process without
 a group, where they see the whole batch, and compares.
@@ -515,12 +515,13 @@ ON_BAND_CASES = [(3, 1, 0.5), (3, 1, 1.25), (3, 1, 2.25), (3, 2, 1),
                  (7, 2, 1)]
 
 
-def zoo_batch(seed: int = 7, n: int = ZOO_N):
-    """A global batch of n images at the JAX spatial test's H and W, with
-    ignored labels across the middle band boundary and at the top."""
+def zoo_batch(seed: int = 7, n: int = ZOO_N, h: int = ZOO_H):
+    """A global batch of n images of h rows (the JAX spatial test's H by
+    default) and its W, with ignored labels across the middle band
+    boundary and at the top."""
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(n, ZOO_H, ZOO_W, 3)).astype(np.float32)
-    y = rng.integers(0, C, (n, ZOO_H, ZOO_W)).astype(np.int32)
+    x = rng.normal(size=(n, h, ZOO_W, 3)).astype(np.float32)
+    y = rng.integers(0, C, (n, h, ZOO_W)).astype(np.int32)
     y[:, :6, :9] = 255
     y[:, 60:70, 20:30] = 255
     return x, y
@@ -644,6 +645,11 @@ def zoo_loss(route: str):
     both heads), and on full-resolution logits by bisection; UNet's two
     decoders with CE."""
     import functools
+    if route.split("_")[0] in STR_MODELS:
+        dtype = torch.bfloat16 if route.endswith("k1") else None
+        return (route.split("_")[0], {"upsample_logits": False},
+                lambda lg, y: losses.resize_cross_entropy_loss(
+                    lg if dtype is None else lg.to(dtype), y))
     if route.split("_")[0] in CAS_MODELS:
         dtype = torch.bfloat16 if route.endswith("k3") else None
         head = losses.SegLoss(
@@ -681,31 +687,62 @@ ZOO_ROUTES = ("deeplab_exact", "deeplab_aux", "deeplab_aux_k3",
               "deeplab_bisect", "unet_deconv", "unet_bilinear")
 
 
+def nudged_moments():
+    """Within the block every train-mode BN's batch mean is one float32
+    step up (its gradient unchanged): a sum of the bands' parts in another
+    order moves it so, and with it every value near a ReLU's zero or a
+    rounding boundary (`chip_smoke.nudged_moments`' yardstick, in this
+    process)."""
+    import contextlib
+
+    from torch_semantic_segmentation_tpu_torch.ops import conv
+    real = conv.batch_moments
+
+    def nudged(x, dims):
+        mean, sq = real(x, dims)
+        m = mean.detach()
+        return mean + (torch.nextafter(m, torch.full_like(m, np.inf))
+                       - m), sq
+
+    @contextlib.contextmanager
+    def block():
+        conv.batch_moments = nudged
+        try:
+            yield
+        finally:
+            conv.batch_moments = real
+    return block()
+
+
 def case_zoo_grads(route: str, dtype=torch.float32) -> dict:
     """One train-mode forward and backward of a route (the model from seed
     0, dropout on: the bands draw the single process's masks), its
     parameters and input cast to `dtype`: the global loss, the parameter
-    gradients summed over ranks, the BN statistics after it, the K3 and
-    halo exchanges it made."""
+    gradients summed over ranks, the BN statistics after it, the K1, K3
+    and halo exchanges it made."""
     from torch_semantic_segmentation_tpu_torch.ops import resize_ce
     name, kw, loss_fn = zoo_loss(route)
     m = zoo_model(name, **kw).to(dtype).train()
-    x, y = _bands(*zoo_batch(7, ZOO_STEP_N), max_stride=m.max_stride)
+    x, y = _bands(*zoo_batch(7, ZOO_STEP_N, STR_H.get(name, ZOO_H)),
+                  max_stride=m.max_stride)
     x = x.to(dtype)
-    k3 = []
-    real = resize_ce.resize_ce_map_reference
-    resize_ce.resize_ce_map_reference = (
-        lambda *a: k3.append(a[0].shape) or real(*a))
+    calls = {"k1": [], "k3": []}
+    real = {k: getattr(resize_ce, f) for k, f in PLAIN_CE.items()}
+    for k, f in PLAIN_CE.items():
+        setattr(resize_ce, f, lambda *a, k=k: calls[k].append(a[0].shape)
+                or real[k](*a))
     h0 = distributed.halo_exchanges
     try:
         share = loss_fn(m(x), y)
         share.backward()
     finally:
-        resize_ce.resize_ce_map_reference = real
+        for k, f in PLAIN_CE.items():
+            setattr(resize_ce, f, real[k])
     distributed.all_reduce_gradients(m.parameters())
     return {"loss": distributed.reduce_sum(share.detach()),
             "grads": {k: p.grad.clone() for k, p in m.named_parameters()},
-            "k3": torch.tensor(len(k3)),
+            "k1": torch.tensor(len(calls["k1"])),
+            "k3": torch.tensor(len(calls["k3"])),
             "halo_exchanges": torch.tensor(distributed.halo_exchanges - h0),
             "stats": {k: v.clone() for k, v in m.state_dict().items()
                       if k.endswith(("running_mean", "running_var"))}}
@@ -723,7 +760,7 @@ def case_zoo_steps(route: str, seeds=(7, 10)) -> dict:
     step = make_train_step(model, state, loss_fn, device="cpu")
     out = {"losses": []}
     for i, seed in enumerate(seeds):
-        batch = _bands(*zoo_batch(seed, ZOO_STEP_N),
+        batch = _bands(*zoo_batch(seed, ZOO_STEP_N, STR_H.get(name, ZOO_H)),
                        max_stride=model.max_stride)
         out["losses"].append(step(*batch)["loss"])
         out[f"state{i + 1}"] = {k: v.clone() for k, v in
@@ -763,6 +800,8 @@ def case_aspp() -> dict:
 
 
 ZOO_STEP_ROUTES = ("deeplab_exact", "unet_bilinear")
+# the plain versions of K1's and K3's forwards, counted as their calls
+PLAIN_CE = {"k1": "resize_ce_reference", "k3": "resize_ce_map_reference"}
 
 
 def suite_zoo_step() -> dict:
@@ -878,6 +917,138 @@ def suite_cas(outdir: str) -> dict:
     return res
 
 
+# --- suite "str:S": LEDNet and ContextNet on H bands (num_spatial=S) ---
+
+STR_MODELS = ("lednet", "contextnet")
+# the rows of each model's images: LEDNet's APN reaches 1/64, where 256
+# rows leave one row a band on 4 bands (128 would leave none, and
+# `shard_batch` refuses it); ContextNet's 1/32 has one row a band at 128
+STR_H = {"lednet": 256, "contextnet": 128}
+# the eval forward's keywords: ContextNet with its two aux heads
+STR_EVAL_KW = {"lednet": {}, "contextnet": {"aux": True}}
+# the zoo benches' fused route (1/8 logits to the resize CE) in float32,
+# and on bf16 logits through K1's plain version
+STR_ROUTES = ("lednet", "lednet_k1", "contextnet", "contextnet_k1")
+
+
+def case_str_eval(outdir: str) -> dict:
+    """The eval forward's logits of the rank's band for each of STR_MODELS
+    on the JAX package's weights (`<name>.pt`, full-resolution logits,
+    ContextNet's aux heads too) and the JAX spatial test's input at the
+    model's rows, and `evaluate`'s matrix of each over two batches on the
+    fused route (1/8 logits through the ×8 resize + argmax)."""
+    from torch_semantic_segmentation_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from torch_semantic_segmentation_tpu_torch.eval import evaluate
+    from torch_semantic_segmentation_tpu_torch.train import make_eval_step
+    out = {}
+    for name in STR_MODELS:
+        init = os.path.join(outdir, f"{name}.pt")
+        m = zoo_model(name, init, **STR_EVAL_KW[name]).eval()
+        x = synthetic_batch(ZOO_N, STR_H[name], ZOO_W, C, seed=7)[0]
+        (xb,) = _bands(x, max_stride=m.max_stride)
+        with torch.no_grad():
+            y = m(xb)
+        out[name] = list(y) if isinstance(y, tuple) else [y]
+        m = zoo_model(name, init, upsample_logits=False,
+                      **STR_EVAL_KW[name])
+        batches = [_bands(*zoo_batch(seed, ZOO_N, STR_H[name]),
+                          max_stride=m.max_stride) for seed in (8, 9)]
+        step = make_eval_step(m, num_classes=C, device="cpu")
+        out[f"cm_{name}"] = evaluate(step, batches, num_classes=C,
+                                     device="cpu")[2]
+    return out
+
+
+def suite_str(outdir: str) -> dict:
+    """The cases of "str:S"; without a group (the single process) also
+    the float32 routes with `nudged_moments`, the yardstick of their
+    bars."""
+    res = {"eval": case_str_eval(outdir)}
+    for r in STR_ROUTES:
+        res[f"grads_{r}"] = case_zoo_grads(r)
+        if not distributed.is_initialized():
+            with nudged_moments():
+                res[f"nudged_{r}"] = case_zoo_grads(r)
+    for r in STR_MODELS:
+        res[f"grads64_{r}"] = case_zoo_grads(r, torch.float64)
+        res[f"steps_{r}"] = case_zoo_steps(r, seeds=(7,))
+    return res
+
+
+# --- suite "ms:S": the multi-scale (+ flip) eval step on H bands ---
+
+# (key, zoo name, keywords, H): ENet (max_stride 8) on both layouts,
+# BiSeNet-R18 (max_stride 32, config 5's 1/8 main head) at 256 rows,
+# whose scales split on 2 bands only
+# (`tests/test_torch_spatial_multiscale.py`)
+MS_MODELS = (("enet", "enet", {}, 128),
+             ("bisenet", "bisenet", {"depth": 18, "upsample_logits": False},
+              256))
+
+
+def ms_models(spatial: int) -> list:
+    return [m for m in MS_MODELS if spatial < 4 or m[0] == "enet"]
+
+
+def ms_batch(h: int):
+    """A global batch of 2 images of h rows: 8x8 blocks of random colour
+    plus noise (so that a model's ids vary in patches, not pixel by
+    pixel), random labels with ignored rows across the middle band
+    boundary and at the top."""
+    rng = np.random.default_rng(11)
+    base = rng.normal(size=(ZOO_N, h // 8, ZOO_W // 8, 3))
+    x = np.repeat(np.repeat(base, 8, 1), 8, 2)
+    x = (x + 0.3 * rng.normal(size=x.shape)).astype(np.float32)
+    y = rng.integers(0, C, (ZOO_N, h, ZOO_W)).astype(np.int32)
+    y[:, :6] = 255
+    y[:, h // 2 - 3:h // 2 + 3, :20] = 255
+    return x, y
+
+
+def case_ms(outdir: str, key: str, name: str, kw: dict, h: int,
+            dtype) -> dict:
+    """The multi-scale + flip step (scales 0.5 .. 1.75) of `name` on the
+    JAX package's weights (`<key>.pt`) and the rank's band of `ms_batch`,
+    the model and images in `dtype`: the summed
+    probabilities (N, H, C, W) and the ids the step counted, and
+    `evaluate`'s matrix over the batch."""
+    from torch_semantic_segmentation_tpu_torch import eval as teval
+    from torch_semantic_segmentation_tpu_torch import metrics
+    from torch_semantic_segmentation_tpu_torch.eval import (
+        evaluate, make_multiscale_eval_step)
+    m = zoo_model(name, os.path.join(outdir, f"{key}.pt"), **kw).to(dtype)
+    x, y = _bands(*ms_batch(h), max_stride=m.max_stride)
+    step = make_multiscale_eval_step(m, num_classes=C, device="cpu")
+    seen = {}
+    real_probs, real_update = teval._summed_probs, metrics.update_confusion_matrix
+
+    def probs(*a):
+        seen["probs"] = real_probs(*a)
+        return seen["probs"]
+
+    def update(cm, preds, labels, **k):
+        seen["ids"] = preds
+        return real_update(cm, preds, labels, **k)
+
+    teval._summed_probs, metrics.update_confusion_matrix = probs, update
+    try:
+        cm = evaluate(step, [(x.to(dtype), y)], num_classes=C,
+                      device="cpu")[2]
+    finally:
+        teval._summed_probs, metrics.update_confusion_matrix = (
+            real_probs, real_update)
+    return {"probs": seen["probs"], "ids": seen["ids"], "cm": cm}
+
+
+def suite_ms(outdir: str) -> dict:
+    res = {}
+    for key, name, kw, h in ms_models(distributed.num_spatial()):
+        res[key] = case_ms(outdir, key, name, kw, h, torch.float32)
+        res[f"{key}64"] = case_ms(outdir, key, name, kw, h, torch.float64)
+    return res
+
+
 # --- suite "cli": the train CLI with --multihost ---
 
 def cli_flags(store: str | None = None) -> list[str]:
@@ -962,8 +1133,8 @@ def main() -> int:
     suite, rank, world, store, outdir = sys.argv[1:6]
     torch.set_num_threads(1)
     os.environ.update(WORLD_SIZE=world, RANK=rank, LOCAL_RANK=rank)
-    # "spatial:S", "zoo:S", "dec:S" and "cas:S" split each data row's
-    # images over S
+    # "spatial:S", "zoo:S", "dec:S", "cas:S", "str:S" and "ms:S" split each
+    # data row's images over S
     # ranks ("spatial:S:grads" runs the gradient cases only, "zoo:S:step"
     # the zoo's train steps)
     num_spatial = int(suite.split(":")[1]) if ":" in suite else 1
@@ -982,6 +1153,10 @@ def main() -> int:
         res = suite_dec(outdir)
     elif suite.startswith("cas"):
         res = suite_cas(outdir)
+    elif suite.startswith("str"):
+        res = suite_str(outdir)
+    elif suite.startswith("ms"):
+        res = suite_ms(outdir)
     else:
         res = suite_cli(store, outdir)
     torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))

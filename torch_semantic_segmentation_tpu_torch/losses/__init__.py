@@ -53,7 +53,7 @@ from torch_semantic_segmentation_tpu_torch.ops.resize_ce import (
     _label_weights, per_pixel_resize_ce, resize_cross_entropy)
 from torch_semantic_segmentation_tpu_torch.parallel import distributed
 from torch_semantic_segmentation_tpu_torch.ops.upsample import (
-    resize_bilinear, resize_bilinear_nhcw)
+    _resize_nhcw, resize_bilinear)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,8 +185,8 @@ def resize_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
             logits, labels, class_weights, align_corners=align_corners),
             labels, class_weights, c)
 
-    x = resize_bilinear_nhcw(logits, (oh, ow), align_corners=align_corners,
-                             out_dtype=logits.dtype)       # (N, OH, C, OW)
+    x = _resize_nhcw(logits, (oh, ow), None, align_corners,
+                     logits.dtype)                         # (N, OH, C, OW)
     xf = x.float()
     valid = labels != ignore_index
     logz = torch.logsumexp(xf, dim=2)
@@ -296,9 +296,8 @@ def resize_ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
             and _class_weights_constant(class_weights)):
         loss = per_pixel_resize_ce(logits, labels, align_corners=align_corners)
     else:
-        x = resize_bilinear_nhcw(logits, (labels.shape[1], ow),
-                                 align_corners=align_corners,
-                                 out_dtype=logits.dtype)   # (N, OH, C, OW)
+        x = _resize_nhcw(logits, (labels.shape[1], ow), None,
+                         align_corners, logits.dtype)      # (N, OH, C, OW)
         xf = x.float()
         logz = torch.logsumexp(xf, dim=2)
         true_logit = _one_hot_pick(xf, labels, valid, 2)

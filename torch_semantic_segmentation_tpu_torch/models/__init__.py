@@ -77,37 +77,27 @@ def available_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
-# the models whose ops take H bands (spatial sharding), as classes and as
-# zoo names
+# the models whose ops take H bands (spatial sharding): every zoo class
 SPATIAL_MODELS = (FastSCNN, DeepLabV3, UNet, ENet, ERFNet, ESNet, BiSeNet,
-                  ICNet)
-
-
-def _spatial_name(name: str) -> bool:
-    return (name in ("fastscnn", "unet", "enet", "erfnet", "esnet",
-                     "bisenet", "icnet")
-            or name.startswith("deeplabv3_"))
+                  ICNet, LEDNet, ContextNet)
 
 
 def check_spatial_model(model) -> None:
     """Raise NotImplementedError under spatial sharding
-    (`distributed.initialize(num_spatial > 1)`) for any model but
-    FastSCNN, DeepLabV3 (every depth), UNet, ENet, ERFNet, ESNet, BiSeNet
-    and ICNet, the models whose ops take H bands so far (`model` is a module or a zoo
-    name). The message names the zoo models still refused."""
+    (`distributed.initialize(num_spatial > 1)`) for a module that is not
+    one of the zoo's classes, or a name that is not a zoo name (`model` is
+    a module or a zoo name): every zoo model's ops take H bands, and a
+    module of another class has not been checked to."""
     if not distributed.is_spatial():
         return
-    if (_spatial_name(model) if isinstance(model, str)
+    if (model in _REGISTRY if isinstance(model, str)
             else isinstance(model, SPATIAL_MODELS)):
         return
     name = model if isinstance(model, str) else type(model).__name__
-    refused = [n for n in sorted(_REGISTRY) if not _spatial_name(n)]
     raise NotImplementedError(
-        f"spatial sharding (num_spatial={distributed.num_spatial()}) is "
-        f"ported for FastSCNN, DeepLabV3, UNet, ENet, ERFNet, ESNet, "
-        f"BiSeNet and ICNet; "
-        f"{name} does not take H bands yet (still refused: "
-        f"{', '.join(refused)})")
+        f"spatial sharding (num_spatial={distributed.num_spatial()}) takes "
+        f"the zoo's models ({', '.join(sorted(_REGISTRY))}); {name} is not "
+        "one of them, and its ops have not been checked on H bands")
 
 
 __all__ = ["BiSeNet", "ContextNet", "DeepLabV3", "ENet", "ERFNet", "ESNet",

@@ -77,13 +77,24 @@ class ContextBranch(nn.Module):
 
 
 class ContextNet(nn.Module):
-    """ContextNet. Input NHWC float with H, W % 32 == 0.
+    """ContextNet. Input NHWC float with H, W % 32 == 0 (an H band's rows
+    too, under spatial sharding).
 
     Returns logits (N, H, W, num_classes), or at 1/8 resolution with
     `upsample_logits=False`; with `aux=True`, (main, aux_detail,
     aux_context). `generator` draws the initial weights;
     `dropout_generator`, on the device the model runs on, draws every
-    train-mode dropout mask."""
+    train-mode dropout mask. `max_stride` is its deepest map's stride (the
+    context branch on the x1/4 input reaches 1/32), for the spatial guards
+    (`parallel.shard_batch(spatial=True, max_stride=...)`).
+
+    On an H band `h // 4` is the band's share of the global x1/4 size: the
+    guards make every band a multiple of 32 rows starting on a multiple
+    of 32, so 4 divides the band's rows and the x1/4 input resize takes no
+    halo (`ops.upsample`'s integer downsampling), and the x4 upsample of
+    the context in the fusion takes one halo row each side."""
+
+    max_stride = 32
 
     def __init__(self, num_classes: int = 19, *, aux: bool = False,
                  align_corners: bool = False, upsample_logits: bool = True,

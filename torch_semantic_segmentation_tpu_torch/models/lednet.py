@@ -133,7 +133,15 @@ class LEDNet(nn.Module):
     Returns logits (N, H, W, num_classes), or at 1/8 resolution with
     `upsample_logits=False`. `generator` draws the initial weights;
     `dropout_generator`, on the device the model runs on, draws every
-    train-mode dropout mask."""
+    train-mode dropout mask. `max_stride` is its deepest map's stride, for
+    the spatial guards (`parallel.shard_batch(spatial=True,
+    max_stride=...)`): the APN's three stride-2 convs take the encoder's
+    1/8 map to 1/64. On an H band the forward checks the band's rows,
+    and `h % 16` is right there: the guards make every band a multiple of
+    64 rows starting on a multiple of 64, so every stage of the band lies
+    on the global grid."""
+
+    max_stride = 64
 
     def __init__(self, num_classes: int = 19, in_ch: int = 3, *,
                  align_corners: bool = False, upsample_logits: bool = True,

@@ -204,10 +204,9 @@ def make_train_step(model: nn.Module, state: TrainState,
     the optimizer and the schedule stay as they were (`debug.checked_step`).
 
     Under spatial sharding the batch is the rank's band of its rows
-    (`parallel.shard_batch(spatial=True)`); FastSCNN, DeepLabV3, UNet,
-    ENet, ERFNet, ESNet, BiSeNet and ICNet take it
-    (`models.check_spatial_model`), without remat (`NotImplementedError`
-    otherwise).
+    (`parallel.shard_batch(spatial=True, max_stride=model.max_stride)`);
+    every zoo model takes it (`models.check_spatial_model`), without remat
+    (`NotImplementedError` otherwise).
     """
     dev = resolve_device(device)
     check_spatial_model(model)
@@ -256,9 +255,8 @@ def make_eval_step(model: nn.Module, *, num_classes: int,
     resize + argmax, full-resolution ones through an argmax; the ids update
     the int64 confusion matrix (`metrics.update_confusion_matrix`). Only the
     (C, C) matrix need leave the device. Under spatial sharding the batch
-    is the rank's band (FastSCNN, DeepLabV3, UNet, ENet, ERFNet, ESNet,
-    BiSeNet and ICNet): each rank counts its band's pixels, and
-    `eval.evaluate` sums the matrices."""
+    is the rank's band (any zoo model): each rank counts its band's
+    pixels, and `eval.evaluate` sums the matrices."""
     dev = resolve_device(device)
     check_spatial_model(model)
     align_corners = bool(getattr(model, "align_corners", False))
