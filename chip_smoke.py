@@ -3801,17 +3801,27 @@ SP_IDS_SHARE = 0.999
 SP_KERNELS = ("resize_ce_fwd", "resize_ce_bwd", "mbconv_fwd", "mbconv_bwd",
               "depthwise_fwd", "depthwise_bwd")
 SP_RANK_SCRIPT = "import chip_smoke\nchip_smoke.spatial_rank()\n"
+# phase 15's remat step on the two bands, and its step on a crop of 992
+# rows: 31 blocks of 32 rows, bands of 512 and 480 (`distributed.split_rows`)
+SP_CROP = (992, SERVE_W)
+SP_CROP_SPLIT = (512, 480)
+# the remat step's halo exchanges on each rank: the step's 33, and the 16
+# forward exchanges of the checkpointed segments again in the backward
+# (all but the loss's), as counted (`scripts/spatial_halo_plan.py
+# --remat`)
+SP_REMAT_HALOS = 49
 
 
 def spatial_steps(model, frames, labels, cfg, sharded: bool,
                   steps: int = SP_STEPS, loss_fn=None, lr: float = 0.045,
-                  kernels=SP_KERNELS) -> dict:
+                  kernels=SP_KERNELS, remat: bool = False) -> dict:
     """Phase 6's first `steps` steps from the model as it is (a fresh SGD
     state, the augmentation generator from seed 0), each on the rank's
-    band of the augmented batch where `sharded`: the losses, each step's
-    launches of `kernels` and CUDA-event span, step 1's gradient (after
-    the reduction over ranks), and the last step's kernel launches
-    recorded. Phase 16 passes its model's loss, lr and kernels."""
+    band of the augmented batch where `sharded` (the split recorded in
+    "split"), with `remat` or without: the losses, each step's launches of
+    `kernels` and CUDA-event span, step 1's gradient (after the reduction
+    over ranks), and the last step's kernel launches recorded. Phase 16
+    passes its model's loss, lr and kernels."""
     import torch
     from torch_semantic_segmentation_tpu_torch.data.transforms import (
         augment_batch)
@@ -3825,7 +3835,7 @@ def spatial_steps(model, frames, labels, cfg, sharded: bool,
     state = create_train_state(model, OptimizerConfig(lr=lr, max_steps=1000))
     inner = make_train_step(model, state,
                             loss_fn or resize_cross_entropy_loss,
-                            device=frames.device)
+                            device=frames.device, remat=remat)
     grads: dict = {}
 
     def keep(metrics, m):
@@ -3835,7 +3845,7 @@ def spatial_steps(model, frames, labels, cfg, sharded: bool,
                           if p.grad is not None})
 
     out = {"losses": [], "launches": [], "device_ms": [], "halos": [],
-           "halo_bytes": [], "calls": []}
+           "halo_bytes": [], "calls": [], "split": None}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
@@ -3843,6 +3853,7 @@ def spatial_steps(model, frames, labels, cfg, sharded: bool,
         if sharded:
             batch = shard_batch(batch, spatial=True,
                                 max_stride=model.max_stride)
+            out["split"] = distributed.band_split(batch[0].shape[1])
         reset_launch_counts()
         h0, b0 = distributed.halo_exchanges, distributed.halo_bytes
         start = torch.cuda.Event(enable_timing=True)
@@ -3865,9 +3876,10 @@ def spatial_steps(model, frames, labels, cfg, sharded: bool,
 
 
 def spatial_eval(model, sharded: bool, batch: int = SERVE_BATCH,
-                 dtype=None) -> dict:
+                 dtype=None, size: tuple | None = None) -> dict:
     """The eval forward of one batch of `batch` normalised 1024x2048 frames
-    (the rank's band where `sharded`), bf16 (or `dtype`): its (main
+    (their top-left `size` where given; the rank's band where `sharded`),
+    bf16 (or `dtype`): its (main
     head's) logits and ids (FastSCNN's and BiSeNet's 1/8 logits by the
     ×8 resize + argmax, ICNet's 1/4 by ×4, DeepLab's 1/16 by ×16,
     full-resolution logits by the argmax), `evaluate`'s matrix
@@ -3879,15 +3891,19 @@ def spatial_eval(model, sharded: bool, batch: int = SERVE_BATCH,
     from torch_semantic_segmentation_tpu_torch.eval import evaluate
     from torch_semantic_segmentation_tpu_torch.ops.upsample import (
         resize_argmax)
-    from torch_semantic_segmentation_tpu_torch.parallel import shard_batch
+    from torch_semantic_segmentation_tpu_torch.parallel import (
+        distributed, shard_batch)
     from torch_semantic_segmentation_tpu_torch.train import make_eval_step
     dev = next(model.parameters()).device
     f, lab = make_batch(301)
-    pair = (normalize_batch(torch.from_numpy(f[:batch]).to(dev),
+    h, w = size or f.shape[1:3]
+    pair = (normalize_batch(torch.from_numpy(f[:batch, :h, :w]).to(dev),
                             out_dtype=dtype or torch.bfloat16),
-            torch.from_numpy(lab[:batch]).to(dev))
+            torch.from_numpy(lab[:batch, :h, :w]).to(dev))
+    split = None
     if sharded:
         pair = shard_batch(pair, spatial=True, max_stride=model.max_stride)
+        split = distributed.band_split(pair[0].shape[1])
     images, labels = pair
     model.eval()
     reset_launch_counts()
@@ -3900,7 +3916,50 @@ def spatial_eval(model, sharded: bool, batch: int = SERVE_BATCH,
     cm = evaluate(make_eval_step(model, num_classes=NUM_CLASSES, device=dev),
                   [(images, labels)], num_classes=NUM_CLASSES, device=dev)[2]
     return {"logits": logits.float(), "ids": ids, "cm": cm,
+            "eval_split": split,
             "eval_launches": {k: v for k, v in launch_counts().items() if v}}
+
+
+def spatial_more(model, frames, labels, cfg, start: dict,
+                 sharded: bool) -> dict:
+    """Phase 15's remat step ("remat") and its step on the SP_CROP crop
+    ("crop"), each one step from `start` (phase 6's model from seed 0)
+    with the dropout generator at seed 0, on the rank's band where
+    `sharded`: `spatial_steps`' record of each, and on a band each
+    kernel launch held against its plain version on its own inputs
+    (`check_recorded`). In one process also the crop's yardsticks: its
+    step again, with every BN's batch mean, and with its mean and mean
+    square, one float32 step up ("crop_again", "crop_moments",
+    "crop_squares", the loss's, as phase 15's and 16's), and through the
+    plain versions with and without K2's folded bias one float32 step up
+    ("crop_plain", "crop_nudged", the gradient's)."""
+    import dataclasses
+    out = {}
+    crop = dataclasses.replace(cfg, crop=SP_CROP)
+    plans = [("remat", cfg, True, contextlib.nullcontext),
+             ("crop", crop, False, contextlib.nullcontext)]
+    if not sharded:
+        plans += [("crop_again", crop, False, contextlib.nullcontext),
+                  ("crop_moments", crop, False, nudged_moments),
+                  ("crop_squares", crop, False,
+                   functools.partial(nudged_moments, squares=True)),
+                  ("crop_plain", crop, False,
+                   functools.partial(swapped, plain_versions)),
+                  ("crop_nudged", crop, False,
+                   functools.partial(swapped, nudged_plain_versions))]
+    for key, c, remat, ctx in plans:
+        model.load_state_dict(start)
+        model.dropout_generator.manual_seed(0)
+        with ctx():
+            res = spatial_steps(model, frames, labels, c, sharded, steps=1,
+                                remat=remat)
+        calls = res.pop("calls")
+        if sharded:
+            res["recorded"] = check_recorded(calls)
+        del calls
+        res["grads"] = {k: v.cpu() for k, v in res["grads"].items()}
+        out[key] = res
+    return out
 
 
 def spatial_rank() -> None:
@@ -3908,16 +3967,20 @@ def spatial_rank() -> None:
     starts two, with torchrun's environment and SP_OUT): phase 6's model
     and steps on the rank's band, each K1, K2 and K6 launch of the last
     step held against its plain version on its own inputs
-    (`check_recorded`), then the eval forward; writes its results to
+    (`check_recorded`), then the eval forward, the remat step and the
+    step on the 992-row crop (`spatial_more`); writes its results to
     SP_OUT/rank<r>.pt."""
     import os
     import torch
     from torch_semantic_segmentation_tpu_torch.parallel import distributed
     distributed.initialize(backend="gloo", num_spatial=2)
     model, frames, labels, cfg = phase6_setup()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
     res = spatial_steps(model, frames, labels, cfg, sharded=True)
     res["recorded"] = check_recorded(res.pop("calls"))
     res.update(spatial_eval(model, sharded=True))
+    res["more"] = spatial_more(model, frames, labels, cfg, start,
+                               sharded=True)
     res["grads"] = {k: v.cpu() for k, v in res["grads"].items()}
     for k in ("logits", "ids", "cm"):
         res[k] = res[k].cpu()
@@ -3975,8 +4038,9 @@ def spatial_phase(main_path: dict) -> dict:
     process's reference (phase 6's first steps, the eval forward), timed,
     and its yardsticks (the steps twice again and once with
     `nudged_moments`, step 1 through the plain versions with and without
-    K2's folded bias nudged);
-    then the two ranks, held against it."""
+    K2's folded bias nudged); its remat step and its step on a 992-row
+    crop (`spatial_more`); then the two ranks, held against it
+    (`spatial_more_check` for the remat and the crop)."""
     import tempfile
     import torch
     from torch_semantic_segmentation_tpu_torch.parallel import (
@@ -4008,6 +4072,7 @@ def spatial_phase(main_path: dict) -> dict:
                                 steps=steps)
         runs[name] = res["grads"]
         again_losses[name] = res["losses"]
+    more = spatial_more(model, frames, labels, cfg, start, sharded=False)
     noise = rel_tree(runs["again"], single["grads"])
     yard = rel_tree(runs["nudged"], runs["plain"])
     yard_gaps = tree_gaps(runs["nudged"], runs["plain"])
@@ -4021,7 +4086,7 @@ def spatial_phase(main_path: dict) -> dict:
     torch.cuda.empty_cache()
     t_ranks = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
-        procs = spatial_processes(out)
+        procs = spatial_processes(out, SP_RANK_SCRIPT)
         try:
             for r, p in enumerate(procs):
                 text = p.communicate(timeout=600)[0]
@@ -4110,9 +4175,101 @@ def spatial_phase(main_path: dict) -> dict:
         fail(f"the spatial eval ids equal the single process's on {share} "
              f"of the pixels; matrices of {int(ranks[0]['cm'].sum())} and "
              f"{int(single['cm'].sum())} pixels")
+    checked = spatial_more_check(ranks, more, loss_bars[0], want_launches)
     return {"ranks": ranks, "single": single, "rel": rel, "grad_gap": gap,
             "noise": noise, "yard": yard, "ids_share": share,
-            "loss_bars": loss_bars}
+            "loss_bars": loss_bars, "more": checked}
+
+
+def spatial_more_check(ranks: list, single: dict, loss_bar: float,
+                       want_launches: dict) -> dict:
+    """The ranks' remat step and 992-row crop step (`spatial_more`)
+    against the single process's: the remat step's loss within phase 15's
+    step-1 bar (`loss_bar`), the crop's within phase 15's step-1 bar at
+    the crop (DP_STEP1_RTOL or SP_GRAD_NOISE times the spread of the
+    single process's crop step, again, with every BN's batch mean and
+    with its mean and mean square one float32 step up, as phase 16's
+    yardstick: the unequal bands weigh their moments by 512/992 and
+    480/992, which round, where equal bands weigh by 1/2), the crop's
+    gradient within SP_GRAD_NOISE times its own yardstick (phase 15's, at
+    the crop); the remat step's launches those of the single process's
+    remat step (K1 1 + 1, K6's forward again in the recompute, no K2) and
+    SP_REMAT_HALOS exchanges; the crop's phase 6's launches, SP_HALOS
+    exchanges, on bands of SP_CROP_SPLIT rows. Prints each band's peak
+    memory with remat beside phase 15's steps without it."""
+    out = {}
+    yard = rel_tree(single["crop_nudged"]["grads"],
+                    single["crop_plain"]["grads"])
+    crop_losses = [single[k]["losses"][0] for k in (
+        "crop", "crop_again", "crop_moments", "crop_squares")]
+    crop_spread = (max(crop_losses) - min(crop_losses)) / abs(crop_losses[0])
+    bars = {"remat": loss_bar,
+            "crop": max(DP_STEP1_RTOL, SP_GRAD_NOISE * crop_spread)}
+    for key in ("remat", "crop"):
+        want = single[key]
+        loss_bar = bars[key]
+        rel = abs(ranks[0]["more"][key]["losses"][0] - want["losses"][0]) / (
+            abs(want["losses"][0]))
+        gap = rel_tree(ranks[0]["more"][key]["grads"], want["grads"])
+        out[key] = {"rel": rel, "grad_gap": gap}
+        what = ("remat step" if key == "remat" else
+                f"step on a {SP_CROP[0]}x{SP_CROP[1]} crop (bands of "
+                f"{ranks[0]['more'][key]['split']})")
+        print(f"spatial {what}: loss {ranks[0]['more'][key]['losses']} "
+              f"(rank 1 {ranks[1]['more'][key]['losses']}); single process "
+              f"{want['losses']}; relative gap {rel:.3g} (bar "
+              f"{loss_bar:.3g}"
+              + ("" if key == "remat" else
+                 f": {DP_STEP1_RTOL:g} or {SP_GRAD_NOISE:g} x the spread "
+                 f"{crop_spread:.3g} of {crop_losses}, the single process's "
+                 f"crop step, again, and with every BN's batch mean, and "
+                 f"its mean and mean square, one float32 step up")
+              + f"); gradient against the single process's, "
+              f"relative L2 over the tree {gap:.4g} ("
+              f"{tree_gaps(ranks[0]['more'][key]['grads'], want['grads'])}"
+              + ("; not held: K2 is off in the remat step" if key == "remat"
+                 else f"; bar {SP_GRAD_NOISE:g} x {yard:.4g}, the plain "
+                 f"versions' crop step with K2's folded bias one float32 "
+                 f"step up against it unmoved") + ")", flush=True)
+        for r, res in enumerate(ranks):
+            m = res["more"][key]
+            print(f"spatial {what} rank {r}: launches {m['launches'][0]}; "
+                  f"halo exchanges {m['halos'][0]}, bytes sent "
+                  f"{m['halo_bytes'][0]}; step CUDA events "
+                  f"{m['device_ms'][0]:.3f} ms; max_memory_allocated "
+                  f"{m['peak_bytes'] / 2 ** 30:.3f} GiB (phase 15's steps "
+                  f"without remat {res['peak_bytes'] / 2 ** 30:.3f} GiB); "
+                  f"kernel vs plain on its own inputs, worst relative L2 "
+                  f"{ {k: float(f'{v:.3g}') for k, v in m['recorded'].items()} }",
+                  flush=True)
+        print(f"spatial {what}, single process: step CUDA events "
+              f"{want['device_ms'][0]:.3f} ms; launches {want['launches'][0]};"
+              f" max_memory_allocated {want['peak_bytes'] / 2 ** 30:.3f} GiB",
+              flush=True)
+        if not np.isfinite(rel) or rel > loss_bar:
+            fail(f"the spatial {what}'s loss is {rel:.3g} off the single "
+                 f"process's (bar {loss_bar:.3g})")
+        if key == "crop" and not gap <= SP_GRAD_NOISE * yard:
+            fail(f"the spatial {what}'s gradient is {gap:.4g} off the single "
+                 f"process's (bar {SP_GRAD_NOISE:g} x {yard:.4g})")
+        launches = want["launches"][0] if key == "remat" else want_launches
+        halos = SP_REMAT_HALOS if key == "remat" else SP_HALOS
+        for r, res in enumerate(ranks):
+            m = res["more"][key]
+            if m["launches"][0] != launches or m["halos"][0] != halos:
+                fail(f"spatial {what} rank {r}: launches {m['launches'][0]} "
+                     f"and {m['halos'][0]} halo exchanges, expected "
+                     f"{launches} and {halos}")
+        if key == "remat" and (launches["mbconv_fwd"] or launches[
+                "resize_ce_fwd"] != 1 or launches["resize_ce_bwd"] != 1
+                or launches["depthwise_fwd"] <= launches["depthwise_bwd"]):
+            fail(f"the remat step launched {launches}: K1 1 + 1, no K2, K6's "
+                 "forward again in the recompute expected")
+        if key == "crop" and tuple(ranks[0]["more"][key]["split"]) != (
+                SP_CROP_SPLIT):
+            fail(f"the {SP_CROP[0]}-row crop split into "
+                 f"{ranks[0]['more'][key]['split']}, not {SP_CROP_SPLIT}")
+    return out
 
 
 # phase 16, spatial sharding of the zoo on two gloo ranks of one data row,
@@ -4131,7 +4288,9 @@ def spatial_phase(main_path: dict) -> dict:
 # through K6), bands of 384 rows. The batch is 4 for all, config 1's own
 # for ENet and cut from config 4's and config 5's 16, the UNet phase's 8
 # and the zoo benches' 8 (ContextNet's 32): every halo and collective goes
-# through host memory under gloo. The yardstick is the single process's run with every train-mode
+# through host memory under gloo. ENet also runs at CamVid's 360x480 on
+# bands of 184 and 176 rows ("enet_camvid"), and BiSeNet's multi-scale
+# step on two BDD100K frames of 720x1280 (`ZS_BDD`). The yardstick is the single process's run with every train-mode
 # BN's batch mean moved up one float32 step (`nudged_moments`): these
 # models run no K2, whose folded bias phase 15 nudges. Each loss's bar is
 # phase 15's or twice the nudge's gap at that step, whichever is larger:
@@ -4150,18 +4309,30 @@ def spatial_phase(main_path: dict) -> dict:
 # also run config 5's multi-scale + flip eval step on the bands
 # (ZS_MULTISCALE), held against one process's step on the same frames.
 ZS_BATCH = 4
+# "enet_camvid" is ENet at CamVid's 360x480 (the ENet paper's CamVid
+# setting, BASELINE config 3's frame size), batch 4, on bands of 184 and
+# 176 rows: 45 blocks of 8 rows dealt 23/22 (`distributed.split_rows`)
 ZS_STEPS = {"deeplab": 3, "unet": 1, "enet": 2, "erfnet": 1, "esnet": 1,
-            "bisenet": 1, "icnet": 1, "lednet": 1, "contextnet": 1}
+            "bisenet": 1, "icnet": 1, "lednet": 1, "contextnet": 1,
+            "enet_camvid": 1}
 ZS_CROP = {"deeplab": DEEPLAB_CROP, "unet": UNET_CROP, "enet": ENET_CROP,
            "erfnet": ZOO_CROP, "esnet": ZOO_CROP, "bisenet": CONFIG5_CROP,
-           "icnet": CONFIG5_CROP, "lednet": ZOO_CROP, "contextnet": ZOO_CROP}
+           "icnet": CONFIG5_CROP, "lednet": ZOO_CROP, "contextnet": ZOO_CROP,
+           "enet_camvid": (360, 480)}
 # the batch each model's configuration trains at
 ZS_CONFIG_BATCH = {"deeplab": DEEPLAB_BATCH, "unet": UNET_BATCH,
                    "enet": ENET_BATCH, "bisenet": CONFIG5_BATCH,
-                   "icnet": CONFIG5_BATCH, **STRETCH_BATCH}
+                   "icnet": CONFIG5_BATCH, "enet_camvid": ZS_BATCH,
+                   **STRETCH_BATCH}
 ZS_HALOS = {"deeplab": 43, "unet": 43, "enet": 57, "erfnet": 77,
             "esnet": 69, "bisenet": 64, "icnet": 56, "lednet": 123,
-            "contextnet": 44}
+            "contextnet": 44, "enet_camvid": 57}
+
+
+def zs_crop(name: str) -> tuple[int, int]:
+    """Phase 16's crop of `name`, (H, W)."""
+    crop = ZS_CROP[name]
+    return tuple(crop) if isinstance(crop, tuple) else (crop, crop)
 # K6 routes a depthwise conv of at least DEPTHWISE_MIN_PX (2^18) input
 # pixels of the global image: at batch 4 ContextNet's ds1 (4x384x384) in
 # a step, and ds1 and ds2 (4x512x1024, 4x256x512) in the eval of 4
@@ -4177,6 +4348,16 @@ ZS_MULTISCALE = ("bisenet", "icnet")
 # on the card: the matrices' pixel bar is far too wide to see a resize
 # that drops or misplaces a halo row, so the count holds the route
 ZS_MS_HALOS = {"bisenet": 376, "icnet": 328}
+# BiSeNet's multi-scale + flip call on two BDD100K frames of 720x1280
+# (`zoo_multiscale(size=ZS_BDD)`): equal bands of 360 rows (720 is no
+# multiple of 32), the scales' images of 352, 544, 704, 896, 1088 and
+# 1248 rows on bands of 192/160, 288/256, 352/352, 448/448, 544/544 and
+# 640/608; its halo exchanges on each band, as counted
+# (`scripts/spatial_halo_plan.py --multiscale --rows 720`)
+ZS_BDD = (720, 1280)
+# the frames of each model's eval forward where they are not 1024x2048
+ZS_EVAL_SIZE = {"enet_camvid": (360, 480)}
+ZS_MS_BDD_HALOS = 378
 ZS_RANK_SCRIPT = "import chip_smoke\nchip_smoke.zoo_spatial_rank()\n"
 
 
@@ -4186,7 +4367,7 @@ def zoo_spatial_model(name: str, device: str = "cuda", compute_dtype=None):
     min_kept 100000; scale 0.5-2.0, lr 0.01, phase 8's frames); UNet's
     bilinear decoder with CE (lr 0.045, phase 7's frames); ENet with
     config 1's class-weighted CE (scale 0.5-2.0, lr 0.05, the ENet
-    phase's frames); ERFNet or ESNet with CE (lr 0.045, phase 11's
+    phase's frames; "enet_camvid" the same at crop 360x480); ERFNet or ESNet with CE (lr 0.045, phase 11's
     frames); BiSeNet-R18 or ICNet-R50 with config 5's loss (scale
     0.75-2.0, lr 0.025, phase 9's frames); LEDNet or ContextNet with
     `upsample_logits=False` and the resize CE (K1; lr 0.045, phase 11's
@@ -4203,7 +4384,7 @@ def zoo_spatial_model(name: str, device: str = "cuda", compute_dtype=None):
     from torch_semantic_segmentation_tpu_torch.models import get_model
     kw = dict(compute_dtype=compute_dtype or torch.bfloat16, seed=0,
               device=device)
-    crop = (ZS_CROP[name], ZS_CROP[name])
+    crop = zs_crop(name)
     if name == "deeplab":
         model = get_model("deeplabv3_resnet50", NUM_CLASSES,
                           upsample_logits=False, **kw)
@@ -4228,8 +4409,8 @@ def zoo_spatial_model(name: str, device: str = "cuda", compute_dtype=None):
         model = get_model(name, NUM_CLASSES, upsample_logits=False, **kw)
         cfg = AugmentConfig(crop=crop, out_dtype=torch.bfloat16)
         return model, resize_cross_entropy_loss, cfg, ZOO_LR, 1100
-    model = get_model(name, NUM_CLASSES, **kw)
-    if name == "enet":
+    model = get_model(name.split("_")[0], NUM_CLASSES, **kw)
+    if name.startswith("enet"):
         cfg = AugmentConfig(crop=crop, scale_range=ENET_SCALE,
                             out_dtype=torch.bfloat16)
         loss = functools.partial(
@@ -4294,13 +4475,13 @@ def nudged_moments(squares: bool = False):
         conv.batch_moments = real
 
 
-def zoo_multiscale(model, sharded: bool) -> dict:
+def zoo_multiscale(model, sharded: bool, size: tuple | None = None) -> dict:
     """Config 5's multi-scale + flip eval step (scales 0.5 .. 1.75) over
     one batch of MULTISCALE_BATCH normalised 1024x2048 frames of
-    `make_batch(301)` (`spatial_eval`'s), bf16, on the rank's band where
-    `sharded`, through `evaluate` (the matrix summed over ranks): the
-    matrix, mIoU, host and CUDA-event ms of the one call, its halo
-    exchanges and kernel launches."""
+    `make_batch(301)` (`spatial_eval`'s; their top-left `size` where
+    given), bf16, on the rank's band where `sharded`, through `evaluate`
+    (the matrix summed over ranks): the matrix, mIoU, host and CUDA-event
+    ms of the one call, its halo exchanges and kernel launches."""
     import torch
     from torch_semantic_segmentation_tpu_torch.data.transforms import (
         normalize_batch)
@@ -4310,9 +4491,10 @@ def zoo_multiscale(model, sharded: bool) -> dict:
         distributed, shard_batch)
     dev = next(model.parameters()).device
     f, lab = make_batch(301)
-    pair = (normalize_batch(torch.from_numpy(f[:MULTISCALE_BATCH]).to(dev),
-                            out_dtype=torch.bfloat16),
-            torch.from_numpy(lab[:MULTISCALE_BATCH]).to(dev))
+    h, w = size or f.shape[1:3]
+    pair = (normalize_batch(torch.from_numpy(
+        f[:MULTISCALE_BATCH, :h, :w]).to(dev), out_dtype=torch.bfloat16),
+            torch.from_numpy(lab[:MULTISCALE_BATCH, :h, :w]).to(dev))
     if sharded:
         pair = shard_batch(pair, spatial=True, max_stride=model.max_stride)
     step = make_multiscale_eval_step(model, num_classes=NUM_CLASSES,
@@ -4332,7 +4514,8 @@ def zoo_multiscale(model, sharded: bool) -> dict:
             "event_ms": start.elapsed_time(end),
             "halos": distributed.halo_exchanges - h0,
             "launches": {k: v for k, v in launch_counts().items() if v},
-            "valid": int((pair[1] != 255).sum())}
+            "valid": int((pair[1] != 255).sum()),
+            "size": (h, w)}
 
 
 def k4_band_check(calls: list) -> list:
@@ -4393,9 +4576,13 @@ def zoo_spatial_rank() -> None:
         del calls
         model.load_state_dict(torch.load(
             os.path.join(os.environ["SP_OUT"], f"zoo_{name}.pt")))
-        res.update(spatial_eval(model, sharded=True, batch=ZS_BATCH))
+        res.update(spatial_eval(model, sharded=True, batch=ZS_BATCH,
+                                size=ZS_EVAL_SIZE.get(name)))
         if name in ZS_MULTISCALE:
             res["multiscale"] = zoo_multiscale(model, sharded=True)
+        if name == "bisenet":
+            res["multiscale_bdd"] = zoo_multiscale(model, sharded=True,
+                                                   size=ZS_BDD)
         res["grads"] = {k: v.cpu() for k, v in res["grads"].items()}
         for k in ("logits", "ids", "cm"):
             res[k] = res[k].cpu()
@@ -4424,16 +4611,21 @@ def zoo_spatial_single(name: str, out: str) -> dict:
     model, single = zoo_spatial_run(name, sharded=False)
     single.pop("calls")
     torch.save(model.state_dict(), f"{out}/zoo_{name}.pt")
-    single.update(spatial_eval(model, sharded=False, batch=ZS_BATCH))
+    single.update(spatial_eval(model, sharded=False, batch=ZS_BATCH,
+                               size=ZS_EVAL_SIZE.get(name)))
     if name in ZS_MULTISCALE:
         single["multiscale"] = zoo_multiscale(model, sharded=False)
+    if name == "bisenet":
+        single["multiscale_bdd"] = zoo_multiscale(model, sharded=False,
+                                                  size=ZS_BDD)
     # the eval ids' yardstick: the same weights at float32 compute (the
     # model's last use)
     for m in model.modules():
         if getattr(m, "compute_dtype", None) is not None:
             m.compute_dtype = torch.float32
     single["ids_f32"] = spatial_eval(model, sharded=False, batch=ZS_BATCH,
-                                     dtype=torch.float32)["ids"]
+                                     dtype=torch.float32,
+                                     size=ZS_EVAL_SIZE.get(name))["ids"]
     del model
     torch.cuda.empty_cache()
     runs = {}
@@ -4473,22 +4665,24 @@ def zoo_spatial_single(name: str, out: str) -> dict:
 
 
 def zoo_multiscale_check(name: str, bands: list, single: dict,
-                         ids_bar: float) -> dict:
+                         ids_bar: float, halos: int | None = None) -> dict:
     """The bands' multi-scale step (`zoo_multiscale`, one result a rank)
     against the single process's: each matrix counts every valid pixel
-    once, no kernel launches, ZS_MS_HALOS halo exchanges a band, and
-    half their L1 distance, a lower bound on the pixels whose id moved,
-    is at most (1 − the eval ids' bar) of the valid pixels. Prints both
-    mIoUs, step times and the bands' halo exchanges (gloo's: no speed
-    figure)."""
+    once, no kernel launches, `halos` (ZS_MS_HALOS by default) halo
+    exchanges a band, and half their L1 distance, a lower bound on the
+    pixels whose id moved, is at most (1 − the eval ids' bar) of the
+    valid pixels. Prints both mIoUs, step times and the bands' halo
+    exchanges (gloo's: no speed figure)."""
     import torch
     valid = single["valid"]
+    halos = ZS_MS_HALOS[name] if halos is None else halos
+    fh, fw = single["size"]
     moved = int((bands[0]["cm"] - single["cm"]).abs().sum()) // 2
     bar = (1.0 - ids_bar) * valid
     for r, res in enumerate(bands):
         print(f"phase 16 {name} multi-scale + flip eval bf16 "
-              f"{MULTISCALE_BATCH}x{SERVE_H}x{SERVE_W}, scales 0.5 .. 1.75, "
-              f"rank {r} on a band of {SERVE_H // 2} rows (gloo; no speed "
+              f"{MULTISCALE_BATCH}x{fh}x{fw}, scales 0.5 .. 1.75, "
+              f"rank {r} on a band of {fh // 2} rows (gloo; no speed "
               f"figure): mIoU {res['miou']:.6f}; one call {res['ms']:.1f} ms "
               f"on the host clock ({res['event_ms']:.1f} on CUDA events); "
               f"halo exchanges {res['halos']}; launches {res['launches']}; "
@@ -4506,10 +4700,10 @@ def zoo_multiscale_check(name: str, bands: list, single: dict,
             fail(f"phase 16 {name}: the multi-scale step launched "
                  f"{res['launches']}")
     for r, res in enumerate(bands):
-        if res["halos"] != ZS_MS_HALOS[name]:
-            fail(f"phase 16 {name} rank {r}: the multi-scale call made "
-                 f"{res['halos']} halo exchanges, expected "
-                 f"{ZS_MS_HALOS[name]}")
+        if res["halos"] != halos:
+            fail(f"phase 16 {name} rank {r}: the multi-scale call on "
+                 f"{fh}x{fw} made {res['halos']} halo exchanges, expected "
+                 f"{halos}")
     if not torch.equal(bands[0]["cm"], bands[1]["cm"]):
         fail(f"phase 16 {name}: the ranks' multi-scale matrices differ")
     if not moved <= bar:
@@ -4526,7 +4720,7 @@ def zoo_spatial_phase() -> dict:
     ContextNet), K2 12 + 12 and K6 1 + 1 (ContextNet) a step on each rank
     (ENet, ERFNet and ESNet launch no kernel), ZS_HALOS halo exchanges a
     step, the eval ids and matrix, and BiSeNet's and ICNet's multi-scale
-    step (`zoo_multiscale_check`)."""
+    step (`zoo_multiscale_check`; BiSeNet's on BDD100K's 720x1280 too)."""
     import tempfile
     import torch
     t0 = time.perf_counter()
@@ -4569,18 +4763,21 @@ def zoo_spatial_phase() -> dict:
         ids_bar = min(SP_IDS_SHARE, 1.0 - SP_GRAD_NOISE * f32_miss)
         miss = ids != single["ids"].cpu()
         h = ids.shape[1]
-        edge = float(miss[:, h // 2 - 8:h // 2 + 8].sum()) / max(
+        # the bands' boundary in the ids' rows
+        boundary = h * got[0]["eval_split"][0] // sum(got[0]["eval_split"])
+        edge = float(miss[:, boundary - 8:boundary + 8].sum()) / max(
             1, int(miss.sum()))
         logits = torch.cat([r["logits"] for r in got], dim=1)
         lgap = float((logits - single["logits"].cpu()).abs().max())
         lscale = float(single["logits"].abs().max())
-        crop, full = ZS_CROP[name], ZS_CONFIG_BATCH[name]
+        (ch, cw), full = zs_crop(name), ZS_CONFIG_BATCH[name]
         cut = (f"its configuration's own" if full == ZS_BATCH else
                f"cut from {full} because every halo goes through host "
                f"memory under gloo")
         print(f"phase 16 {name} on two ranks of one card (gloo, "
-              f"num_spatial=2, bands of {crop // 2} rows of {ZS_BATCH}x{crop}"
-              f"x{crop}; batch {ZS_BATCH}, {cut}; not in the kernels line):"
+              f"num_spatial=2, bands of {got[0]['split']} rows of "
+              f"{ZS_BATCH}x{ch}x{cw}; batch {ZS_BATCH}, {cut}; not in the "
+              f"kernels line):"
               f" losses {got[0]['losses']} (rank 1 "
               f"{got[1]['losses']}); single process {want}; relative gaps "
               f"{[f'{v:.3g}' for v in rel]} (bars "
@@ -4672,6 +4869,10 @@ def zoo_spatial_phase() -> dict:
             result[name + "_multiscale"] = zoo_multiscale_check(
                 name, [r["multiscale"] for r in got], single["multiscale"],
                 ids_bar)
+        if name == "bisenet":
+            result[name + "_multiscale_bdd"] = zoo_multiscale_check(
+                name, [r["multiscale_bdd"] for r in got],
+                single["multiscale_bdd"], ids_bar, ZS_MS_BDD_HALOS)
         result[name] = dict(ranks=got, single=single, rel=rel, grad_gap=gap,
                             ids_share=share, ids_bar=ids_bar)
     print(f"phase 16: ranks {ranks_s:.1f} s, phase "

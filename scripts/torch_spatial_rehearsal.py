@@ -1,10 +1,11 @@
-"""CPU rehearsal of `chip_smoke.py` phase 16 (the zoo on two H bands) at a
-tiny size, without a card.
+"""CPU rehearsal of `chip_smoke.py` phase 16 (the zoo on two H bands), or
+of phase 15 (FastSCNN on two H bands), at a tiny size, without a card.
 
     python scripts/torch_spatial_rehearsal.py [--crop 64|128]
         [--models deeplab unet enet erfnet esnet bisenet icnet lednet
-                  contextnet]
+                  contextnet enet_camvid]
         [--sensitivity]
+    python scripts/torch_spatial_rehearsal.py --phase 15 [--crop 128]
 
 Runs `chip_smoke.zoo_spatial_phase` itself, in float32 on CPU gloo ranks,
 for every model of its `ZS_STEPS` or those named, with its setup cut
@@ -15,7 +16,10 @@ DeepLab's, BiSeNet's and ICNet's logits to bf16 so that K3's plain
 version runs on each band, and LEDNet's and ContextNet's so that K1's
 does, `torch.cuda.Event` and the memory calls stubbed, and every kernel
 wrapper counting its calls as launches (the CPU runs the plain
-versions). LEDNet's 1/64 needs crop 128 on two bands. ContextNet's K2
+versions). LEDNet's 1/64 needs crop 128 on two bands. ENet's CamVid
+entry takes crop + 8 rows (bands of unequal height: 72 rows, 40/32),
+BiSeNet's BDD100K frames crop + 48 rows (an H that is no multiple of
+32, as 720 is). ContextNet's K2
 and K6 take bf16 compute only, so in float32 its step and eval expect
 neither (bf16 on the CPU makes the FFM's dilated depthwise conv's weight
 gradient unstable). It prints phase 16's lines and stops at the first
@@ -24,6 +28,16 @@ gradient by 7.3e-5 only, where the bands' bf16 sums of K3's cotangent
 at the halo rows move it 1.08e-3, so BiSeNet misses its gradient bar
 here; on the card, in bf16, the nudges' 0.19 sits beside the bands'
 0.21 (PERF.md §6).
+
+`--phase 15` runs `chip_smoke.spatial_phase` the same way: FastSCNN in
+float32 from seed 0 on 8 frames of 256x256 at crop `--crop` x 256, the
+loss casting the logits to bf16 (K1's plain version), K6 routed (its
+pixel floor at 0), K2 not (float32; the gradient's yardstick nudges
+every BN's batch mean in place of K2's folded bias), the remat step, and
+the step on a
+crop of `--crop` − 32 rows (bands of unequal height); steps 2-3 are
+not held (`SP_LATER_RTOL`: in float32 on the CPU they move more than on
+the card).
 
 `--sensitivity` prints instead how far DeepLab's step-1 gradient (relative
 L2 over the tree) and loss move in this process when the batch means of
@@ -108,7 +122,8 @@ def patch(crop: int, models=None) -> None:
             if name in c.STRETCH_LOW_RES:
                 def loss(logits, y, _resize_ce=loss):
                     return _resize_ce(logits.to(torch.bfloat16), y)
-            cfg = dataclasses.replace(cfg, crop=(crop, crop),
+            rows = crop + 8 if name == "enet_camvid" else crop
+            cfg = dataclasses.replace(cfg, crop=(rows, crop),
                                       out_dtype=torch.float32)
             frames, labels = small_batch(seed)
             return (model, torch.from_numpy(frames[:c.ZS_BATCH]),
@@ -144,12 +159,71 @@ def patch(crop: int, models=None) -> None:
     c.ZS_K6 = {"contextnet": (0, 0)}
     c.make_batch = small_batch
     c.zoo_spatial_setup = setup
+    c.ZS_CROP = {**c.ZS_CROP, "enet_camvid": (crop + 8, crop)}
+    c.ZS_EVAL_SIZE = {"enet_camvid": (crop + 8, crop)}
+    c.ZS_BDD = (crop + 48, 8 * 32)
     init = distributed.initialize
     distributed.initialize = lambda *a, **k: init("cpu", **k)
     c.ZS_RANK_SCRIPT = (
         f"import sys\nsys.path.insert(0, {os.path.dirname(__file__)!r})\n"
         f"import torch_spatial_rehearsal as r\nr.patch({crop}, {models!r})\n"
         "import chip_smoke\nchip_smoke.zoo_spatial_rank()\n")
+
+
+def patch15(crop: int) -> None:
+    """Cut phase 15 down to `crop` on the CPU (see the module's doc)."""
+    from torch_semantic_segmentation_tpu_torch import losses
+    from torch_semantic_segmentation_tpu_torch.ops import conv
+    patch(crop)
+    conv.DEPTHWISE_MIN_PX = 0
+    real_ce = losses.resize_cross_entropy_loss
+
+    def resize_ce(logits, labels, **kw):
+        return real_ce(logits.to(torch.bfloat16), labels, **kw)
+    losses.resize_cross_entropy_loss = resize_ce
+
+    def setup():
+        from torch_semantic_segmentation_tpu_torch.data.transforms import (
+            AugmentConfig)
+        from torch_semantic_segmentation_tpu_torch.models import get_model
+        frames, labels = c.make_batch(200)
+        model = get_model("fastscnn", c.NUM_CLASSES, upsample_logits=False,
+                          seed=0, device="cpu")
+        return (model, torch.from_numpy(frames), torch.from_numpy(labels),
+                AugmentConfig(crop=(crop, frames.shape[2])))
+
+    real_per_step = c.per_step
+
+    def per_step(steps: int, model: str = "fastscnn") -> dict:
+        counts = real_per_step(steps, model)
+        # float32: no K2, and GFE stage1[0]'s and stage2[0]'s stride-2
+        # depthwise convs take K6
+        counts.update(mbconv_fwd=0, mbconv_bwd=0,
+                      depthwise_fwd=2 * counts["depthwise_fwd"],
+                      depthwise_bwd=2 * counts["depthwise_bwd"])
+        return counts
+
+    c.per_step = per_step
+    c.phase6_setup = setup
+    # steps 2-3 in float32 on the CPU move more than on the card (the
+    # FFM's ReLU zeros flip under the bands' sums): the rehearsal holds
+    # step 1 and what this phase adds
+    c.SP_LATER_RTOL = 1.0
+    # float32 runs no K2, whose folded bias the yardstick nudges: the
+    # rehearsal nudges every BN's batch mean instead
+    real_swapped = c.swapped
+
+    def swapped(replace):
+        if replace is c.nudged_plain_versions:
+            return c.nudged_moments()
+        return real_swapped(replace)
+    c.swapped = swapped
+    c.SP_CROP = (crop - 32, 8 * 32)
+    c.SP_CROP_SPLIT = distributed.split_rows(crop - 32, 2, 32)
+    c.SP_RANK_SCRIPT = (
+        f"import sys\nsys.path.insert(0, {os.path.dirname(__file__)!r})\n"
+        f"import torch_spatial_rehearsal as r\nr.patch15({crop})\n"
+        "import chip_smoke\nchip_smoke.spatial_rank()\n")
 
 
 def sensitivity() -> None:
@@ -194,7 +268,12 @@ def main() -> int:
     ap.add_argument("--crop", type=int, default=64, choices=(64, 128))
     ap.add_argument("--models", nargs="+", choices=list(c.ZS_STEPS))
     ap.add_argument("--sensitivity", action="store_true")
+    ap.add_argument("--phase", type=int, default=16, choices=(15, 16))
     args = ap.parse_args()
+    if args.phase == 15:
+        patch15(args.crop)
+        c.spatial_phase({"device_ms": [0.0]})
+        return 0
     patch(args.crop, args.models)
     if args.sensitivity:
         sensitivity()

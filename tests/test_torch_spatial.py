@@ -26,39 +26,54 @@ from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
 from torch_semantic_segmentation_tpu_torch.ops.resize_ce import (
     _label_weights)
 from torch_semantic_segmentation_tpu_torch.parallel import (
-    check_even_split, check_spatial_extent, distributed, shard_batch)
+    check_spatial_extent, distributed, shard_batch)
 
 torch.set_num_threads(2)
 
 
 class Bands:
-    """Band s of `n` of a global tensor, run in this process."""
+    """Band s of `n` of a global tensor, run in this process; with
+    `split` (each band's rows of the image, top first) bands of unequal
+    height, recorded as `parallel.shard_batch` records them."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, split: tuple[int, ...] | None = None):
         self.n = n
+        self.split = split
         self._of: dict[int, tuple[torch.Tensor, int]] = {}
 
+    def rows(self, h: int) -> list[int]:
+        """Each band's rows of a tensor of h global rows."""
+        if self.split is None:
+            return [h // self.n] * self.n
+        return [r * h // sum(self.split) for r in self.split]
+
     def take(self, x: torch.Tensor, s: int) -> torch.Tensor:
-        """Rows [s·H/n, (s+1)·H/n) of x (N, H, ...): a view whose halo
-        rows `halo` reads from x."""
-        per = x.shape[1] // self.n
-        band = x[:, s * per:(s + 1) * per]
+        """Band s's rows of x (N, H, ...): a view whose halo rows `halo`
+        reads from x."""
+        rows = self.rows(x.shape[1])
+        lo = sum(rows[:s])
+        band = x[:, lo:lo + rows[s]]
         self._of[id(band)] = (x, s)
         return band
 
     def _halo(self, x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
         whole, s = self._of[id(x)]
-        per = x.shape[1]
-        lo = max(0, s * per - top)
-        hi = min(whole.shape[1], (s + 1) * per + bottom)
+        start = sum(self.rows(whole.shape[1])[:s])
+        lo = max(0, start - top)
+        hi = min(whole.shape[1], start + x.shape[1] + bottom)
         return whole[:, lo:hi]
+
+    def _halo_window(self, x: torch.Tensor, split, windows) -> torch.Tensor:
+        whole, s = self._of[id(x)]
+        return whole[:, windows[s][0]:windows[s][1]]
 
     @contextlib.contextmanager
     def rank(self, s: int):
         """Within the block the port's ops run as band s of n."""
         patched = dict(is_spatial=lambda: True, num_spatial=lambda: self.n,
                        spatial_rank=lambda: s, data_size=lambda: 1,
-                       halo=self._halo, spatial_sum=lambda x: x)
+                       halo=self._halo, halo_window=self._halo_window,
+                       spatial_sum=lambda x: x, _split=self.split)
         saved = {k: getattr(distributed, k) for k in patched}
         for k, v in patched.items():
             setattr(distributed, k, v)
@@ -106,38 +121,44 @@ def test_check_spatial_extent_matches_jax(h, n):
             check_spatial_extent(h, n)
 
 
-@pytest.mark.parametrize("h,n,ok", [(128, 2, True), (128, 4, True),
-                                    (96, 2, False), (192, 4, False),
-                                    (1024, 2, True), (1056, 2, False)])
-def test_even_split_guard(h, n, ok):
-    """Equal bands aligned with every stride-2 stage: H % (n · 32) == 0,
-    where the JAX package lets GSPMD pad."""
-    if ok:
-        check_even_split(h, n)
-    else:
-        with pytest.raises(ValueError, match="uneven spatial split"):
-            check_even_split(h, n)
+@pytest.mark.parametrize("h,n,split", [
+    (128, 2, (64, 64)), (128, 4, (32, 32, 32, 32)), (96, 2, (64, 32)),
+    (192, 4, (64, 64, 32, 32)), (1024, 2, (512, 512)),
+    (1056, 2, (544, 512))])
+def test_even_split_guard(h, n, split):
+    """The guard that refused an uneven split is gone: every H that the
+    spatial ranks divide splits into whole blocks of 32 rows dealt as
+    evenly as they go, the first bands taking one more, so each band
+    starts on every stride-2 stage's grid; where n · 32 divides H the
+    bands are the equal ones of before."""
+    got = distributed.split_rows(h, n, 32)
+    assert got == split and sum(got) == h
+    assert all(r % 32 == 0 and r >= 32 for r in got)
+    assert max(got) - min(got) <= 32
+    assert (len(set(got)) == 1) == (h % (n * 32) == 0)
 
 
 def test_shard_batch_guards_without_a_group():
     """Without a group `shard_batch(spatial=True)` is the batch itself,
-    after both guards on a band of one."""
+    after the guards on a band of one: a degenerate H raises, and an H
+    that is no multiple of 32 (48) passes, as the JAX package takes it."""
     x, y = torch.zeros(2, 64, 32, 3), torch.zeros(2, 64, 32)
     a, b = shard_batch((x, y), spatial=True)
     assert a is not None and a.shape == x.shape and b.shape == y.shape
     with pytest.raises(ValueError, match="degenerate"):
         shard_batch((x[:, :16], y[:, :16]), spatial=True)
-    with pytest.raises(ValueError, match="uneven"):
-        shard_batch((x[:, :48], y[:, :48]), spatial=True)
+    a, b = shard_batch((x[:, :48], y[:, :48]), spatial=True)
+    assert a.shape == (2, 48, 32, 3) and b.shape == (2, 48, 32)
 
 
 def test_other_models_and_multiscale_refuse_spatial(monkeypatch):
     """Under spatial sharding what stays refused: a module that is not a
-    zoo class (the gate, the train step), remat, an uneven split and a
-    multi-scale scale whose rows do not split into bands of the model's
-    stride; every zoo model builds and makes its train, eval and
-    multi-scale steps (`tests/test_torch_spatial_zoo.py` holds the gate
-    over all 13 names)."""
+    zoo class (the gate, the train step), an H that the spatial ranks do
+    not divide (the JAX package's `device_put` refusal) and a multi-scale
+    scale whose image is degenerate on the bands; every zoo model builds
+    and makes its train (with remat too), eval and multi-scale steps
+    (`tests/test_torch_spatial_zoo.py` holds the gate over all 13
+    names)."""
     from torch_semantic_segmentation_tpu_torch.eval import (
         make_multiscale_eval_step)
     from torch_semantic_segmentation_tpu_torch.models import (
@@ -149,6 +170,7 @@ def test_other_models_and_multiscale_refuse_spatial(monkeypatch):
     other = torch.nn.Conv2d(3, 5, 1)
     monkeypatch.setattr(distributed, "is_spatial", lambda: True)
     monkeypatch.setattr(distributed, "num_spatial", lambda: 4)
+    monkeypatch.setattr(distributed, "_split", None)
     for name in available_models():
         check_spatial_model(name)
     for m in (get_model("contextnet", 5, device="cpu"), lednet, enet):
@@ -165,16 +187,17 @@ def test_other_models_and_multiscale_refuse_spatial(monkeypatch):
     fast = get_model("fastscnn", 5, device="cpu")
     state = create_train_state(fast, OptimizerConfig())
     make_train_step(fast, state, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_train_step(fast, state, remat=True, device="cpu")
-    with pytest.raises(ValueError, match="uneven spatial split"):
-        check_even_split(96, 4, lednet.max_stride)
+    make_train_step(fast, state, remat=True, device="cpu")
+    with pytest.raises(ValueError, match="should be divisible by 3, but it "
+                       "is equal to 160"):
+        distributed.split_rows(160, 3, lednet.max_stride)
+    assert distributed.split_rows(384, 4, lednet.max_stride) == (
+        128, 128, 64, 64)
     # LEDNet on bands of 64 rows of a 256-row image: scale 0.5 gives 128
-    # rows, which 4 bands of a multiple of 64 rows cannot hold
+    # rows, 2 rows at its 1/64, fewer than the 4 bands
     step = make_multiscale_eval_step(lednet, num_classes=5, device="cpu")
-    with pytest.raises(ValueError, match="scale 0.5: 128 rows do not split "
-                       "into 4 spatial bands of a multiple of the model's "
-                       "max_stride 64"):
+    with pytest.raises(ValueError, match="scale 0.5: degenerate spatial "
+                       "sharding: input H=128 reaches H=2 at stride 64"):
         step(torch.zeros(5, 5, dtype=torch.int64), torch.zeros(1, 64, 32, 3),
              torch.zeros(1, 64, 32, dtype=torch.int64))
 
@@ -188,6 +211,7 @@ def test_shard_batch_refuses_lednet_at_128_rows_on_4_bands(monkeypatch):
     monkeypatch.setattr(distributed, "num_spatial", lambda: 4)
     monkeypatch.setattr(distributed, "world_size", lambda: 4)
     monkeypatch.setattr(distributed, "rank", lambda: 1)
+    monkeypatch.setattr(distributed, "_split", None)
     x, y = torch.zeros(2, 128, 32, 3), torch.zeros(2, 128, 32)
     with pytest.raises(ValueError, match="degenerate spatial sharding: "
                        "input H=128 reaches H=2 at stride 64"):

@@ -243,15 +243,18 @@ def test_tap_pass_backward_is_the_matrix_product(h, oh, w_in, ow, nhcw):
 
 def test_a_scale_that_does_not_split_raises():
     """BiSeNet (max_stride 32) on 4 bands of a 128-row image: scale 0.5
-    gives 64 rows, no multiple of 4 x 32, so the step raises naming the
-    scale and the sizes, before any forward, and pads nothing."""
+    gives 64 rows, 2 rows at 1/32 for 4 bands, a degenerate split by the
+    JAX package's guard (`check_spatial_extent`), so the step raises
+    naming the scale and the sizes, before any forward, and pads
+    nothing. Scales of unequal bands run
+    (`tests/test_torch_spatial_uneven.py`)."""
     m = get_model("bisenet", w.C, depth=18, upsample_logits=False,
                   device="cpu")
     step = make_multiscale_eval_step(m, num_classes=w.C, device="cpu")
     x = torch.zeros(1, 128, 64, 3)
     with Bands(4).rank(1):
-        with pytest.raises(ValueError, match="scale 0.5: 64 rows do not "
-                           "split into 4 spatial bands of a multiple of the "
-                           "model's max_stride 32"):
+        with pytest.raises(ValueError, match="scale 0.5: degenerate "
+                           "spatial sharding: input H=64 reaches H=2 at "
+                           "stride 32"):
             step(torch.zeros(w.C, w.C, dtype=torch.int64), x[:, 32:64],
                  torch.zeros(1, 32, 64, dtype=torch.int64))

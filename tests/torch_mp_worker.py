@@ -5,7 +5,8 @@ It imports only the port, torch and numpy.
     python tests/torch_mp_worker.py SUITE RANK WORLD STORE OUTDIR
 
 joins a gloo group of WORLD ranks through `file://STORE` (SUITE
-"spatial:S", "zoo:S", "dec:S", "cas:S", "str:S" or "ms:S" with
+"spatial:S", "zoo:S", "dec:S", "cas:S", "str:S", "ms:S", "rem:S" or
+"unev:S" with
 `num_spatial=S`: each rank on a band of H rows), runs every case of SUITE on its rows of each
 case's global batch and saves {case: result} to OUTDIR/rank<RANK>.pt.
 The parent test runs the same case functions in its own process without
@@ -1049,6 +1050,332 @@ def suite_ms(outdir: str) -> dict:
     return res
 
 
+# --- suites "rem:S" and "unev:S": remat on H bands, unequal bands ---
+
+# the kernel wrappers (the plain versions on the CPU), counted as calls
+WRAPPERS = {"k1": ("resize_ce", "resize_ce_forward"),
+            "k3": ("resize_ce", "resize_ce_map_forward"),
+            "k2": ("mbconv", "expand_dw_forward"),
+            "k6": ("depthwise", "depthwise3x3_forward"),
+            "k6_bwd": ("depthwise", "depthwise3x3_backward"),
+            "k4": ("upsample_concat", "upsample_concat_forward")}
+REM_MODELS = ("fastscnn", "deeplab", "unet", "enet")
+# each model's H on unequal bands: an odd count of its max_stride blocks
+# (FastSCNN 5 x 32: 64/32/32/32 on 4 bands, 96/64 on 2; DeepLab and UNet
+# 9 x 16; ENet CamVid's 360 rows, 45 x 8: 96/88/88/88, 184/176)
+UNEVEN_H = {"fastscnn": 160, "deeplab": 144, "unet": 144, "enet": 360}
+UNEVEN_W = 32
+
+
+def spied_wrappers(calls: dict):
+    """Within the block each kernel wrapper of WRAPPERS counts its calls
+    in `calls`."""
+    import contextlib
+    import importlib
+
+    @contextlib.contextmanager
+    def block():
+        saved = []
+        for key, (mod, name) in WRAPPERS.items():
+            m = importlib.import_module(
+                f"torch_semantic_segmentation_tpu_torch.ops.{mod}")
+            real = getattr(m, name)
+
+            def spy(*a, _real=real, _key=key):
+                calls[_key] = calls.get(_key, 0) + 1
+                return _real(*a)
+            saved.append((m, name, real))
+            setattr(m, name, spy)
+        try:
+            yield
+        finally:
+            for m, name, real in saved:
+                setattr(m, name, real)
+    return block()
+
+
+def k6_routed():
+    """Within the block K6 routes every qualifying conv (its pixel floor
+    at 0), as on the card's batches."""
+    import contextlib
+
+    from torch_semantic_segmentation_tpu_torch.ops import conv
+
+    @contextlib.contextmanager
+    def block():
+        real, conv.DEPTHWISE_MIN_PX = conv.DEPTHWISE_MIN_PX, 0
+        try:
+            yield
+        finally:
+            conv.DEPTHWISE_MIN_PX = real
+    return block()
+
+
+def rem_spec(key: str, kernels: bool):
+    """(zoo name, keywords, loss) of a model of REM_MODELS: FastSCNN's
+    1/8 logits with the resize CE, DeepLabV3-R18's 1/16 with OHEM, UNet's
+    bilinear decoder (K4) and ENet with class weights (spatial dropout),
+    CE. With `kernels` the logits go to the loss in bf16, so that K1's
+    and K3's plain versions compute it."""
+    import functools
+
+    def cast(lg):
+        return lg.to(torch.bfloat16) if kernels else lg
+    if key == "fastscnn":
+        return ("fastscnn", {"upsample_logits": False},
+                lambda lg, y: losses.resize_cross_entropy_loss(cast(lg), y))
+    if key == "deeplab":
+        return ("deeplabv3_resnet18", {"upsample_logits": False},
+                lambda lg, y: losses.resize_ohem_cross_entropy(
+                    cast(lg), y, **ZOO_OHEM))
+    if key == "unet":
+        return "unet", {"upsample": "bilinear"}, losses.cross_entropy_loss
+    return ("enet", {}, functools.partial(
+        losses.cross_entropy_loss,
+        class_weights=torch.tensor(DEC_CLASS_WEIGHTS)))
+
+
+def generator_states(model) -> list:
+    from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
+    gens = {id(m.generator): m.generator for m in model.modules()
+            if isinstance(m, Dropout) and m.generator is not None}
+    return [g.get_state() for g in gens.values()]
+
+
+def case_rem(key: str, dtype, remat: bool, h: int = ZOO_H,
+             w: int = ZOO_W, kernels: bool | None = None,
+             compute_dtype=None, k2: bool = False,
+             full_state: bool = False) -> dict:
+    """One SGD step (LR 0.002, dropout on) of `key` from seed 0 through
+    `make_train_step` on the rank's band of a batch of ZOO_STEP_N images
+    of h x w, the model in `dtype` (bf16 compute with `compute_dtype`), K6
+    routed: with `remat` (K2 suppressed inside the checkpoints) or with K2
+    suppressed throughout (routed with `k2`). The loss, the buffers after
+    the step (BN's statistics and counts; every parameter too with
+    `full_state`), the gradients, the dropout generators' states, the
+    halo exchanges and the kernel wrappers' calls. `kernels` (float32 by
+    default) sends bf16 logits to the loss."""
+    import contextlib
+
+    from torch_semantic_segmentation_tpu_torch.ops import mbconv
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+    kernels = dtype == torch.float32 if kernels is None else kernels
+    name, kw, loss_fn = rem_spec(key, kernels)
+    if compute_dtype is not None:
+        kw = {**kw, "compute_dtype": compute_dtype}
+    m = zoo_model(name, **kw).to(dtype)
+    state = create_train_state(m, OptimizerConfig(lr=LR, max_steps=4))
+    step = make_train_step(m, state, loss_fn, remat=remat, device="cpu")
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(ZOO_STEP_N, h, w, 3)).astype(np.float32)
+    y = rng.integers(0, C, (ZOO_STEP_N, h, w)).astype(np.int32)
+    y[:, :6, :9] = 255
+    y[:, h // 2 - 4:h // 2 + 4, w // 3:w // 2] = 255
+    xb, yb = _bands(x, y, max_stride=m.max_stride)
+    calls: dict = {}
+    h0 = distributed.halo_exchanges
+    with spied_wrappers(calls), k6_routed(), (
+            contextlib.nullcontext() if remat or k2
+            else mbconv.suppress_routing()):
+        loss = step(xb.to(compute_dtype or dtype), yb)["loss"]
+    return {"loss": loss,
+            "state": {k: v.clone() for k, v in m.state_dict().items()
+                      if full_state or k not in dict(m.named_parameters())},
+            "grads": {k: p.grad.clone() for k, p in m.named_parameters()
+                      if p.grad is not None},
+            "gens": generator_states(m),
+            "halos": torch.tensor(distributed.halo_exchanges - h0),
+            "calls": {k: torch.tensor(v) for k, v in calls.items()}}
+
+
+def rem_jax_case(outdir: str, h: int, remat: bool) -> dict:
+    """FastSCNN from the JAX package's weights (`init.pt`, dropout 0), one
+    SGD step (LR 0.002, no weight decay) through `make_train_step` with
+    the resize CE in float32 on the rank's band of `spatial_batch` cut to
+    h rows, as the JAX package's step runs on its (2, 4) mesh: the loss
+    and the parameters after it."""
+    from torch_semantic_segmentation_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+    m = spatial_model(os.path.join(outdir, "init.pt"), False)
+    state = create_train_state(m, OptimizerConfig(lr=LR, weight_decay=0.0,
+                                                  max_steps=4))
+    step = make_train_step(m, state, losses.resize_cross_entropy_loss,
+                           remat=remat, device="cpu")
+    x, y = uneven_batch(h)
+    loss = step(*_bands(x, y))["loss"]
+    return {"loss": loss, "params": {k: p.detach().clone()
+                                     for k, p in m.named_parameters()}}
+
+
+def uneven_batch(h: int, seed: int = 7):
+    """`spatial_batch`'s images and labels at h rows (SP_N x h x SP_W)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(SP_N, h, SP_W, 3)).astype(np.float32)
+    y = rng.integers(0, SP_C, (SP_N, h, SP_W)).astype(np.int32)
+    y[:, :6, :9] = 255
+    y[:, h // 2 - 5:h // 2 + 5, 20:30] = 255
+    return x, y
+
+
+def slim(case: dict) -> dict:
+    """A case's result as a rank other than the first keeps it: its state
+    and gradients, which every rank holds alike after the step, as their
+    digests (`digest`), so that eight ranks of a ResNet do not write
+    gigabytes; the first keeps them whole."""
+    if distributed.rank() == 0:
+        return case
+    return {k: digest(v) if k in ("state", "grads") else v
+            for k, v in case.items()}
+
+
+def rem_pair(key: str) -> dict:
+    """`key`'s float32 step without remat and with it (`case_rem`),
+    compared on the rank: the losses, whether every tensor of the state
+    after them and every dropout generator's state are equal, the digest
+    of the remat step's state, both halo counts and both calls."""
+    plain = case_rem(key, torch.float32, False, full_state=True)
+    remat = case_rem(key, torch.float32, True, full_state=True)
+    a, b = plain["state"], remat["state"]
+    return {"loss": plain["loss"], "remat_loss": remat["loss"],
+            "same_state": torch.tensor(set(a) == set(b) and all(
+                torch.equal(a[k], b[k]) for k in a)),
+            "same_gens": torch.tensor(len(plain["gens"]) == len(
+                remat["gens"]) and all(torch.equal(x, y) for x, y in zip(
+                    plain["gens"], remat["gens"]))),
+            "digest": digest(b), "halos": plain["halos"],
+            "remat_halos": remat["halos"], "calls": plain["calls"],
+            "remat_calls": remat["calls"]}
+
+
+def suite_rem(outdir: str) -> dict:
+    """The cases of "rem:S": for each of REM_MODELS one step without
+    remat and one with it in float32 (`rem_pair`), one with it in
+    float64; FastSCNN's remat step against the JAX package's on its
+    (2, 4) mesh."""
+    res = {}
+    for key in REM_MODELS:
+        res[key] = rem_pair(key)
+        res[f"{key}64"] = slim(case_rem(key, torch.float64, True))
+    res["jax"] = rem_jax_case(outdir, SP_H, True)
+    return res
+
+
+def case_unev_eval(outdir: str) -> dict:
+    """FastSCNN's eval forward (the JAX spatial test's model, `fwd_init.pt`)
+    of the rank's band of `synthetic_batch(2, 160, 64, 5, seed=7)`, and the
+    split the rank's bands were cut by."""
+    from torch_semantic_segmentation_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    m = spatial_model(os.path.join(outdir, "fwd_init.pt"), True).eval()
+    (x,) = _bands(synthetic_batch(SP_N, UNEVEN_H["fastscnn"], SP_W, SP_C,
+                                  seed=7)[0])
+    with torch.no_grad():
+        logits = m(x)
+    split = distributed._split or (x.shape[1],)
+    return {"logits": logits, "split": torch.tensor(split)}
+
+
+def case_unev_ms(dtype) -> dict:
+    """FastSCNN's multi-scale + flip step (scales 0.5 .. 1.75, 1/8 logits,
+    the port's weights from seed 0) on the rank's band of a 720-row frame (BDD100K's H, which is no
+    multiple of 32: equal bands, and scales of 11, 17 and 39 blocks of 32
+    rows), the model in `dtype`: the summed probabilities, the matrix and
+    the halo exchanges."""
+    from torch_semantic_segmentation_tpu_torch import eval as teval
+    from torch_semantic_segmentation_tpu_torch.eval import (
+        evaluate, make_multiscale_eval_step)
+    m = zoo_model("fastscnn", upsample_logits=False).to(dtype)
+    rng = np.random.default_rng(13)
+    base = rng.normal(size=(ZOO_N, 720 // 8, UNEVEN_W // 8, 3))
+    x = np.repeat(np.repeat(base, 8, 1), 8, 2)
+    x = (x + 0.3 * rng.normal(size=x.shape)).astype(np.float32)
+    y = rng.integers(0, C, (ZOO_N, 720, UNEVEN_W)).astype(np.int32)
+    y[:, :6] = 255
+    y[:, 357:363, :20] = 255
+    xb, yb = _bands(x, y, max_stride=m.max_stride)
+    step = make_multiscale_eval_step(m, num_classes=C, device="cpu")
+    seen = {}
+    real = teval._summed_probs
+
+    def probs(*a):
+        seen["probs"] = real(*a)
+        return seen["probs"]
+
+    teval._summed_probs = probs
+    h0 = distributed.halo_exchanges
+    try:
+        cm = evaluate(step, [(xb.to(dtype), yb)], num_classes=C,
+                      device="cpu")[2]
+    finally:
+        teval._summed_probs = real
+    return {"probs": seen["probs"], "cm": cm,
+            "halos": torch.tensor(distributed.halo_exchanges - h0),
+            "valid": torch.tensor(int((y != 255).sum()))}
+
+
+# the other six zoo models on unequal bands: keywords, H (5 blocks of
+# their max_stride; 9 of ERFNet's and ESNet's 8)
+UNEVEN_ZOO = {"bisenet": ({"depth": 18, "upsample_logits": False}, 160),
+              "icnet": ({"depth": 18, "upsample_logits": False}, 160),
+              "lednet": ({"upsample_logits": False}, 320),
+              "contextnet": ({"upsample_logits": False}, 160),
+              "erfnet": ({}, 72), "esnet": ({}, 72)}
+
+
+def case_unev_zoo(name: str) -> dict:
+    """One train-mode forward and backward of `name` (UNEVEN_ZOO, seed 0,
+    float64, dropout on) on the rank's band of 2 images of its H: the CE
+    of every head (1/8 logits through the resize CE), the gradients
+    summed over ranks and the BN statistics after it."""
+    kw, h = UNEVEN_ZOO[name]
+    m = zoo_model(name, **kw).to(torch.float64).train()
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(ZOO_N, h, ZOO_W, 3))
+    y = rng.integers(0, C, (ZOO_N, h, ZOO_W)).astype(np.int32)
+    xb, yb = _bands(x, y, max_stride=m.max_stride)
+    heads = m(xb)
+    heads = heads if isinstance(heads, (tuple, list)) else [heads]
+    loss = sum(losses.resize_cross_entropy_loss(t, yb)
+               if t.shape[1] != yb.shape[1]
+               else losses.cross_entropy_loss(t, yb) for t in heads)
+    loss.backward()
+    distributed.all_reduce_gradients(m.parameters())
+    return {"loss": distributed.reduce_sum(loss.detach()),
+            "grads": {k: p.grad.clone() for k, p in m.named_parameters()
+                      if p.grad is not None},
+            "state": {k: v.clone() for k, v in m.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def suite_unev(outdir: str) -> dict:
+    """The cases of "unev:S": FastSCNN's eval forward and one train step
+    at 160 rows (against the JAX package's (2, 4) mesh); each of
+    REM_MODELS at its UNEVEN_H in float64, and FastSCNN in bf16 through
+    the plain versions of K1, K2 and K6 (without a group also in float32,
+    the bf16 route's yardstick); FastSCNN's remat step there too; the
+    multi-scale step on a 720-row frame."""
+    res = {"eval": case_unev_eval(outdir),
+           "jax": rem_jax_case(outdir, UNEVEN_H["fastscnn"], False)}
+    for key in REM_MODELS:
+        res[f"{key}64"] = slim(case_rem(key, torch.float64, False,
+                                        h=UNEVEN_H[key], w=UNEVEN_W))
+    res["fastscnn_bf16"] = case_rem("fastscnn", torch.float32, False,
+                                    h=UNEVEN_H["fastscnn"], w=UNEVEN_W,
+                                    compute_dtype=torch.bfloat16, k2=True)
+    if not distributed.is_initialized():
+        # the yardstick of the bf16 route: the same step in float32
+        res["fastscnn_f32"] = case_rem("fastscnn", torch.float32, False,
+                                       h=UNEVEN_H["fastscnn"], w=UNEVEN_W,
+                                       kernels=False)
+    res["fastscnn_remat64"] = slim(case_rem(
+        "fastscnn", torch.float64, True, h=UNEVEN_H["fastscnn"], w=UNEVEN_W))
+    res["ms64"] = case_unev_ms(torch.float64)
+    for name in UNEVEN_ZOO:
+        res[f"zoo_{name}"] = slim(case_unev_zoo(name))
+    return res
+
+
 # --- suite "cli": the train CLI with --multihost ---
 
 def cli_flags(store: str | None = None) -> list[str]:
@@ -1133,8 +1460,8 @@ def main() -> int:
     suite, rank, world, store, outdir = sys.argv[1:6]
     torch.set_num_threads(1)
     os.environ.update(WORLD_SIZE=world, RANK=rank, LOCAL_RANK=rank)
-    # "spatial:S", "zoo:S", "dec:S", "cas:S", "str:S" and "ms:S" split each
-    # data row's images over S
+    # "spatial:S", "zoo:S", "dec:S", "cas:S", "str:S", "ms:S", "rem:S" and
+    # "unev:S" split each data row's images over S
     # ranks ("spatial:S:grads" runs the gradient cases only, "zoo:S:step"
     # the zoo's train steps)
     num_spatial = int(suite.split(":")[1]) if ":" in suite else 1
@@ -1157,6 +1484,10 @@ def main() -> int:
         res = suite_str(outdir)
     elif suite.startswith("ms"):
         res = suite_ms(outdir)
+    elif suite.startswith("rem"):
+        res = suite_rem(outdir)
+    elif suite.startswith("unev"):
+        res = suite_unev(outdir)
     else:
         res = suite_cli(store, outdir)
     torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))

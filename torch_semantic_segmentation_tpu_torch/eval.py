@@ -8,12 +8,14 @@ and sums it; the argmax over classes updates the int64 confusion matrix.
 
 Under spatial sharding the step takes the rank's H band of each image,
 as the JAX package's jitted step takes a batch sharded on its 'spatial'
-axis: the scaled sizes are rounded from the global H (the band's rows
-times the spatial ranks), each scale's image is split into equal bands
-that every stride of the model divides, and both resizes take the bands'
-rows of the global resize (`ops.upsample`, any ratio). The flip mirrors
-W, which no band splits; the softmax and the argmax are per pixel; each
-rank counts its band's pixels and `evaluate` sums the matrices.
+axis: the scaled sizes are rounded from the global H (`global_rows`),
+each scale's image gets its own split of whole blocks of the model's
+`max_stride` rows (`distributed.split_rows`, recorded while the model
+runs on it), and both resizes take the bands' rows of the global resize
+between the two splits (`ops.upsample`, any ratio, a halo from both
+splits). The flip mirrors W, which no band splits; the softmax and the
+argmax are per pixel; each rank counts its band's pixels and `evaluate`
+sums the matrices.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from torch_semantic_segmentation_tpu_torch.device import resolve_device
 from torch_semantic_segmentation_tpu_torch.models import check_spatial_model
 from torch_semantic_segmentation_tpu_torch.ops.upsample import (
     resize_bilinear, resize_bilinear_nhcw)
-from torch_semantic_segmentation_tpu_torch.parallel import distributed
+from torch_semantic_segmentation_tpu_torch.parallel import (
+    check_spatial_extent, distributed)
 
 
 def _main_logits(outputs) -> torch.Tensor:
@@ -51,9 +54,9 @@ def make_multiscale_eval_step(
     already be there), the model in eval mode under
     `torch.inference_mode()`. Images are normalised NHWC floats. Under
     spatial sharding they and the labels are the rank's band
-    (`parallel.shard_batch(spatial=True)`, any zoo model), and a scale
-    whose rows do not split into bands of a multiple of the model's
-    `max_stride` raises ValueError (the port pads no band)."""
+    (`parallel.shard_batch(spatial=True)`, any zoo model), and every
+    scale runs on its own split; a scale whose image is degenerate on the
+    bands (`check_spatial_extent`) raises ValueError."""
     dev = resolve_device(device)
     check_spatial_model(model)
     max_stride = getattr(model, "max_stride", size_divisor)
@@ -80,29 +83,34 @@ def _summed_probs(model: nn.Module, images: torch.Tensor, scales,
     float64 model)."""
     n, h, w, _ = images.shape
     bands = distributed.num_spatial()
+    rows_in = distributed.global_rows(h)
 
     def round_div(v: float) -> int:
         return max(int(round(v / size_divisor)) * size_divisor, size_divisor)
 
     prob = None
     for s in scales:
-        rows, cols = round_div(h * bands * s), round_div(w * s)
-        if bands > 1 and rows % (bands * max_stride):
-            raise ValueError(
-                f"multi-scale eval at scale {s}: {rows} rows do not split "
-                f"into {bands} spatial bands of a multiple of the model's "
-                f"max_stride {max_stride} (the port pads no band)")
-        xs = resize_bilinear(images, (rows // bands, cols),
-                             align_corners=align_corners)
+        rows, cols = round_div(rows_in * s), round_div(w * s)
+        split = None
+        if bands > 1:
+            try:
+                check_spatial_extent(rows, bands, max_stride)
+            except ValueError as e:
+                raise ValueError(f"multi-scale eval at scale {s}: {e}") from e
+            split = distributed.split_rows(rows, bands, max_stride)
+        mine = rows if split is None else split[distributed.spatial_rank()]
+        xs = resize_bilinear(images, (mine, cols), align_corners=align_corners,
+                             out_split=split)
         for mirror in (False, True) if flip else (False,):
-            logits = _main_logits(model(xs.flip(2) if mirror else xs))
+            with distributed.recorded_split(split):
+                logits = _main_logits(model(xs.flip(2) if mirror else xs))
             if mirror:
                 logits = logits.flip(2)
             acc = (torch.float64 if logits.dtype == torch.float64
                    else torch.float32)
             p = torch.softmax(resize_bilinear_nhcw(
-                logits, (h, w), align_corners=align_corners, out_dtype=acc),
-                dim=2)
+                logits, (h, w), align_corners=align_corners, out_dtype=acc,
+                in_split=split), dim=2)
             prob = p if prob is None else prob + p
     return prob
 

@@ -225,12 +225,13 @@ def _threshold_topk_histogram(losses: torch.Tensor, valid: torch.Tensor,
 
 
 def _ohem_keep(flat: torch.Tensor, vflat: torch.Tensor, thresh: float,
-               min_kept: int, exact: bool | None) -> torch.Tensor:
-    """The mask of kept pixels of a flat loss map (no gradient). The route
-    and `min_kept` go by the global batch's pixel count, and the exact
-    route takes the top-k of every rank's valid losses."""
+               min_kept: int, exact: bool | None, rows: int) -> torch.Tensor:
+    """The mask of kept pixels of a flat loss map of `rows` rows (no
+    gradient). The route and `min_kept` go by the global batch's pixel
+    count (`distributed.global_pixels`, on bands of any split), and the
+    exact route takes the top-k of every rank's valid losses."""
     with torch.no_grad():
-        n = flat.shape[0] * distributed.world_size()
+        n = distributed.global_pixels(flat.shape[0], rows)
         k = min(int(min_kept), n)
         threshold = torch.tensor(-math.log(thresh), dtype=torch.float32,
                                  device=flat.device)
@@ -238,8 +239,13 @@ def _ohem_keep(flat: torch.Tensor, vflat: torch.Tensor, thresh: float,
             exact = n <= (1 << 20)
         if k > 0:
             if exact:
-                kth = _threshold_topk_exact(distributed.all_gather(
-                    torch.where(vflat, flat, -math.inf)), k)
+                # every rank gathers as many values as the largest band
+                # holds (unequal bands: the others pad with -inf)
+                vals = torch.where(vflat, flat, -math.inf)
+                most = flat.shape[0] // rows * distributed.largest_band(rows)
+                vals = torch.cat([vals, vals.new_full(
+                    (most - vals.shape[0],), -math.inf)])
+                kth = _threshold_topk_exact(distributed.all_gather(vals), k)
             else:
                 kth = _threshold_topk_histogram(flat, vflat, k)
             threshold = torch.minimum(threshold, kth)
@@ -263,7 +269,7 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     2^20 pixels and the bisection above."""
     loss, valid = _per_pixel_ce(logits, labels, ignore_index)
     flat, vflat = loss.reshape(-1), valid.reshape(-1)
-    keep = _ohem_keep(flat, vflat, thresh, min_kept, exact)
+    keep = _ohem_keep(flat, vflat, thresh, min_kept, exact, loss.shape[1])
     return _ohem_mean(flat, keep, labels, class_weights)
 
 
@@ -306,7 +312,7 @@ def resize_ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     loss, valid, labels = (loss.narrow(1, top, oh), valid.narrow(1, top, oh),
                            band_labels)
     flat, vflat = loss.reshape(-1), valid.reshape(-1)
-    keep = _ohem_keep(flat, vflat, thresh, min_kept, None)
+    keep = _ohem_keep(flat, vflat, thresh, min_kept, None, loss.shape[1])
     return _ohem_mean(flat, keep, labels, class_weights)
 
 

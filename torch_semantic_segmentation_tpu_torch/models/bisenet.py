@@ -29,6 +29,7 @@ from torch_semantic_segmentation_tpu_torch.device import resolve_device
 from torch_semantic_segmentation_tpu_torch.models.resnet import ResNet
 from torch_semantic_segmentation_tpu_torch.ops import (
     ConvBNAct, global_avg_pool, make_conv, make_norm, resize_bilinear)
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 class AttentionRefinement(nn.Module):
@@ -45,7 +46,9 @@ class AttentionRefinement(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
-        g = self.gate_bn(self.gate_conv(global_avg_pool(x)))
+        pooled = global_avg_pool(x)
+        with distributed.replicated():
+            g = self.gate_bn(self.gate_conv(pooled))
         return x * torch.sigmoid(g)
 
 
@@ -87,7 +90,9 @@ class ContextPath(nn.Module):
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         _, _, f16, f32 = self.backbone(x)
         ac = self.align_corners
-        tail = self.tail(global_avg_pool(f32))
+        pooled = global_avg_pool(f32)
+        with distributed.replicated():
+            tail = self.tail(pooled)
         y32 = self.arm32(f32) + tail
         y32 = self.refine32(resize_bilinear(
             y32, (f16.shape[1], f16.shape[2]), align_corners=ac))
@@ -111,7 +116,9 @@ class FeatureFusionModule(nn.Module):
 
     def forward(self, sp: torch.Tensor, cp: torch.Tensor) -> torch.Tensor:
         x = self.conv(torch.cat([sp, cp], dim=-1))
-        g = torch.sigmoid(self.se2(F.relu(self.se1(global_avg_pool(x)))))
+        pooled = global_avg_pool(x)
+        with distributed.replicated():
+            g = torch.sigmoid(self.se2(F.relu(self.se1(pooled))))
         return x + x * g
 
 

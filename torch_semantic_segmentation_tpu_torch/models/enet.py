@@ -175,7 +175,7 @@ class ENet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # on an H band these are the band's rows: its pool windows and
         # stride-2 grids must be the image's, so a band needs H % 8 too
-        # (`check_even_split` makes every band a multiple of 8)
+        # (`distributed.split_rows` deals bands of whole blocks of 8)
         h, w = x.shape[1], x.shape[2]
         if h % 8 or w % 8:
             raise ValueError(

@@ -181,10 +181,10 @@ class FastSCNN(nn.Module):
     def forward(self, x: torch.Tensor):
         # under spatial sharding x is an H band: the check is on the image
         h, w = x.shape[1], x.shape[2]
-        if h * distributed.num_spatial() % 32 or w % 32:
+        if distributed.global_rows(h) % 32 or w % 32:
             raise ValueError(
                 f"FastSCNN needs H and W divisible by 32 (5 stride-2 stages); "
-                f"got {h * distributed.num_spatial()}x{w}")
+                f"got {distributed.global_rows(h)}x{w}")
         hi = self.lds(x)               # 1/8
         lo = self.gfe(hi)              # 1/32
         logits = self.classifier(self.ffm(hi, lo))

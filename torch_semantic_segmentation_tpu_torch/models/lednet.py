@@ -29,6 +29,7 @@ from torch_semantic_segmentation_tpu_torch.models.erfnet import (
 from torch_semantic_segmentation_tpu_torch.ops import (
     ConvBNAct, global_avg_pool, make_conv, make_norm, resize_bilinear)
 from torch_semantic_segmentation_tpu_torch.ops.dropout import Dropout
+from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
@@ -123,7 +124,10 @@ class APN(nn.Module):
                             align_corners=ac)
         a = resize_bilinear(a + self.level1(d1), tuple(x.shape[1:3]),
                             align_corners=ac)
-        return self.main(x) * a + self.pool_proj(global_avg_pool(x))
+        y = self.main(x) * a
+        pooled = global_avg_pool(x)
+        with distributed.replicated():
+            return y + self.pool_proj(pooled)
 
 
 class LEDNet(nn.Module):

@@ -116,7 +116,9 @@ class PyramidPooling(nn.Module):
         n, h, w, c = x.shape
         feats = [x]
         for b, conv in zip(self.bins, self.branches):
-            y = conv(adaptive_avg_pool2d(x, b))
+            pooled = adaptive_avg_pool2d(x, b)
+            with distributed.replicated():
+                y = conv(pooled)
             feats.append(resize_bilinear(y, (h, w),
                                          align_corners=self.align_corners,
                                          source="replicated"))
@@ -146,7 +148,9 @@ class ASPP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, h, w, _ = x.shape
         feats = [self.conv1(x)] + [conv(x) for conv in self.atrous]
-        gp = self.image_pool(global_avg_pool(x, keepdims=True))
+        pooled = global_avg_pool(x, keepdims=True)
+        with distributed.replicated():
+            gp = self.image_pool(pooled)
         feats.append(gp.expand(n, h, w, gp.shape[-1]))
         return self.project(torch.cat(feats, dim=-1))
 

@@ -68,16 +68,17 @@ def apply_running_stats(pending: list) -> None:
 def batch_moments(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     """(E[x], E[x²]) over `dims` of the global batch: the rank's own means,
     and under a process group their weighted sum over ranks in one
-    collective that carries gradients. Every rank holds an equal share of
-    the batch (`distributed.local_shard_range`), so each weighs 1/R; with
-    one rank the weight is 1.0 and the result the rank's own, bit for
-    bit."""
+    collective that carries gradients. Each rank weighs its share of the
+    global batch's pixels (`distributed.pixel_share`: 1/R on equal shares,
+    its band's rows over the image's on unequal bands, 1/R for a tensor
+    the same on every band); with one rank the weight is 1.0 and the
+    result the rank's own, bit for bit."""
     mean = x.mean(dim=dims)
     sq = (x * x).mean(dim=dims)
     if not distributed.is_initialized():
         return mean, sq
     both = distributed.all_reduce_sum(
-        torch.stack([mean, sq]) * (1.0 / distributed.world_size()))
+        torch.stack([mean, sq]) * distributed.pixel_share(x.shape[1]))
     return both[0], both[1]
 
 
@@ -331,7 +332,7 @@ class ConvBNAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # on an H band: the conv (or K6) on band + halo, cropped to the
         # band, so that BN's moments never see a halo row
-        rows = x.shape[1] * distributed.num_spatial()
+        rows = distributed.global_rows(x.shape[1])
         y = self.conv.on_band(lambda xh: self._conv(xh, rows), x)
         if self.bn is not None:
             y = self.bn(y)

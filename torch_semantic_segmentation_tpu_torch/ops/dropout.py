@@ -17,7 +17,8 @@ the mask is drawn at the global batch's N (one value for all N where 0 is
 in `broadcast_dims`) and the rank keeps its rows, so every generator stays
 in step with the single process's. Under spatial sharding the input is an
 H band of those rows: the mask is drawn at the global H too (where 1 is not
-in `broadcast_dims`) and the rank keeps its band."""
+in `broadcast_dims`) and the rank keeps its band, as the split cuts it
+(`distributed.band_rows`)."""
 
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ class Dropout(nn.Module):
         if 0 not in self.broadcast_dims:
             shape[0] *= distributed.data_size()
         if 1 not in self.broadcast_dims:
-            shape[1] *= distributed.num_spatial()
+            shape[1] = distributed.global_rows(shape[1])
         u = torch.rand(shape, generator=self.generator, device=x.device)
         if 0 not in self.broadcast_dims:
             u = distributed.shard_rows(u)

@@ -39,9 +39,10 @@ def folded_1x1_weights(conv: Conv2d, bn: BatchNorm2d, x: torch.Tensor
     second = (xr.t() @ xr) / xr.shape[0]                       # E[x xᵀ]
     mu_x = xr.mean(dim=0)
     if distributed.is_initialized():
-        # equal shares of the batch: each rank's moments weigh 1/R
+        # each rank's moments weigh its share of the batch's pixels
         both = distributed.all_reduce_sum(
-            torch.cat([second, mu_x[None]]) * (1.0 / distributed.world_size()))
+            torch.cat([second, mu_x[None]]) * distributed.pixel_share(
+                x.shape[1]))
         second, mu_x = both[:c_in], both[c_in]
 
     mu_lin = mu_x @ wf                                          # E[x·W]

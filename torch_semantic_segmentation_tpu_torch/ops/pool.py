@@ -89,7 +89,7 @@ def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     if not distributed.is_spatial():
         return _accumulate(x).mean(dim=(1, 2), keepdim=keepdims).to(x.dtype)
     total = _accumulate(x).sum(dim=(1, 2), keepdim=keepdims)
-    rows = x.shape[1] * distributed.num_spatial()
+    rows = distributed.global_rows(x.shape[1])
     return (distributed.spatial_sum(total) / (rows * x.shape[2])).to(x.dtype)
 
 
@@ -103,12 +103,12 @@ def adaptive_avg_pool2d(x: torch.Tensor,
     else:
         oh, ow = output_size
     n, h, w, c = x.shape
-    spatial = distributed.num_spatial()
-    if spatial == 1 and (oh, ow) == (h, w):
+    if not distributed.is_spatial() and (oh, ow) == (h, w):
         return x
     xf = _accumulate(x)
-    mh = torch.from_numpy(_pool_matrix(h * spatial, oh)).to(xf)
-    mh = mh[:, distributed.spatial_rank() * h:][:, :h]
+    mh = torch.from_numpy(_pool_matrix(distributed.global_rows(h), oh)).to(xf)
+    if distributed.is_spatial():
+        mh = mh[:, distributed.band_start(h):][:, :h]
     mw = torch.from_numpy(_pool_matrix(w, ow)).to(xf)
     y = distributed.spatial_sum(torch.einsum("nhwc,oh->nowc", xf, mh))
     y = torch.einsum("nhwc,ow->nhoc", y, mw)

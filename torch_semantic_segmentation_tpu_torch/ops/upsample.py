@@ -22,15 +22,19 @@ forward and backward. An input that is the same on every band (the
 PPM's bins, `source="replicated"`) takes the band's rows of the global
 matrix.
 
-Any other ratio of a band with align_corners=False (the multi-scale eval
-step's 1024 → 768 or 160 → 1024 rows: global sizes h·S → oh·S) takes the
-general route: output row o reads src(o) = (o + ½)·H/OH − ½, and for the
-band's rows [r·oh, (r+1)·oh) that lies within half a row of the band's
-source rows [r·h, (r+1)·h), so the band takes one halo row each side
-(none at the image's edges) and applies the global matrix's rows
-[r·oh, (r+1)·oh), restricted to the source rows band + halo hold: the
-global matrix's other columns are zero there. It is autograd-able (the
-halo sends its rows' gradients back), but only its forward is tested.
+Any other pair of splits with align_corners=False (the multi-scale eval
+step's 720 → 544 rows, split 360/360 → 288/256) takes the general route:
+output row o reads src(o) = (o + ½)·H/OH − ½, so each band's output rows
+read a window of source rows that may reach past its own band by another
+amount on each side, and past the next band (`_resize_windows`, from the
+global matrix's nonzero columns, at least one halo row each side and
+none past the image's edges, the same on every rank); the band takes its
+window's rows (`distributed.halo_window`) and applies the global
+matrix's rows of its output band, restricted to the window: the global
+matrix's other columns are zero there. On equal bands the window is the
+band and one halo row each side. It is autograd-able (the halo sends
+its rows' gradients back), but only its forward is tested. The route is
+decided on the splits, so every band takes the same one.
 align_corners=True on a band raises `NotImplementedError`.
 
 A pass whose ratio is no integer ×k or ×1/k (align_corners=False) runs
@@ -177,25 +181,30 @@ def _pass(x: torch.Tensor, eq: str, spec: tuple, dtype: torch.dtype,
 
 
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int], *,
-                    align_corners: bool = False,
-                    source: str = "band") -> torch.Tensor:
+                    align_corners: bool = False, source: str = "band",
+                    in_split: tuple[int, ...] | None = None,
+                    out_split: tuple[int, ...] | None = None) -> torch.Tensor:
     """Bilinear-resize NHWC `x` to `size` = (H_out, W_out); accumulates in
     float32 (float64 for a float64 x, as the pools do) and casts back to
     x's dtype. Under spatial sharding `size` is the band's and `x` an H
     band of the image (`source="band"`, any ratio), or the same on every
-    band (`source="replicated"`)."""
+    band (`source="replicated"`). The input's and the output's splits are
+    the record's at their levels (`distributed.band_split`), or the
+    image-level splits `in_split` and `out_split` where a caller resizes
+    between two images of their own splits (the multi-scale eval step)."""
     if not distributed.is_spatial():
         return _resize_bilinear(x, size, None, align_corners)
     n, h, w, c = x.shape
     oh, ow = size
+    dst = distributed.band_split(oh, out_split)
     if source == "replicated":
-        rows = oh * distributed.num_spatial()
         return _resize_bilinear(x, size, (
-            h, rows, distributed.spatial_rank() * oh, oh, 0, h,
+            h, sum(dst), distributed.band_start(oh, out_split), oh, 0, h,
             align_corners), align_corners)
-    scale = _band_scale(h, oh, align_corners)
+    src = distributed.band_split(h, in_split)
+    scale = _band_scale(src, dst, align_corners)
     if scale is None:
-        xh, hpass = _band_window(x, oh)
+        xh, hpass = _band_window(x, src, dst)
         return _resize_bilinear(xh, size, hpass, align_corners)
     halo, up, down = scale
     if (up, down, ow) == (1, 1, w):
@@ -206,31 +215,59 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int], *,
         x, halo, halo, up=up, down=down)
 
 
-def _band_scale(h: int, oh: int,
+def _band_scale(src: tuple[int, ...], dst: tuple[int, ...],
                 align_corners: bool) -> tuple[int, int, int] | None:
-    """(halo, up, down) of an H band's resize from h to oh rows: an
-    integer ×k (1, k, 1), whose band takes one halo row each side, or ×1/k
-    (0, 1, k), which takes none; None for any other ratio (the general
-    route, `_band_window`). Raises for align_corners=True."""
+    """(halo, up, down) of an H band's resize between the splits `src` and
+    `dst` (each band's rows): every band an integer ×k (1, k, 1), whose
+    band takes one halo row each side, or ×1/k (0, 1, k), which takes
+    none; None for any other pair (the general route, `_band_window`).
+    The route is the splits', so every band takes the same one. Raises
+    for align_corners=True."""
+    h, oh = sum(src), sum(dst)
     if align_corners:
+        s = distributed.spatial_rank()
         raise NotImplementedError(
-            f"a resize of an H band from {h} to {oh} rows with "
-            "align_corners=True: spatial sharding takes align_corners=False")
-    if oh >= h and oh % h == 0:
+            f"a resize of an H band from {src[s]} to {dst[s]} rows (of "
+            f"{h} to {oh}) with align_corners=True: spatial sharding takes "
+            "align_corners=False")
+    if oh >= h and all(o == r * (oh // h) for r, o in zip(src, dst)):
         return 1, oh // h, 1
-    if 0 < oh < h and h % oh == 0:
+    if 0 < oh < h and all(r == o * (h // oh) for r, o in zip(src, dst)):
         return 0, 1, h // oh
     return None
 
 
-def _band_window(x: torch.Tensor, oh: int) -> tuple[torch.Tensor, tuple]:
-    """The general route's band + one halo row each side, and its H pass:
-    the global matrix's rows of the band, restricted to the source rows
-    that band and halo hold, for an H band x resized to oh rows."""
-    h, s, n = x.shape[1], distributed.spatial_rank(), distributed.num_spatial()
-    top, bottom = distributed.halo_rows(1, 1, h)
-    return distributed.halo(x, 1, 1), (
-        h * n, oh * n, s * oh, oh, s * h - top, (s + 1) * h + bottom, False)
+@functools.lru_cache(maxsize=None)
+def _resize_windows(src: tuple[int, ...], dst: tuple[int, ...]) -> tuple:
+    """Each band's window of source rows [first, end) for the general
+    route from the split `src` to `dst`: the source rows its output rows
+    read (the global matrix's nonzero columns there) and at least one
+    halo row each side (none past the image's edges), its own rows
+    within. Every rank derives the same windows, so a halo that reaches
+    past the next band, or by another amount on each side, is exchanged
+    alike on the sending and the receiving side."""
+    h, oh = sum(src), sum(dst)
+    nz = _interp_matrix(h, oh, False) != 0
+    out, lo, first = [], 0, 0
+    for r, o in zip(src, dst):
+        cols = np.flatnonzero(nz[first:first + o].any(axis=0))
+        out.append((min(int(cols[0]), max(0, lo - 1)),
+                    max(int(cols[-1]) + 1, min(h, lo + r + 1))))
+        lo, first = lo + r, first + o
+    return tuple(out)
+
+
+def _band_window(x: torch.Tensor, src: tuple[int, ...],
+                 dst: tuple[int, ...]) -> tuple[torch.Tensor, tuple]:
+    """The general route's band + its window's halo rows
+    (`_resize_windows`), and its H pass: the global matrix's rows of the
+    band's output rows, restricted to the source rows that band and halo
+    hold, for an H band x of the split `src` resized to `dst`."""
+    s = distributed.spatial_rank()
+    windows = _resize_windows(src, dst)
+    first, end = windows[s]
+    return distributed.halo_window(x, src, windows), (
+        sum(src), sum(dst), sum(dst[:s]), dst[s], first, end, False)
 
 
 def _resize_bilinear(x: torch.Tensor, size: tuple[int, int],
@@ -252,19 +289,26 @@ def _resize_bilinear(x: torch.Tensor, size: tuple[int, int],
 
 def resize_bilinear_nhcw(x: torch.Tensor, size: tuple[int, int], *,
                          align_corners: bool = False,
-                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                         out_dtype: torch.dtype | None = None,
+                         in_split: tuple[int, ...] | None = None,
+                         out_split: tuple[int, ...] | None = None
+                         ) -> torch.Tensor:
     """Bilinear-resize NHWC `x` to `size`, returned as (N, OH, C, OW), in
     float32 unless `out_dtype` says otherwise. The products run in x's
     dtype; the intermediate between the W and H passes is kept in x's
     dtype. Under spatial sharding `size` is the band's and `x` an H band
-    of the image (any ratio, as `resize_bilinear`)."""
+    of the image (any ratio and splits, as `resize_bilinear`)."""
     h, oh = x.shape[1], size[0]
     out_dtype = torch.float32 if out_dtype is None else out_dtype
-    if tuple(size) == (h, x.shape[2]) or not distributed.is_spatial():
+    if not distributed.is_spatial():
         return _resize_nhcw(x, size, None, align_corners, out_dtype)
-    scale = _band_scale(h, oh, align_corners)
+    src = distributed.band_split(h, in_split)
+    dst = distributed.band_split(oh, out_split)
+    if src == dst and size[1] == x.shape[2]:
+        return _resize_nhcw(x, size, None, align_corners, out_dtype)
+    scale = _band_scale(src, dst, align_corners)
     if scale is None:
-        xh, hpass = _band_window(x, oh)
+        xh, hpass = _band_window(x, src, dst)
         return _resize_nhcw(xh, size, hpass, align_corners, out_dtype)
     halo, up, down = scale
     return distributed.on_band(

@@ -6,11 +6,9 @@ where an op reads a neighbouring band's rows (`distributed`), and the
 placement helpers that remain without a mesh (`mesh`)."""
 
 from torch_semantic_segmentation_tpu_torch.parallel.mesh import (
-    check_even_split,
     check_spatial_extent,
     replicate,
     shard_batch,
 )
 
-__all__ = ["check_even_split", "check_spatial_extent", "replicate",
-           "shard_batch"]
+__all__ = ["check_spatial_extent", "replicate", "shard_batch"]

@@ -24,19 +24,30 @@ always did.
 Spatial sharding (the JAX package's 'spatial' mesh axis, `num_spatial`):
 the world is `world / num_spatial` data rows of `num_spatial` consecutive
 ranks. A rank holds its data row's images of the global batch
-(`local_shard_range`, `shard_rows`) and an equal band of H rows of each
-(`band_rows`). GSPMD inserts the halo exchanges there; here every op that
-reads neighbouring rows calls `on_band`: it takes `halo` rows from the
-bands above and below (`halo`, an autograd function whose backward sends
-each halo row's gradient back to its owner), runs on band + halo and
-crops back to the band. A halo longer than a band (ASPP's rate 18 at
-1/16) gathers from as many bands as it spans. No halo row is taken past
-the image's global top and bottom, where the op's own padding is the
-global one. A reduction over H sums the band's part over the data row
-(`spatial_sum`, one process subgroup a data row). `world_size()` stays
-every rank: each holds an equal share of the global batch's pixels, so
-the moments, losses and gradients above still weigh each rank 1/R and
-sum every pixel once.
+(`local_shard_range`, `shard_rows`) and a band of H rows of each. The
+split of H over the bands is one record (`split_rows`, `record_split`),
+made by whoever cuts bands (`parallel.shard_batch`, the multi-scale eval
+step for each scale's image): where H is a multiple of the model's
+`max_stride` the H / max_stride blocks of that many rows are dealt as
+evenly as they go, the first bands taking one more, so every stride-2
+stage of every band stays on the global grid; any other H splits into
+H / num_spatial equal rows, as the JAX package's `device_put` splits it.
+Every band operation reads its band's global offset, the global rows and
+its neighbours' rows from that record, scaled to the level it runs at
+(`band_split`, `band_start`, `global_rows`). GSPMD inserts the halo
+exchanges there; here every op that reads neighbouring rows calls
+`on_band`: it takes `halo` rows from the bands above and below (`halo`,
+an autograd function whose backward sends each halo row's gradient back
+to its owner), runs on band + halo and crops back to the band. A halo
+longer than a band (ASPP's rate 18 at 1/16) gathers from as many bands as
+it spans. No halo row is taken past the image's global top and bottom,
+where the op's own padding is the global one. A reduction over H sums
+the band's part over the data row (`spatial_sum`, one process subgroup a
+data row). `world_size()` stays every rank; the moments weigh each rank
+by its share of the global batch's pixels (`pixel_share`), and the losses
+and gradients sum every pixel once. A checkpointed segment's recompute
+exchanges its halos again, as `jax.checkpoint` reruns GSPMD's exchanges:
+the exchanges block, and every rank runs them in one order.
 
 `initialize()` follows torchrun's contract: `WORLD_SIZE`, `RANK`,
 `LOCAL_RANK`, and `MASTER_ADDR` / `MASTER_PORT` for `env://`. NCCL on the
@@ -50,6 +61,7 @@ NCCL refuses.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import typing as tp
 
@@ -61,6 +73,11 @@ ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK")
 _device: torch.device | None = None
 _num_spatial = 1
 _row_group = None   # this rank's data row: its spatial ranks' subgroup
+# the split of the image last cut into bands: each band's rows, top first
+# (None: equal bands)
+_split: tuple[int, ...] | None = None
+# depth of `replicated()` blocks
+_replicated = 0
 
 # collectives launched since the last reset (none without a group)
 collectives = 0
@@ -86,7 +103,7 @@ def initialize(device: str | torch.device | None = None, *,
     is missing, when there is no card or NCCL for a card's rank, when
     LOCAL_RANK names no card, or when `num_spatial` does not divide the
     world."""
-    global _device, _num_spatial, _row_group
+    global _device, _num_spatial, _row_group, _split
     if dist.is_initialized():
         return _device
     missing = [k for k in ENV if k not in os.environ]
@@ -128,6 +145,7 @@ def initialize(device: str | torch.device | None = None, *,
         device_id=dev if backend == "nccl" else None)
     _device = dev
     _num_spatial = num_spatial
+    _split = None
     if num_spatial > 1:
         # every rank takes part in making every subgroup, in one order
         for row in range(world // num_spatial):
@@ -140,10 +158,10 @@ def initialize(device: str | torch.device | None = None, *,
 
 def destroy() -> None:
     """Leave the process group (a no-op without one)."""
-    global _device, _num_spatial, _row_group
+    global _device, _num_spatial, _row_group, _split
     if dist.is_initialized():
         dist.destroy_process_group()
-    _device, _num_spatial, _row_group = None, 1, None
+    _device, _num_spatial, _row_group, _split = None, 1, None, None
 
 
 def is_initialized() -> bool:
@@ -215,14 +233,152 @@ def shard_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return x.narrow(dim, data_rank() * per, per)
 
 
+def split_rows(h: int, n: int, max_stride: int = 1) -> tuple[int, ...]:
+    """The rows of each of `n` bands of an image of `h` rows, top first:
+    where `max_stride` divides h, its h / max_stride blocks of max_stride
+    rows dealt as evenly as they go, the first bands taking one more (160
+    on 4 bands at 32: 64/32/32/32); any other h in h / n equal rows, as
+    the JAX package's `device_put` splits it. Raises ValueError, in the
+    words of that refusal, where n does not divide h."""
+    if h % n:
+        raise ValueError(
+            f"One of device_put args was given the sharding of "
+            f"NamedSharding(spatial={n}), which implies that the global size "
+            f"of its dimension 1 should be divisible by {n}, but it is "
+            f"equal to {h} (full shape: H={h})")
+    if h % max_stride:
+        return (h // n,) * n
+    q, r = divmod(h // max_stride, n)
+    return tuple((q + (i < r)) * max_stride for i in range(n))
+
+
+def record_split(split: tp.Sequence[int] | None) -> None:
+    """Record the split (each band's rows, top first) of the image that
+    the band operations run on from now on: `parallel.shard_batch` records
+    the batch's. None records equal bands."""
+    global _split
+    _split = None if split is None else tuple(int(r) for r in split)
+
+
+@contextlib.contextmanager
+def recorded_split(split: tp.Sequence[int] | None):
+    """Within the block the band operations run on an image of `split`
+    (the multi-scale eval step's scaled image); the record before it comes
+    back after."""
+    saved = _split
+    record_split(split)
+    try:
+        yield
+    finally:
+        record_split(saved)
+
+
+def band_split(rows: int, split: tp.Sequence[int] | None = None
+               ) -> tuple[int, ...]:
+    """Each band's rows at the level where this band has `rows`: the
+    image's split (`split`, or the record) scaled by rows over this band's
+    rows in it, so that every band of a stride-s stage holds its image
+    rows / s. Without a record, equal bands. Raises ValueError where the
+    scaled split is not whole rows: `rows` lies at no level of it."""
+    n = num_spatial()
+    base = _split if split is None else tuple(split)
+    if base is None:
+        return (rows,) * n
+    if len(base) != n:
+        raise ValueError(f"a split of {len(base)} bands under "
+                         f"{n} spatial ranks")
+    mine = base[spatial_rank()]
+    if any(r * rows % mine for r in base):
+        raise ValueError(f"a band of {rows} rows is at no level of the "
+                         f"split {base}")
+    return tuple(r * rows // mine for r in base)
+
+
+def band_start(rows: int, split: tp.Sequence[int] | None = None) -> int:
+    """This band's first row in the global rows (`band_split`)."""
+    return sum(band_split(rows, split)[:spatial_rank()])
+
+
+def global_rows(rows: int) -> int:
+    """The image's rows at the level where this band has `rows` (rows
+    itself without spatial sharding, and for a tensor the same on every
+    band, within `replicated()`)."""
+    if not _banded():
+        return rows
+    return sum(band_split(rows))
+
+
+def global_split(h: int) -> tuple[int, ...]:
+    """The record scaled to an image of `h` global rows (a draw made at
+    the global H); equal bands without a record. Raises ValueError where
+    that is not whole rows."""
+    n = num_spatial()
+    if _split is None:
+        if h % n:
+            raise ValueError(f"{h} rows do not split into {n} bands")
+        return (h // n,) * n
+    total = sum(_split)
+    if any(r * h % total for r in _split):
+        raise ValueError(f"{h} global rows are at no level of the split "
+                         f"{_split}")
+    return tuple(r * h // total for r in _split)
+
+
+def largest_band(rows: int) -> int:
+    """The rows of the largest band at the level where this band has
+    `rows` (rows itself without spatial sharding)."""
+    return max(band_split(rows)) if _banded() else rows
+
+
 def band_rows(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     """This rank's band of `x` along `dim`, the image's H: the rows of a
-    draw made at the global H (x itself without spatial sharding)."""
-    n = num_spatial()
-    if n == 1:
+    draw made at the global H, cut as the record splits it (x itself
+    without spatial sharding)."""
+    if num_spatial() == 1:
         return x
-    per = x.shape[dim] // n
-    return x.narrow(dim, spatial_rank() * per, per)
+    split = global_split(x.shape[dim])
+    s = spatial_rank()
+    return x.narrow(dim, sum(split[:s]), split[s])
+
+
+@contextlib.contextmanager
+def replicated():
+    """Within the block the tensors are the same on every band of a data
+    row (a global pool's, the PPM's bins), whole on each, not bands: the
+    ops take no halo (`halo`, `on_band`), their global rows are their own
+    and `pixel_share` weighs their ranks equally."""
+    global _replicated
+    _replicated += 1
+    try:
+        yield
+    finally:
+        _replicated -= 1
+
+
+def _banded() -> bool:
+    """Whether the tensors are bands: spatial sharding, outside
+    `replicated()`."""
+    return is_spatial() and not _replicated
+
+
+def pixel_share(rows: int) -> float:
+    """This rank's share of the global batch's pixels for a tensor whose
+    band has `rows` rows: its band's rows over the global rows, over the
+    data rows (equal shares of the batch, `local_shard_range`); 1/R
+    without spatial sharding, within `replicated()`, and on equal bands
+    (bit for bit: r / (r·R) rounds as 1/R does)."""
+    if not _banded():
+        return 1.0 / world_size()
+    return rows / (global_rows(rows) * data_size())
+
+
+def global_pixels(count: int, rows: int) -> int:
+    """The global batch's count of the values of which this rank holds
+    `count`, on its band of `rows` rows (count · R without spatial
+    sharding)."""
+    if not _banded():
+        return count * world_size()
+    return count // rows * global_rows(rows) * data_size()
 
 
 def local_batch_iterator(dataset, global_batch: int, *,
@@ -330,80 +486,79 @@ def _exchange(sends: list, recvs: list, like: torch.Tensor) -> list:
 def halo_rows(top: int, bottom: int, rows: int) -> tuple[int, int]:
     """(t, b): the rows of a halo of `top` and `bottom` rows that reach a
     band of `rows` rows, this rank's: as many as lie between the band and
-    the image's global top and bottom, so none at the image's edges and
-    fewer near them (0, 0 without spatial sharding)."""
-    if not is_spatial():
+    the image's global top and bottom (`band_split`), so none at the
+    image's edges and fewer near them (0, 0 without spatial sharding)."""
+    if not _banded():
         return 0, 0
-    s, n = spatial_rank(), num_spatial()
-    return min(top, s * rows), min(bottom, (n - 1 - s) * rows)
+    split = band_split(rows)
+    lo = sum(split[:spatial_rank()])
+    return min(top, lo), min(bottom, sum(split) - lo - rows)
 
 
-def _spans(halo: int, rows: int, peers: int) -> list[tuple[int, int]]:
-    """[(k, m)]: a halo of `halo` rows over bands of `rows` rows takes m
-    rows from the band k away (k = 1 the nearest, a whole band where the
-    halo reaches past it), for the `peers` bands there are that way."""
+def _windows(split: tuple[int, ...], top: int, bottom: int) -> tuple:
+    """Each band's [first, end) global rows with a halo of `top` and
+    `bottom` rows, stopped at the image's edges."""
+    out, lo, h = [], 0, sum(split)
+    for r in split:
+        out.append((max(0, lo - top), min(h, lo + r + bottom)))
+        lo += r
+    return tuple(out)
+
+
+def _parts(split: tuple[int, ...], windows: tuple) -> list:
+    """[(k, j, first, end)]: the global rows [first, end) of band k that
+    band j's window holds besides its own, for every pair k ≠ j with
+    some, in the order of (k, j)."""
+    starts = [sum(split[:k]) for k in range(len(split))]
     out = []
-    for k in range(1, peers + 1):
-        m = min(rows, halo - (k - 1) * rows)
-        if m <= 0:
-            break
-        out.append((k, m))
+    for k, (s0, r) in enumerate(zip(starts, split)):
+        for j, (a, b) in enumerate(windows):
+            lo, hi = max(a, s0), min(b, s0 + r)
+            if k != j and lo < hi:
+                out.append((k, j, lo, hi))
     return out
 
 
 class _Halo(torch.autograd.Function):
-    """Band + halo along dim 1 (H of NHWC and NHW): `top` rows from the
-    bands above and `bottom` from the bands below, from as many bands as
-    the halo spans (the nearest band's last or first rows, then the next
-    one's, ...), none past the image's global top and bottom. Each pair of
-    bands exchanges at most one message each way. The backward sends each
-    halo row's gradient back to the band it came from, which adds it to
-    its own row's."""
+    """Band + halo along dim 1 (H of NHWC and NHW): band j's window of
+    global rows `windows[j]` (its own rows within it) on the bands of
+    `split`, gathered from as many bands as the window spans (the rows
+    above first, in the order they lie). Each pair of bands exchanges at
+    most one message each way, and every rank derives the same pairs from
+    the same split and windows, so the sending and the receiving side
+    agree. The backward sends each halo row's gradient back to the band
+    it came from, which adds it to its own row's."""
 
     @staticmethod
-    def forward(ctx, x, top: int, bottom: int):
-        s, n = spatial_rank(), num_spatial()
-        rows = x.shape[1]
-        # what this band gives: its last rows to the bands below (their
-        # top halos), its first rows to the bands above (their bottom)
-        give_down = _spans(top, rows, n - 1 - s)
-        give_up = _spans(bottom, rows, s)
-        # what it takes: the top halo farthest band first, the bottom
-        # halo nearest first, in the order the rows lie
-        above = _spans(top, rows, s)[::-1]
-        below = _spans(bottom, rows, n - 1 - s)
-        ctx.plan = (rows, give_down, give_up, above, below)
-        sends = ([(x[:, rows - m:], s + k) for k, m in give_down]
-                 + [(x[:, :m], s - k) for k, m in give_up])
-        recvs = ([((x.shape[0], m, *x.shape[2:]), s - k) for k, m in above]
-                 + [((x.shape[0], m, *x.shape[2:]), s + k)
-                    for k, m in below])
+    def forward(ctx, x, split, windows):
+        s = spatial_rank()
+        start = sum(split[:s])
+        parts = _parts(split, windows)
+        give = [(j, lo - start, hi - lo) for k, j, lo, hi in parts if k == s]
+        take = [(k, hi - lo) for k, j, lo, hi in parts if j == s]
+        ctx.plan = (give, take, x.shape[1])
+        sends = [(x[:, at:at + m], j) for j, at, m in give]
+        recvs = [((x.shape[0], m, *x.shape[2:]), k) for k, m in take]
         got = _exchange(sends, recvs, x)
-        return torch.cat([*got[:len(above)], x, *got[len(above):]], dim=1)
+        above = sum(1 for k, _ in take if k < s)
+        return torch.cat([*got[:above], x, *got[above:]], dim=1)
 
     @staticmethod
     def backward(ctx, g):
-        rows, give_down, give_up, above, below = ctx.plan
+        give, take, rows = ctx.plan
         s = spatial_rank()
-        t = sum(m for _, m in above)
-        sends, at = [], 0
-        for k, m in above:
-            sends.append((g[:, at:at + m], s - k))
+        sends, at, passed = [], 0, False
+        for k, m in take:
+            if k > s and not passed:
+                at, passed = at + rows, True
+            sends.append((g[:, at:at + m], k))
             at += m
-        at += rows
-        for k, m in below:
-            sends.append((g[:, at:at + m], s + k))
-            at += m
-        recvs = ([((g.shape[0], m, *g.shape[2:]), s + k)
-                  for k, m in give_down]
-                 + [((g.shape[0], m, *g.shape[2:]), s - k)
-                    for k, m in give_up])
+        t = sum(m for k, m in take if k < s)
+        recvs = [((g.shape[0], m, *g.shape[2:]), j) for j, _, m in give]
         got = _exchange(sends, recvs, g)
         dx = g[:, t:t + rows].clone()
-        for (_, m), d in zip(give_down, got[:len(give_down)]):
-            dx[:, rows - m:] += d
-        for (_, m), d in zip(give_up, got[len(give_down):]):
-            dx[:, :m] += d
+        for (_, a, m), d in zip(give, got):
+            dx[:, a:a + m] += d
         return dx, None, None
 
 
@@ -413,11 +568,28 @@ def halo(x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
     as they span and none past the image's global top and bottom
     (`halo_rows` says how many arrive; x itself without spatial
     sharding); gradients go back to their bands."""
-    if not is_spatial() or not (top or bottom):
+    if not _banded() or not (top or bottom):
         return x
     if min(top, bottom) < 0:
         raise ValueError(f"a halo of {top}, {bottom} rows")
-    return _Halo.apply(x, top, bottom)
+    split = band_split(x.shape[1])
+    return _Halo.apply(x, split, _windows(split, top, bottom))
+
+
+def halo_window(x: torch.Tensor, split: tuple[int, ...],
+                windows: tuple) -> torch.Tensor:
+    """x, this rank's band of `split` (each band's rows at x's level),
+    with the rows of its window `windows[rank]` (global [first, end)
+    rows, its band within) from the bands they lie on; `windows` holds
+    every band's, the same on every rank (a resize between two splits
+    that are not proportional reads past each band by its own amount)."""
+    s = spatial_rank()
+    start = sum(split[:s])
+    a, b = windows[s]
+    if a > start or b < start + split[s] or x.shape[1] != split[s]:
+        raise ValueError(f"a window {windows[s]} of a band of rows "
+                         f"[{start}, {start + x.shape[1]})")
+    return _Halo.apply(x, tuple(split), tuple(windows))
 
 
 def on_band(fn, x: torch.Tensor, top: int, bottom: int, up: int = 1,
@@ -430,8 +602,9 @@ def on_band(fn, x: torch.Tensor, top: int, bottom: int, up: int = 1,
     (`halo_rows`). Where a halo stops at the image's global top or bottom,
     `fn`'s own padding falls where the single process pads. A band whose
     rows the stride does not divide raises: its rows of the result would
-    not start on the global grid. Without spatial sharding, `fn(x)`."""
-    if not is_spatial():
+    not start on the global grid. Without spatial sharding, and within
+    `replicated()`, `fn(x)`."""
+    if not _banded():
         return fn(x)
     if x.shape[1] * up % down:
         raise ValueError(f"a band of {x.shape[1]} rows is off the "

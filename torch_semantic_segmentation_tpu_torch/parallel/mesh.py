@@ -13,10 +13,13 @@ What remains is what a caller does by hand: `replicate` makes every
 rank's parameters and buffers rank 0's, and `shard_batch` takes rank r's
 rows of a global batch that a caller holds whole, and with `spatial=True`
 its band of each image's rows. The 'spatial' axis is
-`distributed.initialize(num_spatial=...)`; `check_spatial_extent` is the
-JAX package's guard against degenerate bands, and `check_even_split` the
-port's own: the bands are equal and every stride-2 stage stays aligned,
-where the JAX package lets GSPMD pad an uneven split.
+`distributed.initialize(num_spatial=...)`; `shard_batch` refuses what the
+JAX package refuses: an H that the spatial ranks do not divide (the
+words of JAX's `device_put`) and a degenerate split
+(`check_spatial_extent`, the JAX package's guard). Bands may be unequal
+(`distributed.split_rows`: whole blocks of `max_stride` rows, so every
+stride-2 stage stays on the global grid), where the JAX package lets
+GSPMD pad.
 """
 
 from __future__ import annotations
@@ -55,27 +58,15 @@ def check_spatial_extent(input_h: int, num_spatial: int,
             f"ranks.")
 
 
-def check_even_split(input_h: int, num_spatial: int,
-                     max_stride: int = 32) -> None:
-    """The port's guard: raises ValueError unless H % (num_spatial ·
-    max_stride) == 0, so that every band is equal and starts on every
-    stride-2 stage's grid. The JAX package lets GSPMD pad an uneven split;
-    the port has no padded bands."""
-    if input_h % (num_spatial * max_stride):
-        raise ValueError(
-            f"uneven spatial split: input H={input_h} is not a multiple "
-            f"of {num_spatial} spatial ranks x stride {max_stride}; the "
-            f"port splits H into equal bands aligned with every stride-2 "
-            f"stage and pads none (the JAX package lets GSPMD pad)")
-
-
 def shard_batch(batch, spatial: bool = False, max_stride: int = 32):
     """This rank's part of each array in a global batch (images NHWC,
     labels NHW, ...): its data row's rows [d·B/D, (d+1)·B/D), and with
-    `spatial=True` its band of H rows of each, after both guards on the
-    images' H (`check_spatial_extent`, `check_even_split`). The batch
-    itself without a group. Under spatial sharding the model takes bands,
-    so `spatial=False` raises there."""
+    `spatial=True` its band of H rows of each, after the JAX package's
+    refusals on the images' H (H % num_spatial, `check_spatial_extent`).
+    The split (`distributed.split_rows` at `max_stride`) is recorded for
+    the band operations that follow (`distributed.record_split`). The
+    batch itself without a group. Under spatial sharding the model takes
+    bands, so `spatial=False` raises there."""
     n_spatial = distributed.num_spatial()
     if n_spatial > 1 and not spatial:
         raise ValueError(f"the group splits H over {n_spatial} spatial "
@@ -85,6 +76,8 @@ def shard_batch(batch, spatial: bool = False, max_stride: int = 32):
     if spatial:
         h = batch[0].shape[1]
         check_spatial_extent(h, n_spatial, max_stride)
-        check_even_split(h, n_spatial, max_stride)
+        split = distributed.split_rows(h, n_spatial, max_stride)
+        if n_spatial > 1:
+            distributed.record_split(split)
         out = tuple(distributed.band_rows(x, 1) for x in out)
     return out

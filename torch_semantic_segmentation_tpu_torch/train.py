@@ -204,15 +204,18 @@ def make_train_step(model: nn.Module, state: TrainState,
     the optimizer and the schedule stay as they were (`debug.checked_step`).
 
     Under spatial sharding the batch is the rank's band of its rows
-    (`parallel.shard_batch(spatial=True, max_stride=model.max_stride)`);
-    every zoo model takes it (`models.check_spatial_model`), without remat
-    (`NotImplementedError` otherwise).
+    (`parallel.shard_batch(spatial=True, max_stride=model.max_stride)`,
+    bands of any split); every zoo model takes it
+    (`models.check_spatial_model`), with remat too: a segment's recompute
+    exchanges its halos and reduces its moments again, as the JAX
+    package's `jax.checkpoint` reruns GSPMD's exchanges, in the order of
+    the forward on every rank (the exchanges block, so the messages of a
+    recompute and of the backward never meet); its running statistics
+    stay held back and its dropout masks are the forward's, cut by the
+    same split.
     """
     dev = resolve_device(device)
     check_spatial_model(model)
-    if remat and distributed.is_spatial():
-        raise NotImplementedError("remat under spatial sharding: the "
-                                  "recompute would exchange halos again")
     if loss_fn is None:
         loss_fn = cross_entropy_loss
     optimizer, scheduler = state
