@@ -233,7 +233,7 @@ K6_OFF_STEP = (("stage1[0]", 8, 128, 256, 384, 2),
                ("stride 1", 8, 128, 256, 128, 1))
 K6_RAGGED = ((2, 9, 13, 3, 2), (1, 7, 11, 20, 2), (2, 9, 13, 20, 1),
              (2, 6, 10, 384, 2), (1, 5, 9, 384, 1), (3, 37, 53, 40, 2),
-             (4, 301, 517, 40, 2))
+             (4, 301, 517, 40, 2), (4, 301, 517, 40, 1))
 # K4 on the UNet training path (bilinear decoder, base 64, b8, crop 768):
 # (name, n, h, w, cl, cs), low (n,h,w,cl) and skip (n,2h,2w,cs)
 K4_PATH = (("up4", 8, 48, 48, 512, 512), ("up3", 8, 96, 96, 256, 256),
@@ -1015,11 +1015,28 @@ def depthwise_inputs(n, h, w, c, stride, dtype, seed):
     return x, k, dy
 
 
+def depthwise_bwd_plan(n, h, w, c, s) -> str:
+    """K6's backward launch plan at stride s, bf16, as the library plans
+    it on this card: its blocks (the dk scratch's rows), the tile, threads
+    and buffers, the shared memory a block and blocks an SM, the staged
+    rows' byte strides and a unit's pixels along W."""
+    import ctypes
+    from torch_semantic_segmentation_tpu_torch.ops import depthwise as dwm
+    out = (ctypes.c_int * 9)()
+    rows = dwm._library().dw3x3_backward_plan(n, h, w, c, s, 1, 0,
+                                              ctypes.addressof(out))
+    names = ("th", "tw", "threads", "buffers", "smem", "per_sm", "xpitch",
+             "dpitch", "run")
+    return f"blocks {rows}, " + ", ".join(f"{k} {v}" for k, v in
+                                          zip(names, out))
+
+
 def check_depthwise() -> dict:
     """K6 forward and backward against the plain version at the LDS's two
     convs, GFE stage1[0]'s, a stride-1 case and ragged shapes (the last
-    stride-2 backward tiles ragged both ways, over few and over many tiles
-    a block), float32 and bf16: y and dx bit for bit, dk at a relative L2
+    stride-2 and stride-1 backward tiles ragged both ways, over few and
+    over many tiles a block; the stride-1 backward's plans printed first),
+    float32 and bf16: y and dx bit for bit, dk at a relative L2
     error of 1e-5 and the same bits in two launches; per-step times at the
     path's dtype, bf16, each conv's time summed: {"fastscnn" (the LDS's two
     convs) | "contextnet" (the detail branch's two): {"fwd": ..., "bwd":
@@ -1051,6 +1068,10 @@ def check_depthwise() -> dict:
                  "or dk is not deterministic")
         return errs, (x, k, dy)
 
+    stride1 = [shape[1:] for shape in K6_OFF_STEP if shape[-1] == 1]
+    for n, h, w, c, s in stride1 + [r for r in K6_RAGGED if r[-1] == 1]:
+        print(f"depthwise stride-1 backward plan ({n},{h},{w},{c}) bf16: "
+              f"{depthwise_bwd_plan(n, h, w, c, s)}", flush=True)
     for i, (n, h, w, c, s) in enumerate(K6_RAGGED):
         for dtype in (torch.float32, torch.bfloat16):
             compare(n, h, w, c, s, dtype, 500 + i, "ragged")

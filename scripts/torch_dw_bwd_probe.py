@@ -1,9 +1,10 @@
 """Times K6's backward (`ops.depthwise.depthwise3x3_backward`, dx and dk)
-at the LDS's two stride-2 convs and GFE stage1[0]'s (`chip_smoke.K6_PATH`,
-`K6_OFF_STEP`), bf16 as on the training path, with the forward beside it:
+at the LDS's two stride-2 convs, GFE stage1[0]'s and the stride-1 shape
+(`chip_smoke.K6_PATH`, `K6_OFF_STEP`), bf16 as on the training path, with
+the forward beside it:
 
     python3 scripts/torch_dw_bwd_probe.py [--root DIR]
-        [--variants k6b_no_dk,k6b_no_dx]
+        [--variants k6b_no_dk,k6b_no_dx,k6b1_no_dk,k6b1_no_dx]
 
 `--root` names the checkout whose port package is timed (default: this
 one), so that two commits can be compared on one card in one command
@@ -16,7 +17,9 @@ its text:
 - `k6b_no_dk`: the stride-2 backward (`dw_bwd_s2_kernel`) without its dk
   products (dk is then 0); what is left stages x and dy and writes dx;
 - `k6b_no_dx`: the same kernel without its dx products and stores (dx is
-  then not written).
+  then not written);
+- `k6b1_no_dk`, `k6b1_no_dx`: the same two cuts of the stride-1 backward
+  (`dw_bwd_s1_kernel`).
 
 Prints the card, what ptxas reported for each kernel instance of
 `depthwise.cu` (registers, spills, shared memory), the backward's plan
@@ -61,6 +64,19 @@ VARIANTS = {
             ("      {  // dx: the quad (2oy, 2ox) .. (2oy + 1, 2ox + 1)\n",
              "      if (false) {\n"),),
     },
+    "k6b1_no_dk": {
+        "dw_bwd_s1_kernel": (
+            ("              dk[3 * a + d][e] = __fmaf_rn(xv[e], dc[j][e], "
+             "dk[3 * a + d][e]);\n",
+             "              (void)xv[e];\n"),),
+    },
+    "k6b1_no_dx": {
+        "dw_bwd_s1_kernel": (
+            ("            madd_v<BV>(acc[j], dv, kq[d]);\n", ""),
+            ("        if (ox + j < w) store_v<BV>(p + size_t(j) * c, valid, "
+             "vec, acc[j]);\n",
+             "        (void)p;\n")),
+    },
 }
 
 
@@ -99,17 +115,24 @@ def kernel_ms(fn, iters: int = 10) -> dict:
     return out
 
 
-def plan_line(lib, n, h, w, c) -> str | None:
-    """The stride-2 backward's plan, where the library has the query."""
-    if not hasattr(lib, "dw3x3_backward_s2_plan"):
+def plan_line(lib, n, h, w, c, s) -> str | None:
+    """The backward's plan at stride s, where the library has the query
+    (before the stride-1 kernel, the stride-2 backward's alone)."""
+    out = (ctypes.c_int * 9)()
+    if hasattr(lib, "dw3x3_backward_plan"):
+        fn = lib.dw3x3_backward_plan
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_longlong
+        rows = fn(n, h, w, c, s, 1, 0, ctypes.addressof(out))
+    elif s == 2 and hasattr(lib, "dw3x3_backward_s2_plan"):
+        fn = lib.dw3x3_backward_s2_plan
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_longlong
+        rows = fn(n, h, w, c, 1, 0, ctypes.addressof(out))
+    else:
         return None
-    out = (ctypes.c_int * 8)()
-    fn = lib.dw3x3_backward_s2_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_longlong
-    rows = fn(n, h, w, c, 1, 0, ctypes.addressof(out))
     names = ("th", "tw", "threads", "buffers", "smem", "per_sm", "xpitch",
-             "dpitch")
+             "dpitch", "run")
     return f"blocks {rows}, " + ", ".join(f"{k} {v}" for k, v in
                                           zip(names, out))
 
@@ -143,14 +166,14 @@ def main() -> int:
                                                             "depthwise")),
           flush=True)
     lib = dwm._library()
-    shapes = [(i, *shape) for i, shape in enumerate(
-        chip_smoke.K6_PATH + chip_smoke.K6_OFF_STEP) if shape[-1] == 2]
+    shapes = list(enumerate(chip_smoke.K6_PATH + chip_smoke.K6_OFF_STEP))
+    shapes = [(i, *shape) for i, shape in shapes]
     rows, timed = [], {}
     sums = dict(bwd=0.0, bwd_graph=0.0, bwd_lib=0.0, fwd=0.0)
     for i, name, n, h, w, c, s in shapes:
         x, k, dy = chip_smoke.depthwise_inputs(n, h, w, c, s, torch.bfloat16,
                                                600 + i)
-        plan = plan_line(lib, n, h, w, c)
+        plan = plan_line(lib, n, h, w, c, s)
         if plan:
             print(f"K6 bwd {name} plan: {plan}", flush=True)
         y = dwm.depthwise3x3_forward(x, k, s)
@@ -212,7 +235,7 @@ def main() -> int:
             rows.append(dict(variant=v, name=name, bwd_graph_ms=ms))
             if (name, n, h, w, c, s) in chip_smoke.K6_PATH:
                 total += ms or float("nan")
-            print(f"K6 bwd {v} {name}: graph {ms}", flush=True)
+            print(f"K6 bwd {v} {name} s{s}: graph {ms}", flush=True)
         sums[f"{v}_graph"] = total
         print(f"{v}: ds1 + ds2, graph {total:.4f}", flush=True)
         kernels.load = real_load

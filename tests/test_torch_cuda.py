@@ -521,6 +521,9 @@ DEPTHWISE_CASES = [(8, 512, 1024, 32, 2), (8, 256, 512, 48, 2),
                    (2, 9, 13, 20, 1), (2, 6, 10, 384, 2), (1, 5, 9, 384, 1),
                    (1, 6, 7, 1200, 1), (1, 5, 9, 2048, 2), (3, 37, 53, 40, 2),
                    (4, 301, 517, 40, 2),
+                   # stride 1: tiles ragged both ways over many tiles a
+                   # block, and the widest C
+                   (4, 301, 517, 40, 1), (2, 7, 9, 2048, 1),
                    # ContextNet's detail ds1 and ds2 at batch 32 (crop 768)
                    (32, 384, 384, 32, 2), (32, 192, 192, 64, 2)]
 
@@ -543,11 +546,11 @@ def _rel_l2(a, b):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_depthwise_kernels_match_plain_version(cuda, n, h, w, c, stride,
                                                dtype):
-    """The forward equal to the plain version bit for bit, and so the
-    stride-1 dx, which is the forward's kernel with the taps flipped; the
-    stride-2 dx bit for bit too (the same products summed in the same
-    order); dk at a relative L2 error of 1e-5 and the same bit for bit from
-    launch to launch."""
+    """The forward equal to the plain version bit for bit; dx bit for bit
+    too at both strides (the backward kernels sum the plain version's
+    products in its order: at stride 1 the forward of dy with the taps
+    flipped); dk at a relative L2 error of 1e-5 and the same bit for bit
+    from launch to launch."""
     dtype = getattr(torch, dtype)
     x, k, dy = _depthwise_inputs(8, n, h, w, c, stride, cuda)
     x, dy = x.to(dtype), dy.to(dtype)

@@ -22,6 +22,9 @@ wrappers run the plain versions:
 - the routing predicate's truth table;
 - the plain forward and the plain stride-2 dx pinned bit for bit to the
   Hopper kernel's order of products and sums (a numpy float32 loop);
+- the stride-1 backward's tile schedule emulated in numpy
+  (`emulate_s1_backward`): dx bit for bit, the blocks' dk rows in the
+  reduction's fixed order at 1e-5;
 - the variants of `scripts/torch_dw_bwd_probe.py`, each patching only
   inside the kernel it names.
 """
@@ -221,12 +224,135 @@ def test_plain_stride2_dx_is_the_kernels_sum_bit_for_bit(c, dtype):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+RUN1B = 4   # `csrc/depthwise.cu`: pixels a unit of the stride-1 backward
+
+
+def _fma32(a, b, c):
+    """float32 a * b + c rounded once (the product is exact in float64)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def emulate_s1_backward(x, k, dy, th, segs, blocks, lanes, run=RUN1B):
+    """`dw_bwd_s1_kernel<T, run>` and `dw_dk_reduce_kernel` in numpy
+    float32, tile by tile: tiles of th x segs * run pixels over all
+    channels (run RUN1B, or 1 where no such tile fits), x and dy
+    staged from row i0-1 and column j0-1 with zeros outside the image;
+    block b walks tiles b, b + blocks, ...; lane l of a block takes units
+    l, l + lanes, ... of each tile (row fastest), a unit a run of `run`
+    pixels along W. Each unit walks the staged rows a = 0..2 and columns
+    col = 0..run+1: dx of its pixel j adds dy (a, col) times the flipped
+    tap k (2-a, 2-col+j), each product and sum rounded; dk (a, col-j) adds
+    x (a, col) times pixel j's dy by a fused multiply-add. Then each
+    block's lanes are summed in the kernel's tree and the blocks' rows by
+    the reduction's fixed order. Returns (dx float32, per-block dk (blocks,
+    9, C), dk (3, 3, C))."""
+    n, h, w, c = x.shape
+    tw = segs * run
+    tiles_y, tiles_x = -(-h // th), -(-w // tw)
+    hp, wp = tiles_y * th + 2, tiles_x * tw + 2
+    xp = np.zeros((n, hp, wp, c), np.float32)
+    dp = np.zeros((n, hp, wp, c), np.float32)
+    xp[:, 1:h + 1, 1:w + 1] = x
+    dp[:, 1:h + 1, 1:w + 1] = dy
+    dx = np.full((n, h, w, c), np.nan, np.float32)
+    dk = np.zeros((blocks, lanes, 9, c), np.float32)
+    units = th * segs
+    tiles = n * tiles_y * tiles_x
+    for tile in range(tiles):
+        b = tile % blocks
+        img, ty, tx = (tile // (tiles_x * tiles_y), tile // tiles_x % tiles_y,
+                       tile % tiles_x)
+        xs = xp[img, ty * th:ty * th + th + 2, tx * tw:tx * tw + tw + 2]
+        ds = dp[img, ty * th:ty * th + th + 2, tx * tw:tx * tw + tw + 2]
+        for u in range(units):
+            tr, sg = u % th, u // th
+            oy, ox = ty * th + tr, tx * tw + sg * run
+            if oy >= h or ox >= w:
+                continue
+            lane = u % lanes
+            c0 = sg * run
+            dc = ds[tr + 1, c0 + 1:c0 + 1 + run]
+            acc = np.zeros((run, c), np.float32)
+            for a in range(3):
+                for col in range(run + 2):
+                    xv, dv = xs[tr + a, c0 + col], ds[tr + a, c0 + col]
+                    for j in range(run):
+                        d = col - j
+                        if 0 <= d <= 2:
+                            t = 3 * a + d
+                            dk[b, lane, t] = _fma32(xv, dc[j], dk[b, lane, t])
+                            acc[j] = np.add(acc[j], np.multiply(
+                                dv, k[2 - a, 2 - d], dtype=np.float32),
+                                dtype=np.float32)
+            m = min(run, w - ox)
+            dx[img, oy, ox:ox + m] = acc[:m]
+    top = 1
+    while top < lanes:
+        top *= 2
+    s = top // 2
+    while s:
+        for lane in range(s):
+            if lane + s < lanes:
+                dk[:, lane] = np.add(dk[:, lane], dk[:, lane + s],
+                                     dtype=np.float32)
+        s //= 2
+    rows = dk[:, 0]                                   # (blocks, 9, c)
+    part = np.zeros((8, 9, c), np.float32)
+    for r in range(blocks):
+        part[r % 8] = np.add(part[r % 8], rows[r], dtype=np.float32)
+    total = np.zeros((9, c), np.float32)
+    for r in range(8):
+        total = np.add(total, part[r], dtype=np.float32)
+    return dx, rows, total.reshape(3, 3, c)
+
+
+# (n, h, w, c, th, segs, blocks, lanes, run): odd H and W, tiles that
+# straddle the bottom and the right edge (and, with one row or unit, every
+# edge at once), several blocks and lanes; runs of one pixel as the wide
+# float32 plans take them
+S1_SCHEDULES = [(2, 9, 13, 3, 4, 2, 3, 5, 4), (1, 7, 11, 20, 3, 1, 4, 2, 4),
+                (2, 5, 9, 384, 2, 1, 5, 1, 4), (1, 3, 5, 20, 4, 2, 1, 3, 4),
+                (1, 1, 1, 3, 1, 1, 2, 1, 4), (1, 5, 7, 20, 2, 3, 3, 2, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,h,w,c,th,segs,blocks,lanes,run", S1_SCHEDULES)
+def test_stride1_backward_schedule_against_plain_version(
+        n, h, w, c, th, segs, blocks, lanes, run, dtype):
+    """The stride-1 backward's tile schedule, emulated in numpy: dx equal to
+    `depthwise3x3_reference_backward` at stride 1 bit for bit (the card's
+    test holds the kernel to the plain version with `torch.equal`; this
+    holds the schedule's staging, halos and order of products), and the
+    blocks' dk rows summed in the reduction's fixed order within a
+    relative L2 error of 1e-5 of the plain dk, as every dk is held."""
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(c + h)
+    xt = torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(
+        np.float32)).to(dtype)
+    gt = torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(
+        np.float32)).to(dtype)
+    k = rng.normal(size=(3, 3, c)).astype(np.float32) * 0.5
+    want_dx, want_dk = depthwise.depthwise3x3_reference_backward(
+        xt, torch.from_numpy(k), gt, 1)
+    dx, rows, dk = emulate_s1_backward(xt.float().numpy(), k,
+                                       gt.float().numpy(), th, segs, blocks,
+                                       lanes, run)
+    assert rows.shape == (blocks, 9, c)
+    if dtype == torch.bfloat16:
+        dx = _bf16_round(dx)
+    np.testing.assert_array_equal(dx, want_dx.float().numpy())
+    rel = np.linalg.norm(dk.astype(np.float64) - want_dk.double().numpy()) \
+        / np.linalg.norm(want_dk.double().numpy())
+    assert rel <= 1e-5
+
+
 ROOT = Path(__file__).resolve().parent.parent
-DW_CU = ROOT / "torch_semantic_segmentation_tpu_torch" / "csrc" / "depthwise.cu"
+DW_CU =ROOT / "torch_semantic_segmentation_tpu_torch" / "csrc" / "depthwise.cu"
 DW_PROBE = ROOT / "scripts" / "torch_dw_bwd_probe.py"
 
 
-@pytest.mark.parametrize("variant", ["k6b_no_dk", "k6b_no_dx"])
+@pytest.mark.parametrize("variant", ["k6b_no_dk", "k6b_no_dx", "k6b1_no_dk",
+                                     "k6b1_no_dx"])
 def test_probe_variant_patches_only_its_kernel(variant):
     """Each variant of `scripts/torch_dw_bwd_probe.py` names one kernel that
     `depthwise.cu` defines and changes lines inside that kernel's body only,

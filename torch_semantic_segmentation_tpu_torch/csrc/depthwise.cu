@@ -21,9 +21,12 @@
 //   dw_dk_reduce_kernel sums the rows in a fixed order. The blocks and the
 //   tiles each one walks are fixed by the card, so dk is the same, bit for
 //   bit, from launch to launch. No atomics.
-// - stride 1: dx is the forward of dy with the kernel flipped (the caller
-//   flips k); dk from dw_dk_partial_kernel, each block summing the (9, C) of
-//   one range of output pixels into its scratch row, then dw_dk_reduce_kernel.
+// - stride 1, dx and dk in one kernel too (dw_bwd_s1_kernel), one pass over x
+//   and dy. dx is the forward of dy with the kernel flipped: each input pixel
+//   (r, q) sums dy (r+a-1, q+b-1) times k (2-a, 2-b), a outer and b inner,
+//   each product and sum rounded on its own, rounded once to x's type, as the
+//   plain version (the forward of dy with k flipped) does. dk, its scratch
+//   and dw_dk_reduce_kernel as at stride 2.
 //
 // Replaces the JAX package's TPU kernels in ops/pallas_dw.py: _make_s2_fwd
 // (pl.pallas_call in _dw_s2_fwd_call, :405), _make_s1_fwd (_dw_s1_fwd_call,
@@ -72,6 +75,23 @@
 // buffers; at the end each channel's lanes are summed in a fixed tree in
 // shared memory. Bound on this card: memory (x and dy read once, dx written
 // once: 0.60 GB at FastSCNN's ds1 conv, 0.18 ms at 3.35 TB/s).
+//
+// Stride-1 backward design: the stride-2 backward's, with the halo that stride
+// 1 needs, so that dy is read once for dx and dk together (dx as the forward's
+// launch on dy and dk as a kernel of its own read it twice). A tile of th rows
+// (up to BWD1_MAX_ROWS) by tw = segs * RUN1B columns over all channels stages x
+// and dy rows i0-1 .. i0+th and columns j0-1 .. j0+tw (dx at (r, q) reads dy at
+// r-1 .. r+1 and q-1 .. q+1), zero-filled outside the image and past C, and
+// writes dx for the tile's pixels. A unit is a run of RUN1B pixels along W (one
+// pixel where no tile of such runs fits in shared memory: float32 at C above
+// 1288) and 4 channels: the thread keeps the run's dy, walks the three staged
+// rows of x and dy once (RUN1B + 2 pixels each), adds dk's nine products of
+// each x pixel with the dy of the run's pixels that read it into the registers
+// it keeps over every tile, and sums the run's dx from the staged dy with the
+// flipped taps, the three taps of a row in registers while it walks that row
+// (the taps of every channel sit in shared memory, as at stride 2). Two
+// launches, x and dy read once. Bound on this card: memory (x and dy read once,
+// dx written once: 0.20 GB at (8,128,256,128) bf16, 0.060 ms at 3.35 TB/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,12 +100,12 @@
 
 namespace {
 
-constexpr int VEC = 8;                 // channels a thread: the forward, the stride-1 dk
-constexpr int BV = 4;                  // channels a thread: the stride-2 backward
+constexpr int VEC = 8;                 // channels a thread: the forward
+constexpr int BV = 4;                  // channels a thread: the backward
 constexpr int THREADS = 256;
-constexpr int BWD_THREADS = 512;       // the stride-2 backward's widest block (C = MAX_C)
-constexpr int MAX_C = THREADS * VEC;   // dk: every channel group of a pixel in one block
-constexpr int DK_MAX_BLOCKS = 1056;    // stride-1 dk scratch rows: 8 blocks on each of 132 SMs
+constexpr int BWD_THREADS = 512;       // the backward's widest block (C = MAX_C)
+constexpr int MAX_C = THREADS * VEC;   // every channel group of a pixel in one block
+constexpr int RUN1B = 4;               // pixels a unit along W: the stride-1 backward (or 1)
 
 template <int V>
 __device__ __forceinline__ void widen(const void* raw, float v[V]) {
@@ -207,6 +227,12 @@ __host__ __device__ constexpr int run_of(int s) { return s == 2 ? 2 : 4; }
 // streams faster than the short segments of a square tile that stages fewer
 // halo pixels (`scripts/torch_fwd_probe.py --variants k6_tall` times the two).
 constexpr int FWD_MAX_ROWS = 4;
+// Rows a stride-1 backward tile at most: its tiles stage two halo rows of
+// both tensors, and at 4 rows a thread took one unit between two barriers
+// (16 warps an SM). 8 x 8 tiles at (8,128,256,128) bf16 took 0.117 ms by
+// kernel against 4 x 8's 0.127 on an H100 SXM
+// (`scripts/torch_dw_bwd_probe.py`).
+constexpr int BWD1_MAX_ROWS = 8;
 constexpr size_t SMEM_TWO = 110 * 1024;        // two blocks share an SM below this
 constexpr size_t SMEM_MAX = 232448;            // 227 KB, Hopper's per-block maximum
 constexpr size_t SMEM_CAPS[2][2] = {           // (a buffer, buffers) in order of preference
@@ -352,22 +378,74 @@ dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ k, T* __restric
 }
 
 // ---------------------------------------------------------------------------
-// Stride-2 backward: dx and dk in one pass over tiles of th x tw outputs (the
-// design in the header). Persistent blocks as in the forward; a buffer holds
-// the tile's 2*th+1 x rows (`pitch` bytes apart) and then its th+1 dy rows
+// Backward, both strides: persistent blocks as in the forward; a buffer holds
+// the tile's staged x rows (`pitch` bytes apart) and then its staged dy rows
 // (`dpitch` apart), and the taps of every channel follow the buffers. Thread
-// t takes channel group g = t % G (G = C/4 rounded up) and the outputs
-// t / G + i * (blockDim.x / G) of each tile, row fastest. `uni` holds values
-// uniform over the launch, worked out on the host: the kernel reads them
-// from the constant bank and keeps no register for them (derived in the
-// kernel, they spilled).
+// t takes channel group g = t % G (G = C/4 rounded up) and the units t / G +
+// i * (blockDim.x / G) of each tile, row fastest. `uni` holds values uniform
+// over the launch, worked out on the host: the kernel reads them from the
+// constant bank and keeps no register for them (derived in the kernel, they
+// spilled).
 struct BwdUniform {
   int img, ty, tx;  // gridDim.x as (images, tile rows, tile columns)
   int lanes;        // blockDim.x / G: the threads of a channel group
   int pb, xbytes;   // bytes of a staged pixel; of the staged x rows (dy's follow)
-  int tr, tc;       // lanes as (output rows, output columns) of a tile
+  int tr, tc;       // lanes as (rows, columns of units) of a tile
 };
 
+// (image, tile row, tile column) of a tile. A block walks tiles b, b +
+// gridDim.x, ...: each step adds the grid's three digits with a carry, so no
+// tile pays a division; a thread's units in a tile (row fastest, lanes
+// apart) likewise.
+struct TileAt {
+  int img, ty, tx;
+  __device__ __forceinline__ TileAt next(const BwdUniform& u, int tiles_x, int tiles_y) const {
+    TileAt a{img + u.img, ty + u.ty, tx + u.tx};
+    if (a.tx >= tiles_x) a.tx -= tiles_x, ++a.ty;
+    if (a.ty >= tiles_y) a.ty -= tiles_y, ++a.img;
+    return a;
+  }
+};
+
+// The nine taps of every channel, C padded to cw (a multiple of 4) with
+// zeros, into `taps` (9, cw) in shared memory.
+__device__ __forceinline__ void stage_taps(const float* __restrict__ k, float* taps, int c,
+                                           int cw) {
+  for (int j = threadIdx.x; j < 9 * cw; j += blockDim.x) {
+    const int t = j / cw, ch = j - t * cw;
+    taps[j] = ch < c ? k[t * c + ch] : 0.f;
+  }
+}
+
+// dk's end of a block: each channel's lanes summed in a fixed tree through
+// shared memory (free now: the tile loop ends with a barrier and no copy in
+// flight), then the block's (9, C) row of the scratch.
+__device__ __forceinline__ void dk_block_sums(unsigned char* smem, const float (&dk)[9][BV],
+                                              float* __restrict__ scratch, int lane, int c0,
+                                              int cw, int lanes, int c) {
+  float* red = reinterpret_cast<float*>(smem);   // (lanes, 9, G * BV)
+  const int width = 9 * cw;
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int e = 0; e < BV; ++e) red[lane * width + t * cw + c0 + e] = dk[t][e];
+  __syncthreads();
+  int top = 1;
+  while (top < lanes) top <<= 1;
+  for (int s = top >> 1; s > 0; s >>= 1) {
+    for (int j = threadIdx.x; j < s * width; j += blockDim.x)
+      if (j / width + s < lanes) red[j] += red[j + s * width];
+    __syncthreads();
+  }
+  float* out = scratch + size_t(blockIdx.x) * 9 * c;
+  for (int j = threadIdx.x; j < 9 * c; j += blockDim.x) {
+    const int t = j / c;
+    out[j] = red[t * cw + j - t * c];
+  }
+}
+
+// Stride-2 backward: dx and dk in one pass over tiles of th x tw outputs (the
+// design in the header). A unit is one output pixel.
 template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 dw_bwd_s2_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ k,
@@ -387,13 +465,9 @@ dw_bwd_s2_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float*
   for (int t = 0; t < 9; ++t)
 #pragma unroll
     for (int e = 0; e < BV; ++e) dk[t][e] = 0.f;
-  // the nine taps of every channel (C padded to 4 with zeros), after the buffers
   const int cw = groups * BV;
   float* taps = reinterpret_cast<float*>(smem + (two ? 2 * bytes : bytes));
-  for (int j = threadIdx.x; j < 9 * cw; j += blockDim.x) {
-    const int t = j / cw, ch = j - t * cw;
-    taps[j] = ch < c ? k[t * c + ch] : 0.f;
-  }
+  stage_taps(k, taps, c, cw);
   const float* kt = taps + c0;
   // acc += d * tap t of this thread's channels, each product and sum rounded
   auto madd_tap = [&](float acc[BV], const float d[BV], int t) {
@@ -402,23 +476,7 @@ dw_bwd_s2_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float*
     madd_v<BV>(acc, d, kq);
   };
 
-  // (image, tile row, tile column) of a tile. A block walks tiles b, b +
-  // gridDim.x, ...: each step adds the grid's three digits with a carry, so
-  // no tile pays a division; a thread's outputs in a tile (row fastest,
-  // lanes apart) likewise.
-  struct At {
-    int img, ty, tx;
-  };
-  auto advance = [&](At a) {
-    a.img += uni.img;
-    a.ty += uni.ty;
-    a.tx += uni.tx;
-    if (a.tx >= tiles_x) a.tx -= tiles_x, ++a.ty;
-    if (a.ty >= tiles_y) a.ty -= tiles_y, ++a.img;
-    return a;
-  };
-
-  auto stage = [&](At a, unsigned char* buf) {
+  auto stage = [&](TileAt a, unsigned char* buf) {
     dw_stage_tile(x, buf, a.img, 2 * a.ty * th - 1, 2 * a.tx * tw - 1, 2 * th + 1, 2 * tw + 1,
                   h, w, c, pitch, vec);
     dw_stage_tile(dy, buf + xbytes, a.img, a.ty * th, a.tx * tw, th + 1, tw + 1, ho, wo, c,
@@ -426,14 +484,15 @@ dw_bwd_s2_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float*
     if (vec) cp_async_commit();
   };
   int tile = blockIdx.x;
-  At cur{tile / (tiles_x * tiles_y), tile / tiles_x % tiles_y, tile % tiles_x};
+  TileAt cur{tile / (tiles_x * tiles_y), tile / tiles_x % tiles_y, tile % tiles_x};
   if (tile < tiles) stage(cur, smem);
   const int tr0 = lane % th, tc0 = lane / th;   // the thread's first output of a tile
-  for (int i = 0; tile < tiles; ++i, tile += gridDim.x, cur = advance(cur)) {
+  for (int i = 0; tile < tiles;
+       ++i, tile += gridDim.x, cur = cur.next(uni, tiles_x, tiles_y)) {
     const int next = tile + gridDim.x;
     const unsigned char* buf = smem + (two && (i & 1) ? bytes : 0);
     if (two && next < tiles) {
-      stage(advance(cur), smem + ((i & 1) ? 0 : bytes));
+      stage(cur.next(uni, tiles_x, tiles_y), smem + ((i & 1) ? 0 : bytes));
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -502,97 +561,114 @@ dw_bwd_s2_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float*
       }
     }
     __syncthreads();  // the buffer is free for the tile after next
-    if (!two && next < tiles) stage(advance(cur), smem);
+    if (!two && next < tiles) stage(cur.next(uni, tiles_x, tiles_y), smem);
   }
+  dk_block_sums(smem, dk, scratch, lane, c0, cw, uni.lanes, c);
+}
 
-  // dk: each channel's lanes summed in a fixed tree through shared memory
-  // (free now: the loop ends with a barrier and no copy in flight), then the
-  // block's (9, C) row of the scratch.
-  float* red = reinterpret_cast<float*>(smem);   // (lanes, 9, G * BV)
-  const int width = 9 * cw;
+// Stride-1 backward: dx and dk in one pass over tiles of th x (segs * R)
+// pixels (the design in the header), R = RUN1B or 1. A unit is a run of R
+// pixels of a row; x and dy are staged from row i0-1 and column j0-1, so the unit's
+// staged rows start at its own row and its staged columns at its first
+// pixel's.
+template <typename T, int R>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+dw_bwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ k,
+                 T* __restrict__ dx, float* __restrict__ scratch, int n, int h, int w, int c,
+                 int th, int segs, int tiles_x, int tiles_y, int pitch, int dpitch, int bytes,
+                 bool two, bool vec, BwdUniform uni) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int groups = (c + BV - 1) / BV;
+  const int pb = uni.pb, xbytes = uni.xbytes;
+  const int tw = segs * R;
+  const int tiles = tiles_x * tiles_y * n;
+  const int lane = threadIdx.x / groups;
+  const int g = threadIdx.x % groups;
+  const int c0 = g * BV;
+  const int valid = min(BV, c - c0);
+  float dk[9][BV];
 #pragma unroll
   for (int t = 0; t < 9; ++t)
 #pragma unroll
-    for (int e = 0; e < BV; ++e) red[lane * width + t * cw + c0 + e] = dk[t][e];
-  __syncthreads();
-  int top = 1;
-  while (top < uni.lanes) top <<= 1;
-  for (int s = top >> 1; s > 0; s >>= 1) {
-    for (int j = threadIdx.x; j < s * width; j += blockDim.x)
-      if (j / width + s < uni.lanes) red[j] += red[j + s * width];
-    __syncthreads();
-  }
-  float* out = scratch + size_t(blockIdx.x) * 9 * c;
-  for (int j = threadIdx.x; j < 9 * c; j += blockDim.x) {
-    const int t = j / c;
-    out[j] = red[t * cw + j - t * c];
-  }
-}
+    for (int e = 0; e < BV; ++e) dk[t][e] = 0.f;
+  const int cw = groups * BV;
+  float* taps = reinterpret_cast<float*>(smem + (two ? 2 * bytes : bytes));
+  stage_taps(k, taps, c, cw);
+  const float* kt = taps + c0;
 
-// ---------------------------------------------------------------------------
-// Stride-1 dk, first pass: block b sums the nine taps of pixels
-// [b * per_block, (b + 1) * per_block) and writes them to scratch[b] (9, C).
-// Thread t takes channel group t % groups and pixel lane t / groups; a lane walks
-// its pixels in order, then the lanes are summed in order through shared memory.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-dw_dk_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                     float* __restrict__ scratch, int h, int w, int c, long long pixels,
-                     long long per_block, bool vec) {
-  __shared__ float red[THREADS * VEC];
-  const int groups = (c + VEC - 1) / VEC;
-  const int lanes = THREADS / groups;
-  const int g = threadIdx.x % groups;
-  const int lane = threadIdx.x / groups;
-  const bool active = lane < lanes;
-  const int c0 = g * VEC;
-  const int valid = min(VEC, c - c0);
-  const long long p0 = blockIdx.x * per_block;
-  const long long p1 = min(pixels, p0 + per_block);
-  float acc[9][VEC];
+  auto stage = [&](TileAt a, unsigned char* buf) {
+    dw_stage_tile(x, buf, a.img, a.ty * th - 1, a.tx * tw - 1, th + 2, tw + 2, h, w, c, pitch,
+                  vec);
+    dw_stage_tile(dy, buf + xbytes, a.img, a.ty * th - 1, a.tx * tw - 1, th + 2, tw + 2, h, w,
+                  c, dpitch, vec);
+    if (vec) cp_async_commit();
+  };
+  int tile = blockIdx.x;
+  TileAt cur{tile / (tiles_x * tiles_y), tile / tiles_x % tiles_y, tile % tiles_x};
+  if (tile < tiles) stage(cur, smem);
+  const int tr0 = lane % th, sg0 = lane / th;   // the thread's first unit of a tile
+  for (int i = 0; tile < tiles;
+       ++i, tile += gridDim.x, cur = cur.next(uni, tiles_x, tiles_y)) {
+    const int next = tile + gridDim.x;
+    const unsigned char* buf = smem + (two && (i & 1) ? bytes : 0);
+    if (two && next < tiles) {
+      stage(cur.next(uni, tiles_x, tiles_y), smem + ((i & 1) ? 0 : bytes));
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();  // this tile's x and dy are in
+
+    const int oy0 = cur.ty * th, ox0 = cur.tx * tw;
+    for (int tr = tr0, sg = sg0; sg < segs; tr += uni.tr, sg += uni.tc) {
+      if (tr >= th) tr -= th, ++sg;
+      const int oy = oy0 + tr, ox = ox0 + sg * R;
+      if (sg >= segs || oy >= h || ox >= w) continue;
+      const unsigned char* xs = buf + tr * pitch + sg * R * pb + c0 * int(sizeof(T));
+      const unsigned char* ds = buf + xbytes + tr * dpitch + sg * R * pb + c0 * int(sizeof(T));
+      // the run's dy (staged row 1, columns 1 .. R; zero past the image)
+      float dc[R][BV], acc[R][BV];
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap)
+      for (int j = 0; j < R; ++j) {
+        lds_v<BV>(reinterpret_cast<const T*>(ds + dpitch + (j + 1) * pb), dc[j]);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[tap][e] = 0.f;
-  if (active) {
-    for (long long p = p0 + lane; p < p1; p += lanes) {
-      const int j = int(p % w);
-      const int i = int((p / w) % h);
-      const long long b = p / ((long long)w * h);
-      float gv[VEC];
-      load8(dy + p * c + c0, valid, vec, gv);
+        for (int e = 0; e < BV; ++e) acc[j][e] = 0.f;
+      }
 #pragma unroll
-      for (int dh = 0; dh < 3; ++dh) {
-        const int r = i + dh - 1;
-        if (r < 0 || r >= h) continue;
-        const T* row = x + (b * h + r) * (long long)w * c + c0;
+      for (int a = 0; a < 3; ++a) {
+        // row a's taps, flipped: dx (r, q) reads dy (r+a-1, q+b-1) by k (2-a, 2-b)
+        float kq[3][BV];
 #pragma unroll
-        for (int dw = 0; dw < 3; ++dw) {
-          const int q = j + dw - 1;
-          if (q < 0 || q >= w) continue;
-          float xv[VEC];
-          load8(row + (long long)q * c, valid, vec, xv);
-          madd_v<VEC>(acc[dh * 3 + dw], xv, gv);
+        for (int b = 0; b < 3; ++b) lds_v<BV>(kt + (8 - 3 * a - b) * cw, kq[b]);
+#pragma unroll
+        for (int col = 0; col < R + 2; ++col) {
+          float xv[BV], dv[BV];
+          lds_v<BV>(reinterpret_cast<const T*>(xs + a * pitch + col * pb), xv);
+          lds_v<BV>(reinterpret_cast<const T*>(ds + a * dpitch + col * pb), dv);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const int d = col - j;   // x's column tap for pixel j's dy; dy's for its dx
+            if (d < 0 || d > 2) continue;
+            // dk: fused multiply-adds (a float32 sum in its own order, held
+            // to the plain version by a tolerance, not bit for bit)
+#pragma unroll
+            for (int e = 0; e < BV; ++e)
+              dk[3 * a + d][e] = __fmaf_rn(xv[e], dc[j][e], dk[3 * a + d][e]);
+            // dx: the plain version's (a, b) order from 0, each product and
+            // sum rounded; a tap past the image adds a staged 0 * k
+            madd_v<BV>(acc[j], dv, kq[d]);
+          }
         }
       }
-    }
-  }
-  const int width = groups * VEC;      // a lane's row in `red`
-  float* out = scratch + (size_t)blockIdx.x * 9 * c;
+      T* p = dx + ((size_t(cur.img) * h + oy) * w + ox) * c + c0;
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    if (active) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) red[lane * width + c0 + e] = acc[tap][e];
+      for (int j = 0; j < R; ++j)
+        if (ox + j < w) store_v<BV>(p + size_t(j) * c, valid, vec, acc[j]);
     }
-    __syncthreads();
-    for (int col = threadIdx.x; col < c; col += THREADS) {
-      float sum = 0.f;
-      for (int l = 0; l < lanes; ++l) sum += red[l * width + col];
-      out[tap * c + col] = sum;
-    }
-    __syncthreads();
+    __syncthreads();  // the buffer is free for the tile after next
+    if (!two && next < tiles) stage(cur.next(uni, tiles_x, tiles_y), smem);
   }
+  dk_block_sums(smem, dk, scratch, lane, c0, cw, uni.lanes, c);
 }
 
 // dk, second pass: dk[col] = sum over the scratch rows, in a fixed order. A block
@@ -621,14 +697,13 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 int out_size(int n, int s) { return (n - 1) / s + 1; }
 
-// Shared bytes of the stride-2 backward's taps: 9 x C float32, C padded to 4.
+// Shared bytes of the backward's taps: 9 x C float32, C padded to 4.
 size_t taps_bytes(int c) { return size_t(9) * ((c + BV - 1) / BV * BV) * sizeof(float); }
 
 // A kernel's tile: th output rows by tw output columns, `threads` a block (a
 // multiple of the channel groups), the byte stride of a staged x row (pitch)
-// and, in the stride-2 backward, of a staged dy row (dpitch), a buffer's
-// bytes and the number of buffers (two: the next tile loads under this one's
-// work).
+// and, in the backward, of a staged dy row (dpitch), a buffer's bytes and
+// the number of buffers (two: the next tile loads under this one's work).
 struct DwTile {
   int th, tw, threads, pitch, dpitch;
   size_t bytes;
@@ -682,50 +757,54 @@ int padded_pitch(int base, int rows, size_t room, int groups, int th, int thread
 // image (times the share of idle threads in the last round of units), within
 // the first of SMEM_CAPS where one fits; each staged tensor's rows padded to
 // the fewest bank conflicts. The forward (bwd false) stages x, and a unit is
-// RUN outputs along W and 8 channels; the stride-2 backward stages x and dy
-// beside the taps (taps_bytes), and a unit is one output (with its quad of
-// dx) and 4 channels. threads == 0: C too wide.
-DwTile dw_tile(int c, int esize, int s, int ho, int wo, bool bwd) {
-  const int v = bwd ? BV : VEC, run = bwd ? 1 : run_of(s);
+// RUN outputs along W and 8 channels; the backward stages x and dy beside
+// the taps (taps_bytes), and a unit is `run` outputs along W (1 at stride
+// 2, with its dx quad) and 4 channels: at stride 2 dy's rows i0 .. i0+th
+// and columns j0 .. j0+tw, at stride 1 the same rows and columns as x.
+// threads == 0: C too wide.
+DwTile dw_tile(int c, int esize, int s, int ho, int wo, bool bwd, int run = 0) {
+  const int v = bwd ? BV : VEC;
+  if (!bwd) run = run_of(s);
   const int groups = (c + v - 1) / v;
   const int pb = (c + VEC - 1) / VEC * VEC * esize, vb = v * esize, ab = bwd ? vb : 16;
   const int per_block = groups <= THREADS ? THREADS / groups * groups
                         : (bwd && groups <= BWD_THREADS ? groups : 0);
   const int max_units = bwd ? 4 * per_block : 2 * THREADS;
   const size_t reserve = bwd ? taps_bytes(c) : 0;
+  const int halo = s == 2 ? 1 : 2;               // dy's rows (columns) beyond th (tw)
   DwTile best{0, 0, 0, 0, 0, 0, 0};
   if (per_block == 0) return best;
   size_t cap = 0;
   for (const auto& limit : SMEM_CAPS) {
     cap = limit[0] - reserve / limit[1];        // a buffer's share
     double best_cost = 1e30;
-    for (int th = 1; th <= FWD_MAX_ROWS; ++th)
+    for (int th = 1; th <= (bwd && s == 1 ? BWD1_MAX_ROWS : FWD_MAX_ROWS); ++th)
       for (int segs = 1; segs <= 64; ++segs) {
         const int tw = segs * run, units = groups * th * segs;
         if (units > max_units) break;
         const int threads = units < per_block ? units : per_block;
         const int rounds = (units + threads - 1) / threads;
         const int rw = s * (tw - 1) + 3;
-        const int staged = (s * (th - 1) + 3) * rw + (bwd ? (th + 1) * (tw + 1) : 0);
+        const int staged = (s * (th - 1) + 3) * rw + (bwd ? (th + halo) * (tw + halo) : 0);
         const size_t bytes = size_t(staged) * pb;
         if (bytes > cap) break;
         const double tiles = double((ho + th - 1) / th) * ((wo + tw - 1) / tw);
         const double cost = tiles * staged / (double(ho) * wo) * rounds * threads / units;
         if (cost < best_cost - 1e-9) {
           best_cost = cost;
-          best = DwTile{th, tw, threads, rw * pb, bwd ? (tw + 1) * pb : 0, bytes,
+          best = DwTile{th, tw, threads, rw * pb, bwd ? (tw + halo) * pb : 0, bytes,
                         int(limit[1])};
         }
       }
     if (best.threads) break;
   }
   if (!best.threads) return best;
-  const int rh = s * (best.th - 1) + 3, dh = bwd ? best.th + 1 : 0;
+  const int rh = s * (best.th - 1) + 3, dh = bwd ? best.th + halo : 0;
   best.pitch = padded_pitch(best.pitch, rh, cap - size_t(dh) * best.dpitch, groups, best.th,
                             best.threads, s, run, pb, vb, ab);
   if (bwd)
     best.dpitch = padded_pitch(best.dpitch, dh, cap - size_t(rh) * best.pitch, groups, best.th,
-                               best.threads, 1, 1, pb, vb, ab);
+                               best.threads, 1, run, pb, vb, ab);
   best.bytes = size_t(rh) * best.pitch + size_t(dh) * best.dpitch;
   return best;
 }
@@ -758,22 +837,44 @@ cudaError_t dw_fwd_launch(const void* x, const float* k, void* y, int n, int h, 
   return cudaGetLastError();
 }
 
-// The stride-2 backward's launch: its tile, the tile grid, the shared memory
-// a block (the buffers and the taps, or the dk tree's (threads, 9, 4) floats
-// if more), blocks an SM by the occupancy query, and the blocks (the
-// scratch's rows).
+// The backward's launch at stride S: its tile and its unit's run along W,
+// the tile grid, the shared memory a block (the buffers and the taps, or
+// the dk tree's (threads, 9, 4) floats if more), blocks an SM by the
+// occupancy query, and the blocks (the scratch's rows).
 struct BwdPlan {
   DwTile t;
-  int tiles_x, tiles_y, per_sm;
+  int run, tiles_x, tiles_y, per_sm;
   long long tiles, blocks;
   size_t smem;
 };
 
-template <typename T>
-cudaError_t bwd_s2_plan(int n, int h, int w, int c, int device, BwdPlan& p) {
-  const int ho = out_size(h, 2), wo = out_size(w, 2);
+template <typename T, int S, int R>
+auto bwd_kernel() {
+  if constexpr (S == 2) return dw_bwd_s2_kernel<T>;
+  else return dw_bwd_s1_kernel<T, R>;
+}
+
+// The shared memory attribute and the blocks an SM of the kernel instance.
+template <typename T, int S, int R>
+cudaError_t bwd_occupancy(BwdPlan& p) {
+  cudaError_t err = cudaFuncSetAttribute(bwd_kernel<T, S, R>(),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(p.smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.per_sm, bwd_kernel<T, S, R>(),
+                                                       p.t.threads, p.smem);
+}
+
+template <typename T, int S>
+cudaError_t bwd_plan(int n, int h, int w, int c, int device, BwdPlan& p) {
+  const int ho = out_size(h, S), wo = out_size(w, S);
   p = BwdPlan{};
-  p.t = dw_tile(c, int(sizeof(T)), 2, ho, wo, true);
+  p.run = S == 2 ? 1 : RUN1B;
+  p.t = dw_tile(c, int(sizeof(T)), S, ho, wo, true, p.run);
+  if (!p.t.threads && S == 1) {   // no tile of RUN1B runs fits: runs of one pixel
+    p.run = 1;
+    p.t = dw_tile(c, int(sizeof(T)), S, ho, wo, true, p.run);
+  }
   if (!p.t.threads) return cudaErrorInvalidValue;
   p.tiles_x = (wo + p.t.tw - 1) / p.t.tw;
   p.tiles_y = (ho + p.t.th - 1) / p.t.th;
@@ -782,38 +883,47 @@ cudaError_t bwd_s2_plan(int n, int h, int w, int c, int device, BwdPlan& p) {
   const size_t tree = size_t(p.t.threads) * 9 * BV * sizeof(float);
   const size_t staged = p.t.bytes * p.t.buffers + taps_bytes(c);
   p.smem = staged > tree ? staged : tree;
-  cudaError_t err = cudaFuncSetAttribute(dw_bwd_s2_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(p.smem));
+  cudaError_t err = p.run == RUN1B ? bwd_occupancy<T, S, RUN1B>(p) : bwd_occupancy<T, S, 1>(p);
   if (err != cudaSuccess) return err;
   int sms = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-          cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.per_sm, dw_bwd_s2_kernel<T>,
-                                                           p.t.threads, p.smem)) != cudaSuccess)
+      cudaSuccess)
     return err;
   if (p.per_sm < 1) return cudaErrorInvalidConfiguration;
   p.blocks = p.tiles < (long long)sms * p.per_sm ? p.tiles : (long long)sms * p.per_sm;
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t dw_bwd_s2_launch(const void* x, const void* dy, const float* k, void* dx,
-                             float* scratch, long long rows, float* dk, int n, int h, int w,
-                             int c, int device, bool vec, cudaStream_t st) {
+template <typename T, int S>
+cudaError_t dw_bwd_launch(const void* x, const void* dy, const float* k, void* dx,
+                          float* scratch, long long rows, float* dk, int n, int h, int w, int c,
+                          int device, bool vec, cudaStream_t st) {
   BwdPlan p;
-  cudaError_t err = bwd_s2_plan<T>(n, h, w, c, device, p);
+  cudaError_t err = bwd_plan<T, S>(n, h, w, c, device, p);
   if (err != cudaSuccess) return err;
   if (p.blocks != rows) return cudaErrorInvalidValue;   // a scratch of another plan
   const int lanes = p.t.threads / ((c + BV - 1) / BV), grid = int(p.blocks);
   const BwdUniform uni{grid / (p.tiles_x * p.tiles_y), grid / p.tiles_x % p.tiles_y,
-                     grid % p.tiles_x, lanes,
-                     (c + VEC - 1) / VEC * VEC * int(sizeof(T)), (2 * p.t.th + 1) * p.t.pitch,
-                     lanes % p.t.th, lanes / p.t.th};
-  dw_bwd_s2_kernel<T><<<unsigned(p.blocks), p.t.threads, p.smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), k, static_cast<T*>(dx), scratch, n,
-      h, w, c, out_size(h, 2), out_size(w, 2), p.t.th, p.t.tw, p.tiles_x, p.tiles_y, p.t.pitch,
-      p.t.dpitch, int(p.t.bytes), p.t.buffers == 2, vec, uni);
+                       grid % p.tiles_x, lanes,
+                       (c + VEC - 1) / VEC * VEC * int(sizeof(T)),
+                       (S * (p.t.th - 1) + 3) * p.t.pitch, lanes % p.t.th, lanes / p.t.th};
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  const int segs = p.t.tw / p.run;                       // units along a tile row
+  if constexpr (S == 2)
+    dw_bwd_s2_kernel<T><<<unsigned(p.blocks), p.t.threads, p.smem, st>>>(
+        xt, dyt, k, dxt, scratch, n, h, w, c, out_size(h, 2), out_size(w, 2), p.t.th, p.t.tw,
+        p.tiles_x, p.tiles_y, p.t.pitch, p.t.dpitch, int(p.t.bytes), p.t.buffers == 2, vec,
+        uni);
+  else if (p.run == RUN1B)
+    dw_bwd_s1_kernel<T, RUN1B><<<unsigned(p.blocks), p.t.threads, p.smem, st>>>(
+        xt, dyt, k, dxt, scratch, n, h, w, c, p.t.th, segs, p.tiles_x, p.tiles_y, p.t.pitch,
+        p.t.dpitch, int(p.t.bytes), p.t.buffers == 2, vec, uni);
+  else
+    dw_bwd_s1_kernel<T, 1><<<unsigned(p.blocks), p.t.threads, p.smem, st>>>(
+        xt, dyt, k, dxt, scratch, n, h, w, c, p.t.th, segs, p.tiles_x, p.tiles_y, p.t.pitch,
+        p.t.dpitch, int(p.t.bytes), p.t.buffers == 2, vec, uni);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int cols = 9 * c;
   dw_dk_reduce_kernel<<<unsigned((cols + 31) / 32), dim3(32, RED_ROWS), 0, st>>>(
@@ -821,13 +931,10 @@ cudaError_t dw_bwd_s2_launch(const void* x, const void* dy, const float* k, void
   return cudaGetLastError();
 }
 
-long long dk_blocks(long long pixels, int c) {
-  const int lanes = THREADS / ((c + VEC - 1) / VEC);
-  long long blocks = (pixels + lanes - 1) / lanes;
-  if (blocks > DK_MAX_BLOCKS) blocks = DK_MAX_BLOCKS;
-  if (blocks < 1) blocks = 1;
-  const long long per_block = (pixels + blocks - 1) / blocks;
-  return per_block > 0 ? (pixels + per_block - 1) / per_block : 1;
+template <typename T>
+cudaError_t bwd_plan_at(int stride, int n, int h, int w, int c, int device, BwdPlan& p) {
+  return stride == 2 ? bwd_plan<T, 2>(n, h, w, c, device, p)
+                     : bwd_plan<T, 1>(n, h, w, c, device, p);
 }
 
 }  // namespace
@@ -854,34 +961,38 @@ int dw3x3_forward(const void* x, const void* k, void* y, int n, int h, int w, in
   return int(err);
 }
 
-// Rows of the stride-2 backward's dk scratch (its blocks) for x (n, h, w, c),
-// 0 where x is empty; -1 where no plan fits (C too wide) or the query fails.
-// Where `plan` is not null it gets th, tw, threads, buffers, shared bytes a
-// block, blocks an SM and the staged x and dy rows' byte strides.
-long long dw3x3_backward_s2_plan(int n, int h, int w, int c, int is_bf16, int device,
-                                 int* plan) {
+// Rows of the backward's dk scratch (its blocks) for x (n, h, w, c) at
+// `stride`, 0 where x is empty; -1 where no plan fits (C too wide) or the
+// query fails. Where `plan` is not null it gets th, tw, threads, buffers,
+// shared bytes a block, blocks an SM, the staged x and dy rows' byte
+// strides and a unit's pixels along W.
+long long dw3x3_backward_plan(int n, int h, int w, int c, int stride, int is_bf16, int device,
+                              int* plan) {
   if (cudaSetDevice(device) != cudaSuccess) return -1;
+  if (stride != 1 && stride != 2) return -1;
   if (n == 0 || h == 0 || w == 0 || c == 0) return 0;
   BwdPlan p;
-  const cudaError_t err = is_bf16 ? bwd_s2_plan<__nv_bfloat16>(n, h, w, c, device, p)
-                                  : bwd_s2_plan<float>(n, h, w, c, device, p);
+  const cudaError_t err = is_bf16 ? bwd_plan_at<__nv_bfloat16>(stride, n, h, w, c, device, p)
+                                  : bwd_plan_at<float>(stride, n, h, w, c, device, p);
   if (err != cudaSuccess) return -1;
   if (plan) {
-    const int v[8] = {p.t.th, p.t.tw, p.t.threads, p.t.buffers, int(p.smem), p.per_sm,
-                      p.t.pitch, p.t.dpitch};
-    for (int i = 0; i < 8; ++i) plan[i] = v[i];
+    const int v[9] = {p.t.th, p.t.tw, p.t.threads, p.t.buffers, int(p.smem), p.per_sm,
+                      p.t.pitch, p.t.dpitch, p.run};
+    for (int i = 0; i < 9; ++i) plan[i] = v[i];
   }
   return p.blocks;
 }
 
-// dx (N,H,W,C) in x's type and dk (3,3,C) float32 of the stride-2 conv from x
-// (N,H,W,C) and dy (N,Ho,Wo,C), k float32, through `scratch` (rows, 9, C)
-// float32 with rows = dw3x3_backward_s2_plan(...): two launches on `stream`.
-int dw3x3_backward_s2(const void* x, const void* dy, const void* k, void* dx, void* scratch,
-                      long long rows, void* dk, int n, int h, int w, int c, int is_bf16,
-                      int device, void* stream) {
+// dx (N,H,W,C) in x's type and dk (3,3,C) float32 of the conv at `stride`
+// from x (N,H,W,C) and dy (N,Ho,Wo,C), k float32, through `scratch` (rows,
+// 9, C) float32 with rows = dw3x3_backward_plan(...): two launches on
+// `stream`, dw_bwd_s2_kernel or dw_bwd_s1_kernel, then dw_dk_reduce_kernel.
+int dw3x3_backward(const void* x, const void* dy, const void* k, void* dx, void* scratch,
+                   long long rows, void* dk, int n, int h, int w, int c, int stride,
+                   int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
+  if (stride != 1 && stride != 2) return int(cudaErrorInvalidValue);
   if (c > MAX_C) return int(cudaErrorInvalidValue);
   if (c == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -892,47 +1003,21 @@ int dw3x3_backward_s2(const void* x, const void* dy, const void* k, void* dx, vo
   const float* kf = static_cast<const float*>(k);
   float* sf = static_cast<float*>(scratch);
   float* dkf = static_cast<float*>(dk);
-  err = is_bf16 ? dw_bwd_s2_launch<__nv_bfloat16>(x, dy, kf, dx, sf, rows, dkf, n, h, w, c,
-                                                  device, vec, st)
-                : dw_bwd_s2_launch<float>(x, dy, kf, dx, sf, rows, dkf, n, h, w, c, device,
-                                          vec, st);
+  if (is_bf16)
+    err = stride == 2 ? dw_bwd_launch<__nv_bfloat16, 2>(x, dy, kf, dx, sf, rows, dkf, n, h, w,
+                                                        c, device, vec, st)
+                      : dw_bwd_launch<__nv_bfloat16, 1>(x, dy, kf, dx, sf, rows, dkf, n, h, w,
+                                                        c, device, vec, st);
+  else
+    err = stride == 2 ? dw_bwd_launch<float, 2>(x, dy, kf, dx, sf, rows, dkf, n, h, w, c,
+                                                device, vec, st)
+                      : dw_bwd_launch<float, 1>(x, dy, kf, dx, sf, rows, dkf, n, h, w, c,
+                                                device, vec, st);
   return int(err);
 }
 
-// Rows of the stride-1 dk scratch for a conv whose output has `pixels` pixels of c channels.
-long long dw3x3_dk_blocks(long long pixels, int c) { return dk_blocks(pixels, c); }
-
 // Channels the kernels take at most.
 int dw3x3_max_channels() { return MAX_C; }
-
-// dk (3,3,C) float32 of the stride-1 conv from x (N,H,W,C) and dy (N,H,W,C),
-// through `scratch` (dw3x3_dk_blocks(N*H*W, C), 9, C) float32.
-int dw3x3_dk_s1(const void* x, const void* dy, void* scratch, void* dk, int n, int h, int w,
-                int c, int is_bf16, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  if (c > MAX_C) return int(cudaErrorInvalidValue);
-  if (c == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long pixels = (long long)n * h * w;
-  if (pixels == 0) return int(cudaMemsetAsync(dk, 0, size_t(9) * c * sizeof(float), st));
-  const long long blocks = dk_blocks(pixels, c);
-  const long long per_block = (pixels + blocks - 1) / blocks;
-  const bool vec = c % VEC == 0 && aligned16(x) && aligned16(dy);
-  if (is_bf16)
-    dw_dk_partial_kernel<__nv_bfloat16><<<unsigned(blocks), THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-        static_cast<float*>(scratch), h, w, c, pixels, per_block, vec);
-  else
-    dw_dk_partial_kernel<float><<<unsigned(blocks), THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy),
-        static_cast<float*>(scratch), h, w, c, pixels, per_block, vec);
-  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  const int cols = 9 * c;
-  dw_dk_reduce_kernel<<<unsigned((cols + 31) / 32), dim3(32, RED_ROWS), 0, st>>>(
-      static_cast<const float*>(scratch), static_cast<float*>(dk), int(blocks), cols);
-  return int(cudaGetLastError());
-}
 
 const char* dw3x3_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

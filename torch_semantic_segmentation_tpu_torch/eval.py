@@ -56,7 +56,9 @@ def make_multiscale_eval_step(
     spatial sharding they and the labels are the rank's band
     (`parallel.shard_batch(spatial=True)`, any zoo model), and every
     scale runs on its own split; a scale whose image is degenerate on the
-    bands (`check_spatial_extent`) raises ValueError."""
+    bands (`check_spatial_extent`), and a band that is not the rank's
+    band of the split `shard_batch` recorded (`distributed.check_band`),
+    raise ValueError."""
     dev = resolve_device(device)
     check_spatial_model(model)
     max_stride = getattr(model, "max_stride", size_divisor)
@@ -65,6 +67,8 @@ def make_multiscale_eval_step(
     def step(cm: torch.Tensor, images, labels) -> torch.Tensor:
         images = torch.as_tensor(images).to(dev)
         labels = torch.as_tensor(labels).to(dev)
+        distributed.check_band(images.shape[1], "images")
+        distributed.check_band(labels.shape[1], "labels")
         model.eval()
         prob = _summed_probs(model, images, scales, flip, align_corners,
                              size_divisor, max_stride)

@@ -20,9 +20,10 @@ Rounding points, those of the JAX package's routed path:
   pixel in the same order, each product and sum rounded on its own;
 - dk a float32 sum over every output pixel, returned in k's dtype.
 
-On the card the stride-2 backward is one kernel that reads x and the
-cotangent once and writes dx and each block's dk sums, then a fixed-order
-sum of the blocks' rows (`csrc/depthwise.cu`, `dw_bwd_s2_kernel`).
+On the card the backward, at either stride, is one kernel that reads x
+and the cotangent once and writes dx and each block's dk sums, then a
+fixed-order sum of the blocks' rows (`csrc/depthwise.cu`,
+`dw_bwd_s2_kernel` and `dw_bwd_s1_kernel`).
 """
 
 from __future__ import annotations
@@ -106,15 +107,12 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dw3x3_forward.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-        lib.dw3x3_backward_s2.argtypes = [p, p, p, p, p, ll, p, i, i, i, i,
-                                          i, i, p]
-        lib.dw3x3_dk_s1.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        for name in ("dw3x3_forward", "dw3x3_backward_s2", "dw3x3_dk_s1"):
+        lib.dw3x3_backward.argtypes = [p, p, p, p, p, ll, p, i, i, i, i, i,
+                                       i, i, p]
+        for name in ("dw3x3_forward", "dw3x3_backward"):
             getattr(lib, name).restype = i
-        lib.dw3x3_backward_s2_plan.argtypes = [i, i, i, i, i, i, p]
-        lib.dw3x3_backward_s2_plan.restype = ll
-        lib.dw3x3_dk_blocks.argtypes = [ll, i]
-        lib.dw3x3_dk_blocks.restype = ll
+        lib.dw3x3_backward_plan.argtypes = [i, i, i, i, i, i, i, p]
+        lib.dw3x3_backward_plan.restype = ll
         lib.dw3x3_max_channels.argtypes = []
         lib.dw3x3_max_channels.restype = i
         lib.dw3x3_error_string.argtypes = [i]
@@ -156,12 +154,12 @@ def _launch_args(x: torch.Tensor) -> tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=64)
-def _s2_rows(n: int, h: int, w: int, c: int, is_bf16: int,
-             device: int) -> int:
-    """Rows of the stride-2 backward's dk scratch: its blocks, which the
-    card's occupancy fixes for a shape."""
-    rows = _library().dw3x3_backward_s2_plan(n, h, w, c, is_bf16, device,
-                                             None)
+def _bwd_rows(n: int, h: int, w: int, c: int, stride: int, is_bf16: int,
+              device: int) -> int:
+    """Rows of the backward's dk scratch: its blocks, which the card's
+    occupancy fixes for a shape and stride."""
+    rows = _library().dw3x3_backward_plan(n, h, w, c, stride, is_bf16,
+                                          device, None)
     if rows < 0:
         raise RuntimeError(f"depthwise backward: no launch plan for "
                            f"{(n, h, w, c)}")
@@ -196,10 +194,9 @@ depthwise3x3_forward.launches = 0
 def depthwise3x3_backward(x: torch.Tensor, k: torch.Tensor, g: torch.Tensor,
                           stride: int):
     """The backward: (dx in x's dtype, dk (3,3,C) float32) from the
-    cotangent g; the plain version on the CPU. On the card, stride 2: one
-    kernel for dx and the blocks' dk sums, then their sum; stride 1: the
-    forward kernel with the taps flipped for dx, then the two dk kernels.
-    dk is the same bit for bit from launch to launch."""
+    cotangent g; the plain version on the CPU. On the card, either stride:
+    one kernel for dx and the blocks' dk sums, then their sum. dk is the
+    same bit for bit from launch to launch."""
     if x.device.type == "cpu":
         return depthwise3x3_reference_backward(x, k, g, stride)
     if x.device.type != "cuda":
@@ -216,24 +213,12 @@ def depthwise3x3_backward(x: torch.Tensor, k: torch.Tensor, g: torch.Tensor,
     kf = k.float().contiguous()
     dx = torch.empty_like(x)
     dk = torch.empty((3, 3, c), dtype=torch.float32, device=x.device)
-    if stride == 2:
-        rows = _s2_rows(n, h, w, c, *args[:2])
-        scratch = torch.empty((rows, 9, c), dtype=torch.float32,
-                              device=x.device)
-        _check(lib, lib.dw3x3_backward_s2(
-            x.data_ptr(), g.data_ptr(), kf.data_ptr(), dx.data_ptr(),
-            scratch.data_ptr(), rows, dk.data_ptr(), n, h, w, c, *args),
-            "backward")
-    else:
-        kflip = kf.flip(0, 1).contiguous()
-        _check(lib, lib.dw3x3_forward(g.data_ptr(), kflip.data_ptr(),
-                                      dx.data_ptr(), n, h, w, c, 1, *args),
-               "dx")
-        scratch = torch.empty((lib.dw3x3_dk_blocks(n * h * w, c), 9, c),
-                              dtype=torch.float32, device=x.device)
-        _check(lib, lib.dw3x3_dk_s1(x.data_ptr(), g.data_ptr(),
-                                    scratch.data_ptr(), dk.data_ptr(),
-                                    n, h, w, c, *args), "dk")
+    rows = _bwd_rows(n, h, w, c, stride, *args[:2])
+    scratch = torch.empty((rows, 9, c), dtype=torch.float32, device=x.device)
+    _check(lib, lib.dw3x3_backward(
+        x.data_ptr(), g.data_ptr(), kf.data_ptr(), dx.data_ptr(),
+        scratch.data_ptr(), rows, dk.data_ptr(), n, h, w, c, stride, *args),
+        "backward")
     depthwise3x3_backward.launches += 1
     kernels.check_finite("depthwise backward", dx, dk)
     return dx, dk

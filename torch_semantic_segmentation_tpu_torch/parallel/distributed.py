@@ -47,7 +47,11 @@ data row). `world_size()` stays every rank; the moments weigh each rank
 by its share of the global batch's pixels (`pixel_share`), and the losses
 and gradients sum every pixel once. A checkpointed segment's recompute
 exchanges its halos again, as `jax.checkpoint` reruns GSPMD's exchanges:
-the exchanges block, and every rank runs them in one order.
+the exchanges block, and every rank runs them in one order. The JAX
+package's sharding travels with the array; here the steps check that
+their images and labels are the rank's band of the record (`check_band`),
+so that a batch cut by other means raises instead of reading another
+split.
 
 `initialize()` follows torchrun's contract: `WORLD_SIZE`, `RANK`,
 `LOCAL_RANK`, and `MASTER_ADDR` / `MASTER_PORT` for `env://`. NCCL on the
@@ -292,6 +296,24 @@ def band_split(rows: int, split: tp.Sequence[int] | None = None
         raise ValueError(f"a band of {rows} rows is at no level of the "
                          f"split {base}")
     return tuple(r * rows // mine for r in base)
+
+
+def check_band(rows: int, what: str) -> None:
+    """Raise ValueError unless a band of `rows` rows is this rank's band of
+    the recorded split, the one `parallel.shard_batch` cut: the steps call
+    it on the images' and the labels' H before the model runs, so that a
+    band cut by other means fails on its own rank before any collective
+    or halo, and its peers at their first exchange with it. A no-op
+    without a record (equal bands) and where the tensors are not bands."""
+    if _split is None or not _banded():
+        return
+    s = spatial_rank()
+    want = _split[s] if s < len(_split) else None
+    if rows != want:
+        raise ValueError(
+            f"{what}: band {s} has {rows} rows, where the recorded split "
+            f"{_split} gives it {want}: cut the batch with "
+            "parallel.shard_batch(spatial=True)")
 
 
 def band_start(rows: int, split: tp.Sequence[int] | None = None) -> int:

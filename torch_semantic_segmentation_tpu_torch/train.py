@@ -205,7 +205,9 @@ def make_train_step(model: nn.Module, state: TrainState,
 
     Under spatial sharding the batch is the rank's band of its rows
     (`parallel.shard_batch(spatial=True, max_stride=model.max_stride)`,
-    bands of any split); every zoo model takes it
+    bands of any split; images or labels whose rows are not the rank's
+    band of the recorded split raise ValueError before the model runs,
+    `distributed.check_band`); every zoo model takes it
     (`models.check_spatial_model`), with remat too: a segment's recompute
     exchanges its halos and reduces its moments again, as the JAX
     package's `jax.checkpoint` reruns GSPMD's exchanges, in the order of
@@ -224,6 +226,8 @@ def make_train_step(model: nn.Module, state: TrainState,
              ) -> dict[str, torch.Tensor]:
         images = torch.as_tensor(images).to(dev)
         labels = torch.as_tensor(labels).to(dev)
+        distributed.check_band(images.shape[1], "images")
+        distributed.check_band(labels.shape[1], "labels")
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with (conv.deferred_running_stats() if before_update is not None
@@ -259,7 +263,8 @@ def make_eval_step(model: nn.Module, *, num_classes: int,
     the int64 confusion matrix (`metrics.update_confusion_matrix`). Only the
     (C, C) matrix need leave the device. Under spatial sharding the batch
     is the rank's band (any zoo model): each rank counts its band's
-    pixels, and `eval.evaluate` sums the matrices."""
+    pixels, and `eval.evaluate` sums the matrices; a band cut off the
+    recorded split raises as in the train step."""
     dev = resolve_device(device)
     check_spatial_model(model)
     align_corners = bool(getattr(model, "align_corners", False))
@@ -271,6 +276,8 @@ def make_eval_step(model: nn.Module, *, num_classes: int,
                              f"{(num_classes, num_classes)}")
         images = torch.as_tensor(images).to(dev)
         labels = torch.as_tensor(labels).to(dev)
+        distributed.check_band(images.shape[1], "images")
+        distributed.check_band(labels.shape[1], "labels")
         model.eval()
         logits = model(images)
         if isinstance(logits, (tuple, list)):
