@@ -1184,7 +1184,17 @@ def calibrated_state(frames, spec=FASTSCNN) -> dict:
     from torch_semantic_segmentation_tpu_torch.models import get_model
 
     name, kw = spec
-    model = get_model(name, NUM_CLASSES, seed=0, device="cuda", **kw).eval()
+    model = get_model(name, NUM_CLASSES, seed=0, device="cuda", **kw)
+    calibrate_bn(model, normalize_batch(frames[:2]))
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def calibrate_bn(model, images):
+    """`calibrated_state`'s BN statistics and affine parameters, set on
+    `model` in place from one forward pass over `images` (the model in
+    eval mode after, no dropout drawn)."""
+    import torch
+    model.eval()
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for m in bns:
         m.reset_running_stats()
@@ -1192,12 +1202,11 @@ def calibrated_state(frames, spec=FASTSCNN) -> dict:
         m.train()
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
-        model(normalize_batch(frames[:2]))
+        model(images)
         for m in bns:
             c = m.num_features
             m.weight.copy_(torch.rand(c, generator=g) + 0.5)
             m.bias.copy_(torch.randn(c, generator=g) * 0.2)
-    return {k: v.clone() for k, v in model.state_dict().items()}
 
 
 def build_model(compute_dtype, state: dict, spec=FASTSCNN):
@@ -3051,10 +3060,12 @@ def eval_cli_check(best_dir: str) -> dict:
 def predict_check(best_dir: str, tmp: str) -> dict:
     """`predict_frames` on the best checkpoint's model as the predict CLI
     builds it (float32, BN folded, `make_predict_fn`), over 11 val frames
-    at 128x128 and 2 at 96x160 in batches of 4: the ids equal, bit for bit,
-    the serving predictor's called directly on the same batches; 3 K5
-    launches a batch; the masks written by `write_png` and read back by
-    zlib equal the ids, the colour masks `palette[ids]`."""
+    at 128x128 and 2 at 96x160 in batches of 4, each resolution through
+    one `aot_compile`d predictor: the ids equal, bit for bit, the serving
+    predictor's called directly on the same batches; 3 K5 launches in each
+    of a group's warm-up calls and its capture, none in a replay; the
+    masks written by `write_png` and read back by zlib equal the ids, the
+    colour masks `palette[ids]`."""
     import os
 
     import torch
@@ -3066,7 +3077,8 @@ def predict_check(best_dir: str, tmp: str) -> dict:
     from torch_semantic_segmentation_tpu_torch.data.transforms import (
         CITYSCAPES_MEAN, CITYSCAPES_STD)
     from torch_semantic_segmentation_tpu_torch.models import get_model
-    from torch_semantic_segmentation_tpu_torch.serving import make_predict_fn
+    from torch_semantic_segmentation_tpu_torch.serving import (
+        WARMUP_CALLS, make_predict_fn)
 
     val = ShapesDataset(11, ACC_CROP, ACC_CROP, seed=10_000)
     wide = ShapesDataset(len(PREDICT_WIDE_AT), 96, 160, seed=10_001)
@@ -3113,13 +3125,16 @@ def predict_check(best_dir: str, tmp: str) -> dict:
             if not np.array_equal(read_png(path), img):
                 fail(f"{path} does not read back as the array written")
             written += 1
+    # each group's compile: its warm-up calls and its capture; its batches
+    # replay the graph, which no wrapper counts
     want = {**{k: 0 for k in launch_counts()},
-            "sepconv": K5_PER_REQUEST * batches}
+            "sepconv": K5_PER_REQUEST * (WARMUP_CALLS + 1) * len(groups)}
     print(f"predict_frames: {len(frames)} frames ({len(groups)} groups, "
-          f"{batches} batches of {PREDICT_BATCH}) in {ms:.1f} ms; ids equal "
-          f"the direct predictor's bit for bit: {same}; pixel accuracy "
-          f"against the labels {acc:.4f}; {written} PNGs read back equal; "
-          f"launches {used}", flush=True)
+          f"{batches} batches of {PREDICT_BATCH}, one compiled predictor a "
+          f"group) in {ms:.1f} ms, compiles included; ids equal the direct "
+          f"predictor's bit for bit: {same}; pixel accuracy against the "
+          f"labels {acc:.4f}; {written} PNGs read back equal; launches "
+          f"{used}", flush=True)
     if not same:
         fail("predict_frames' ids differ from the serving predictor's")
     expect_launches(used, want, "predict_frames")
@@ -4901,6 +4916,202 @@ def zoo_spatial_phase() -> dict:
     return result
 
 
+# phase 17: the zoo names compiled beside FastSCNN, at batch 2 of 512x1024,
+# with their constructor keywords (the low-res logits where the
+# constructor takes them; UNet's bilinear decoder, which runs K4)
+AOT_ZOO_BATCH, AOT_ZOO_H, AOT_ZOO_W = 2, 512, 1024
+AOT_ZOO = (UNET_BILINEAR,
+           *((f"deeplabv3_resnet{d}", {"upsample_logits": False})
+             for d in (18, 34, 50, 101)),
+           ("enet", {}), ("bisenet", {"upsample_logits": False}),
+           ("icnet", {"upsample_logits": False}),
+           ("contextnet", {"upsample_logits": False}),
+           ("lednet", {"upsample_logits": False}), ("erfnet", {}),
+           ("esnet", {}))
+# the kernel launches each capture holds, by the kernels line's names
+# (none elsewhere)
+AOT_HELD = {"fastscnn": {"sepconv": K5_PER_REQUEST},
+            "unet": {"upsample_concat": K4_PER_FORWARD},
+            "contextnet": {"sepconv": CONTEXTNET_K5_PER_REQUEST}}
+# eager calls on the first batch: the eager predictor's own spread
+AOT_EAGER_CALLS = 3
+
+
+def host_copy_model():
+    """A model whose forward copies a host array to the card: a CUDA graph
+    cannot hold that, so `aot_compile` must raise."""
+    import torch
+
+    class HostCopy(torch.nn.Module):
+        def forward(self, x):
+            return x + torch.from_numpy(np.ones(3, np.float32)).to(x.device)
+
+    return HostCopy()
+
+
+def wrapper_launches(fn) -> dict:
+    """The kernels' launches during `fn()`, by the kernels line's names
+    (those that launched)."""
+    from torch_semantic_segmentation_tpu_torch import profiling
+    before = profiling.launch_counts()
+    fn()
+    after = profiling.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def aot_outputs(name: str, predict, compiled, frames: list) -> dict:
+    """The eager predictor's outputs on each batch (`AOT_EAGER_CALLS` times
+    on the first: its own spread, the most elements two of its calls
+    differ on) against the compiled outputs: fail unless they differ on no
+    more elements than that spread, and unless the capture holds the
+    launches of one eager request, `AOT_HELD`'s."""
+    import torch
+    eager = [predict(frames[0]) for _ in range(AOT_EAGER_CALLS)]
+    eager += [predict(f) for f in frames[1:]]
+    a_request = wrapper_launches(lambda: predict(frames[0]))
+    got = [compiled(f) for f in frames]
+    torch.cuda.synchronize()
+    spread = max(int((e != eager[0]).sum()) for e in eager[1:AOT_EAGER_CALLS])
+    want = [eager[0]] + eager[AOT_EAGER_CALLS:]
+    diff = [int((g != w).sum()) for g, w in zip(got, want)]
+    held = AOT_HELD.get(name, {})
+    what = f"phase 17 {name} {predict.output}"
+    if compiled.held != held or a_request != held:
+        fail(f"{what}: the capture holds {compiled.held}, an eager request "
+             f"launches {a_request}, expected {held}")
+    if not all(torch.isfinite(g.float()).all() for g in got):
+        fail(f"{what}: the compiled outputs are not finite")
+    if max(diff) > spread:
+        fail(f"{what}: the compiled outputs differ from the eager ones on "
+             f"{diff} elements a batch of {got[0].numel()}; the eager "
+             f"predictor's own spread is {spread}")
+    return dict(diff=diff, spread=spread, got=got, want=want)
+
+
+def classes_present(ids) -> int:
+    import torch
+    return int((torch.bincount(ids.flatten().long()) > 0).sum())
+
+
+def aot_phase() -> dict:
+    """Phase 17, ahead-of-time serving: FastSCNN at phase 4's
+    configuration compiled by `serving.aot_compile` (one CUDA graph):
+    its capture's K5 launches, the compiled ids on two batches against the
+    eager predictor's bit for bit, the first result unchanged after the
+    second call, a wrong shape refused; 5 requests of each predictor on
+    the host clock and CUDA events, the compile's time and each
+    predictor's peak memory; then every other zoo name at batch 2 of
+    512x1024, its compiled ids and logits against its eager ones (bar:
+    the eager predictor's own spread, 0 where two of its calls agree),
+    K4's 4 launches in UNet's captures and K5's 4 in ContextNet's; last,
+    a capture that fails (a host copy in the forward) raises, and the
+    eager predictor then serves its ids."""
+    import torch
+    from torch_semantic_segmentation_tpu_torch.data.transforms import (
+        normalize_batch)
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.serving import (
+        WARMUP_CALLS, aot_compile, make_predict_fn)
+
+    t0 = time.perf_counter()
+    smi = smi_line()
+    frames = [torch.from_numpy(make_frames(s)).cuda() for s in (0, 1)]
+    predict = make_predict_fn(build_model(torch.bfloat16,
+                                          calibrated_state(frames[0])),
+                              output="ids")
+    predict(frames[0])                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, eager_host, eager_dev = request_times(predict, frames[0], REQUESTS)
+    eager_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    compiled = aot_compile(predict, SERVE_BATCH, SERVE_H, SERVE_W)
+    # the graph's private pool: reserved for the graph, never counted as
+    # allocated during a replay
+    graph_bytes = torch.cuda.memory_reserved() - reserved
+    ids = aot_outputs("fastscnn", predict, compiled, frames)
+    ids["present"] = classes_present(ids["want"][0])
+    kept = torch.equal(ids["got"][0], ids["want"][0])
+    try:
+        compiled(frames[0][:SERVE_BATCH - 1])
+        refused = False
+    except TypeError:
+        refused = True
+    torch.cuda.reset_peak_memory_stats()
+    _, aot_host, aot_dev = request_times(compiled, frames[0], REQUESTS)
+    aot_peak = torch.cuda.max_memory_allocated()
+    print(f"phase 17 fastscnn bf16 {SERVE_BATCH}x{SERVE_H}x{SERVE_W} ({smi}):"
+          f" aot_compile {compiled.seconds:.3f} s ({WARMUP_CALLS} warm-up "
+          f"calls and the capture), memory reserved for it "
+          f"{graph_bytes / 2 ** 30:.3f} GiB; capture holds {compiled.held}; "
+          f"compiled ids against eager on two batches: {ids['diff']} pixels "
+          f"differ (eager spread {ids['spread']}, {ids['present']} classes "
+          f"present); the first result unchanged after the second call: "
+          f"{kept}; a batch of {SERVE_BATCH - 1} refused with TypeError: "
+          f"{refused}", flush=True)
+    print(f"phase 17 fastscnn request ms ({smi}): eager host "
+          f"{[round(t, 3) for t in eager_host]} median "
+          f"{np.median(eager_host):.3f}, CUDA events median "
+          f"{np.median(eager_dev):.3f}, peak {eager_peak / 2 ** 30:.3f} GiB; "
+          f"compiled host {[round(t, 3) for t in aot_host]} median "
+          f"{np.median(aot_host):.3f}, CUDA events median "
+          f"{np.median(aot_dev):.3f}, peak {aot_peak / 2 ** 30:.3f} GiB "
+          f"allocated + {graph_bytes / 2 ** 30:.3f} GiB reserved for the "
+          f"graph", flush=True)
+    if ids["diff"] != [0, 0] or not kept or not refused:
+        fail("phase 17: FastSCNN's compiled ids differ from the eager ids, "
+             "the first result moved after the second call, or a wrong "
+             "shape was not refused")
+    eager_first = ids["want"][0]
+    # each graph's kernel launches and replays, for the kernels line
+    out = {"fastscnn": dict(held=compiled.held, replays=compiled.replays)}
+    del compiled, ids
+    torch.cuda.empty_cache()
+
+    batch = (AOT_ZOO_BATCH, AOT_ZOO_H, AOT_ZOO_W)
+    zoo_frames = [f[:AOT_ZOO_BATCH, :AOT_ZOO_H, :AOT_ZOO_W].contiguous()
+                  for f in frames]
+    for name, kw in AOT_ZOO:
+        t1 = time.perf_counter()
+        model = get_model(name, NUM_CLASSES, seed=0, device="cuda",
+                          compute_dtype=torch.bfloat16, **kw)
+        calibrate_bn(model, normalize_batch(zoo_frames[0]))
+        # the ids and, since a random deep model may give every pixel one
+        # class, the logits too (`make_predict_fn` folds once)
+        for output in ("ids", "logits"):
+            zpredict = make_predict_fn(model, output=output)
+            zpredict(zoo_frames[0])          # warm-up
+            zcompiled = aot_compile(zpredict, *batch)
+            got = aot_outputs(name, zpredict, zcompiled, zoo_frames)
+            present = (f"; {classes_present(got['want'][0])} classes present"
+                       if output == "ids" else "")
+            print(f"phase 17 {name} bf16 {'x'.join(map(str, batch))} "
+                  f"{output}: aot_compile {zcompiled.seconds:.3f} s; capture "
+                  f"holds {zcompiled.held}; compiled against eager: "
+                  f"{got['diff']} elements differ of {got['want'][0].numel()}"
+                  f", eager spread {got['spread']} (the bar){present}; "
+                  f"{time.perf_counter() - t1:.1f} s", flush=True)
+            out[name if output == "ids" else f"{name}_{output}"] = dict(
+                held=zcompiled.held, replays=zcompiled.replays)
+            del zpredict, zcompiled, got
+        del model
+        torch.cuda.empty_cache()
+
+    bad = make_predict_fn(host_copy_model(), fold_bn=False, output="logits")
+    try:
+        aot_compile(bad, 1, 64, 64)
+    except RuntimeError as err:
+        print(f"phase 17 a failed capture raises: {str(err)[:400]}",
+              flush=True)
+    else:
+        fail("phase 17: the capture of a host copy did not raise")
+    if not torch.equal(predict(frames[0]), eager_first):
+        fail("phase 17: after the failed capture the eager ids moved")
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4965,6 +5176,7 @@ def main() -> int:
           f"the two ranks {sp['ranks'][0]['launches']} in {SP_STEPS} steps",
           flush=True)
     zoo_spatial_phase()
+    aot = aot_phase()
 
     def row(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",
@@ -5007,6 +5219,14 @@ def main() -> int:
     k5_row = row("sepconv", "sepconv.cu", "pallas_sepconv.py:239",
                  served["launches"]
                  + stretch["contextnet"]["serve"]["sepconv_launches"], k5)
+    # the kernels' launches inside phase 17's graphs: a replay launches
+    # them again, and no wrapper counts it
+    def graphs(wrapper: str) -> list:
+        return [{"path": f"{p}_aot", "held": r["held"][wrapper],
+                 "replays": r["replays"]}
+                for p, r in aot.items() if wrapper in r["held"]]
+
+    k5_row["graphs"] = graphs("sepconv")
     k5_row["paths"] = [
         {"path": p, "launches": n, "launches_a_request": per_request,
          "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
@@ -5063,8 +5283,10 @@ def main() -> int:
                  k26(k6)),
         path_row("depthwise_bwd", "depthwise.cu", "pallas_dw.py:452", "bwd",
                  k26(k6)),
-        row("upsample_concat", "upsample_concat.cu", "pallas_upsample.py:109",
-            unet["train"]["launches"]["upsample_concat"], k4),
+        {**row("upsample_concat", "upsample_concat.cu",
+               "pallas_upsample.py:109",
+               unet["train"]["launches"]["upsample_concat"], k4),
+         "graphs": graphs("upsample_concat")},
         k3_row("resize_ce_map_fwd", "pallas_resize_ce.py:446", "fwd"),
         k3_row("resize_ce_map_bwd", "pallas_resize_ce.py:494", "bwd"),
     ]}))

@@ -807,3 +807,119 @@ def test_prefetch_keeps_up_with_a_fast_consumer(cuda):
     (only,) = pipeline.prefetch_to_device(iter([host[0][1]]))
     assert only[0].is_cuda and torch.equal(only[0].cpu(),
                                            torch.from_numpy(host[0][1]))
+
+
+def _served(cuda, name, output="ids", **kw):
+    """A bf16 zoo model's predictor on the card, BN statistics from one
+    train-mode pass over seeded frames (so the ids vary)."""
+    from torch_semantic_segmentation_tpu_torch.models import get_model
+    from torch_semantic_segmentation_tpu_torch.serving import make_predict_fn
+    model = get_model(name, 19, compute_dtype=torch.bfloat16, device=cuda,
+                      **kw)
+    model.train()
+    with torch.no_grad():
+        model(torch.from_numpy(np.random.default_rng(1).normal(
+            size=(2, 128, 256, 3)).astype(np.float32)).to(cuda))
+    return make_predict_fn(model, output=output)
+
+
+def _uint8_frames(seed, shape, device):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (*shape, 3), np.uint8)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("output", ["ids", "logits"])
+def test_aot_compile_replays_the_predictor_bit_for_bit(cuda, output):
+    """FastSCNN (low-res logits, bf16): the capture holds its 3 K5
+    launches, which a replay launches again without counting; the compiled
+    outputs of two batches equal the eager ones bit for bit; the first
+    result is unchanged after the second call; other shapes or dtypes
+    raise TypeError."""
+    from torch_semantic_segmentation_tpu_torch.serving import aot_compile
+    predict = _served(cuda, "fastscnn", output, upsample_logits=False)
+    frames = [_uint8_frames(s, (2, 256, 512), cuda) for s in (0, 1)]
+    eager = [predict(f) for f in frames]
+    compiled = aot_compile(predict, 2, 256, 512)
+    assert compiled.held == {"sepconv": 3}
+    before = sepconv.fused_separable_conv.launches
+    first = compiled(frames[0])
+    kept = first.clone()
+    second = compiled(frames[1].cpu().numpy())
+    torch.cuda.synchronize()
+    assert sepconv.fused_separable_conv.launches == before
+    assert compiled.replays == 2
+    assert first.data_ptr() != second.data_ptr()
+    assert torch.equal(first, eager[0]) and torch.equal(second, eager[1])
+    assert torch.equal(first, kept)
+    for bad in (frames[0][:1], frames[0].float(), frames[0][:, :128]):
+        with pytest.raises(TypeError, match="compiled for uint8 frames"):
+            compiled(bad)
+
+
+@pytest.mark.cuda
+def test_aot_compile_holds_k4_in_unet(cuda):
+    from torch_semantic_segmentation_tpu_torch.serving import aot_compile
+    predict = _served(cuda, "unet", base_ch=8, upsample="bilinear")
+    frames = _uint8_frames(2, (2, 128, 256), cuda)
+    eager = predict(frames)
+    compiled = aot_compile(predict, 2, 128, 256)
+    assert compiled.held == {"upsample_concat": 4}
+    assert torch.equal(compiled(frames), eager)
+
+
+@pytest.mark.cuda
+def test_aot_compile_frees_its_graph_and_pool(cuda):
+    import gc
+
+    from torch_semantic_segmentation_tpu_torch.serving import aot_compile
+    predict = _served(cuda, "fastscnn", upsample_logits=False)
+    frames = _uint8_frames(0, (2, 128, 256), cuda)
+    after = []
+    for _ in range(2):
+        compiled = aot_compile(predict, 2, 128, 256)
+        compiled(frames)
+        alive = torch.cuda.memory_allocated(cuda)
+        del compiled
+        gc.collect()
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated(cuda))
+        # the graph's output, its frames buffer and its pool go with it
+        assert after[-1] + frames.numel() < alive
+    assert after[1] == after[0]           # nothing kept from compile to compile
+
+
+@pytest.mark.cuda
+def test_adaptive_avg_pool2d_runs_in_a_graph(cuda):
+    """After its first call for a shape the pool copies nothing from the
+    host, so a CUDA graph holds it; its replay gives the eager bits."""
+    from torch_semantic_segmentation_tpu_torch.ops import adaptive_avg_pool2d
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 32, 64, 16)).astype(np.float32)).to(cuda)
+    want = [adaptive_avg_pool2d(x, b) for b in (1, 2, 3, 6)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [adaptive_avg_pool2d(x, b) for b in (1, 2, 3, 6)]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_aot_compile_raises_where_the_capture_fails(cuda):
+    """A forward that copies a host array to the card cannot be captured:
+    aot_compile raises, naming the capture, and serves nothing eagerly;
+    the card then runs on."""
+    from torch_semantic_segmentation_tpu_torch.serving import (
+        aot_compile, make_predict_fn)
+
+    class HostCopy(torch.nn.Module):
+        def forward(self, x):
+            return x + torch.from_numpy(np.ones(3, np.float32)).to(x.device)
+
+    predict = make_predict_fn(HostCopy(), fold_bn=False, output="logits")
+    frames = _uint8_frames(4, (1, 16, 16), cuda)
+    want = predict(frames)
+    with pytest.raises(RuntimeError, match="as a CUDA graph failed"):
+        aot_compile(predict, 1, 16, 16)
+    assert torch.equal(predict(frames), want)

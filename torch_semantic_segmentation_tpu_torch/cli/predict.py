@@ -10,12 +10,14 @@ with `--color`, `<stem>_color.png` coloured with the dataset palette.
 
 Three parts: the files are read by the native codecs
 (`native_loader.decode_image`, as the datasets read them); the frames in
-memory go through `predict_frames`, which groups them by resolution and
-pads a group's tail batch by repeating its last frame, so each batch has
-the group's one shape; the masks are written by `write_png`, a PNG encoder
-over the standard library's zlib. The predictor is
-`serving.make_predict_fn`: uint8 NHWC in, ids out, normalisation on the
-device, BatchNorm folded, low-res logits resized fused with the argmax.
+memory go through `predict_frames`, which groups them by resolution,
+compiles the predictor once for each group's shape (`serving.aot_compile`:
+on the card one CUDA graph) and pads a group's tail batch by repeating its
+last frame, so each batch has the group's one shape; the masks are written
+by `write_png`, a PNG encoder over the standard library's zlib. The
+predictor is `serving.make_predict_fn`: uint8 NHWC in, ids out,
+normalisation on the device, BatchNorm folded, low-res logits resized
+fused with the argmax.
 """
 
 from __future__ import annotations
@@ -123,11 +125,18 @@ def _groups(frames: tp.Sequence[np.ndarray]) -> dict[tuple[int, int],
 def predict_frames(predict, frames: tp.Sequence[np.ndarray],
                    batch_size: int) -> list[np.ndarray]:
     """The (H, W) uint8 id map of each uint8 (H, W, 3) frame, in order.
-    Frames of one resolution go through `predict` in batches of
-    `batch_size`; a group's tail batch is padded by repeating its last
-    frame, so every batch of a group has one shape."""
+    Frames of one resolution go through one `serving.aot_compile` of
+    `predict` (from `make_predict_fn`) at (batch_size, H, W), in batches
+    of `batch_size`, as the JAX CLI runs one compiled program per
+    resolution; a group's tail batch is padded by repeating its last
+    frame, so every batch of a group has the compiled shape. Each group's
+    compiled predictor (on the card, its CUDA graph) is freed when the
+    group is done."""
+    from torch_semantic_segmentation_tpu_torch.serving import aot_compile
+
     out: list[np.ndarray | None] = [None] * len(frames)
-    for idxs in _groups(frames).values():
+    for (h, w), idxs in _groups(frames).items():
+        compiled = aot_compile(predict, batch_size, h, w)
         for lo in range(0, len(idxs), batch_size):
             chunk = idxs[lo:lo + batch_size]
             batch = np.stack([frames[i] for i in chunk], axis=0)
@@ -135,9 +144,10 @@ def predict_frames(predict, frames: tp.Sequence[np.ndarray],
                 pad = batch_size - len(chunk)
                 batch = np.concatenate(
                     [batch, np.repeat(batch[-1:], pad, axis=0)], axis=0)
-            ids = predict(batch)[:len(chunk)].cpu().numpy()
+            ids = compiled(batch)[:len(chunk)].cpu().numpy()
             for j, i in enumerate(chunk):
                 out[i] = ids[j]
+        del compiled
     return out
 
 

@@ -31,14 +31,25 @@ from torch_semantic_segmentation_tpu_torch.models.lednet import LEDNet, lednet
 from torch_semantic_segmentation_tpu_torch.models.unet import UNet, unet
 from torch_semantic_segmentation_tpu_torch.parallel import distributed
 
-_REGISTRY = {"fastscnn": fastscnn, "unet": unet,
-             "deeplabv3_resnet18": deeplabv3_resnet18,
-             "deeplabv3_resnet34": deeplabv3_resnet34,
-             "deeplabv3_resnet50": deeplabv3_resnet50,
-             "deeplabv3_resnet101": deeplabv3_resnet101,
-             "enet": enet, "bisenet": bisenet, "icnet": icnet,
-             "contextnet": contextnet, "lednet": lednet, "erfnet": erfnet,
-             "esnet": esnet}
+_ZOO = {"fastscnn": fastscnn, "unet": unet,
+        "deeplabv3_resnet18": deeplabv3_resnet18,
+        "deeplabv3_resnet34": deeplabv3_resnet34,
+        "deeplabv3_resnet50": deeplabv3_resnet50,
+        "deeplabv3_resnet101": deeplabv3_resnet101,
+        "enet": enet, "bisenet": bisenet, "icnet": icnet,
+        "contextnet": contextnet, "lednet": lednet, "erfnet": erfnet,
+        "esnet": esnet}
+_REGISTRY = dict(_ZOO)
+
+
+def register(name: str):
+    """Decorator: register a constructor `fn(num_classes, **kwargs)`
+    under `name`, as the JAX package's `models.register` does;
+    `get_model(name)` then builds it and `available_models()` lists it."""
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
 
 
 def get_model(name: str, num_classes: int = 19, *, pretrained=None,
@@ -90,13 +101,13 @@ def check_spatial_model(model) -> None:
     module of another class has not been checked to."""
     if not distributed.is_spatial():
         return
-    if (model in _REGISTRY if isinstance(model, str)
+    if (model in _ZOO if isinstance(model, str)
             else isinstance(model, SPATIAL_MODELS)):
         return
     name = model if isinstance(model, str) else type(model).__name__
     raise NotImplementedError(
         f"spatial sharding (num_spatial={distributed.num_spatial()}) takes "
-        f"the zoo's models ({', '.join(sorted(_REGISTRY))}); {name} is not "
+        f"the zoo's models ({', '.join(sorted(_ZOO))}); {name} is not "
         "one of them, and its ops have not been checked on H bands")
 
 
@@ -105,4 +116,4 @@ __all__ = ["BiSeNet", "ContextNet", "DeepLabV3", "ENet", "ERFNet", "ESNet",
            "bisenet", "check_spatial_model", "contextnet", "deeplabv3_resnet18",
            "deeplabv3_resnet34", "deeplabv3_resnet50", "deeplabv3_resnet101",
            "enet", "erfnet", "esnet", "fastscnn", "get_model", "icnet",
-           "lednet", "unet"]
+           "lednet", "register", "unet"]

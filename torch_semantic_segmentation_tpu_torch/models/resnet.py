@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch_semantic_segmentation_tpu_torch.device import resolve_device
 from torch_semantic_segmentation_tpu_torch.ops import ConvBNAct, max_pool2d
 
 
@@ -118,3 +119,16 @@ class ResNet(nn.Module):
             x = stage(x)
             feats.append(x)
         return tuple(feats)
+
+
+def resnet(depth: int = 50, *, seed: int = 0,
+           device: str | torch.device | None = None, **kwargs) -> ResNet:
+    """The JAX package's `models.resnet.resnet(depth)`: a dilated ResNet
+    feature extractor (`ResNet`'s keywords: `in_ch`, `output_stride`,
+    `multi_grid`, `compute_dtype`) with float32 parameters drawn from
+    `torch.Generator().manual_seed(seed)`, on `device` (the card unless
+    the caller passes "cpu")."""
+    dev = resolve_device(device)
+    model = ResNet(depth, generator=torch.Generator().manual_seed(seed),
+                   **kwargs)
+    return model.to(dev)

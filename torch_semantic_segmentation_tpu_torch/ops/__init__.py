@@ -12,6 +12,7 @@ from torch_semantic_segmentation_tpu_torch.ops.conv import (
 )
 from torch_semantic_segmentation_tpu_torch.ops.pool import (
     adaptive_avg_pool2d,
+    avg_pool2d,
     global_avg_pool,
     max_pool2d,
     max_pool2x2_with_indices,
@@ -21,6 +22,8 @@ from torch_semantic_segmentation_tpu_torch.ops.upsample import (
     resize_argmax,
     resize_bilinear,
     resize_bilinear_nhcw,
+    resize_nearest,
+    upsample2x_bilinear,
 )
 from torch_semantic_segmentation_tpu_torch.ops.blocks import (
     ASPP,
@@ -32,7 +35,8 @@ from torch_semantic_segmentation_tpu_torch.ops.blocks import (
 __all__ = [
     "ASPP", "ConvBNAct", "ConvTranspose2d", "InvertedResidual",
     "PReLU", "PyramidPooling", "SegHead", "SeparableConv", "activation",
-    "adaptive_avg_pool2d", "global_avg_pool", "make_conv", "make_norm",
-    "max_pool2d", "max_pool2x2_with_indices", "max_unpool2x2",
+    "adaptive_avg_pool2d", "avg_pool2d", "global_avg_pool", "make_conv",
+    "make_norm", "max_pool2d", "max_pool2x2_with_indices", "max_unpool2x2",
     "resize_argmax", "resize_bilinear", "resize_bilinear_nhcw",
+    "resize_nearest", "upsample2x_bilinear",
 ]

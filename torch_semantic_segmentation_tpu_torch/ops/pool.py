@@ -1,5 +1,6 @@
 """Pooling on NHWC tensors: max pooling (UNet's encoder, the ResNet stem),
-the 2×2 max pool with window indices and its unpool (ENet), adaptive
+average pooling (the JAX package's `avg_pool2d`, which no zoo model
+calls), the 2×2 max pool with window indices and its unpool (ENet), adaptive
 average pooling (the PPM bins) and global average pooling, the averages
 accumulated in float32 (in float64 for a float64 input: the CPU tests
 hold the bands in float64 at 1e-10, where a float32 sum of the bands'
@@ -32,6 +33,19 @@ def _pool_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _pool_tensor(in_size: int, out_size: int, device: torch.device,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """`_pool_matrix` on `device` in `dtype`: copied to the device once
+    for a shape (a band takes a view of its columns), and made outside
+    inference mode, so that a training step may keep it for its backward.
+    A CUDA graph holds no copy from the host: the first call, outside
+    the capture, makes it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_pool_matrix(in_size, out_size)).to(
+            device=device, dtype=dtype)
+
+
 def max_pool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
                padding: int = 0) -> torch.Tensor:
     """Max pool of NHWC `x` (the JAX package's `ops/pool.max_pool2d`): a
@@ -46,6 +60,24 @@ def max_pool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
     def pool(t: torch.Tensor) -> torch.Tensor:
         y = F.max_pool2d(t.permute(0, 3, 1, 2), window, stride, padding)
         return y.permute(0, 2, 3, 1)
+
+    return distributed.on_band(pool, x, *band_halo(window, stride, padding),
+                               down=stride)
+
+
+def avg_pool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
+               padding: int = 0) -> torch.Tensor:
+    """Average pool of NHWC `x` (the JAX package's `ops/pool.avg_pool2d`):
+    each window's sum in float32 (float64 for a float64 x) over window²,
+    zero padding counted, cast back to x's dtype. On an H band it takes
+    its halo as `max_pool2d` does, so the zero padding falls at the
+    image's global edges only."""
+    stride = stride or window
+
+    def pool(t: torch.Tensor) -> torch.Tensor:
+        y = F.avg_pool2d(_accumulate(t).permute(0, 3, 1, 2), window, stride,
+                         padding, count_include_pad=True)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
 
     return distributed.on_band(pool, x, *band_halo(window, stride, padding),
                                down=stride)
@@ -106,10 +138,10 @@ def adaptive_avg_pool2d(x: torch.Tensor,
     if not distributed.is_spatial() and (oh, ow) == (h, w):
         return x
     xf = _accumulate(x)
-    mh = torch.from_numpy(_pool_matrix(distributed.global_rows(h), oh)).to(xf)
+    mh = _pool_tensor(distributed.global_rows(h), oh, xf.device, xf.dtype)
     if distributed.is_spatial():
         mh = mh[:, distributed.band_start(h):][:, :h]
-    mw = torch.from_numpy(_pool_matrix(w, ow)).to(xf)
+    mw = _pool_tensor(w, ow, xf.device, xf.dtype)
     y = distributed.spatial_sum(torch.einsum("nhwc,oh->nowc", xf, mh))
     y = torch.einsum("nhwc,ow->nhoc", y, mw)
     return y.to(x.dtype)

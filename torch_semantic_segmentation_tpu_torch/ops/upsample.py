@@ -46,6 +46,10 @@ image's in the last bit, where the taps' sum is the same bits on both.
 Its backward is the product with the matrix, as a product's is, so that
 it sums in a fixed order on the card (index_select's own backward adds
 by atomics there). Each pass's matrix and taps go to the device once.
+
+`upsample2x_bilinear` (a ×2 `resize_bilinear`) and `resize_nearest`
+(torch's mode='nearest', on unsharded tensors) are the JAX package's
+public names; no zoo model calls them.
 """
 
 from __future__ import annotations
@@ -347,3 +351,40 @@ def resize_argmax(logits: torch.Tensor, size: tuple[int, int], *,
         return torch.argmax(logits, dim=-1).to(out_dtype)
     x = resize_bilinear_nhcw(logits, size, align_corners=align_corners)
     return torch.argmax(x, dim=2).to(out_dtype)
+
+
+def upsample2x_bilinear(x: torch.Tensor, *,
+                        align_corners: bool = False) -> torch.Tensor:
+    """×2 bilinear upsample of NHWC `x` (the JAX package's
+    `ops/upsample.upsample2x_bilinear`): `resize_bilinear` to twice its
+    rows and columns, an H band's rows under spatial sharding."""
+    h, w = x.shape[1:3]
+    return resize_bilinear(x, (2 * h, 2 * w), align_corners=align_corners)
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_index(in_size: int, out_size: int,
+                   device: torch.device) -> torch.Tensor:
+    """torch's mode='nearest' source index of each output position,
+    floor(i·in/out) in float64 as the JAX package computes it, on `device`:
+    copied there once, made outside inference mode."""
+    i = np.arange(out_size, dtype=np.float64)
+    idx = np.clip(np.floor(i * (in_size / out_size)), 0, in_size - 1)
+    with torch.inference_mode(False):
+        return torch.from_numpy(idx.astype(np.int64)).to(device)
+
+
+def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of NHWC `x` to `size` (the JAX package's
+    `ops/upsample.resize_nearest`, torch's mode='nearest'). No zoo model
+    calls it, and it takes no H band: under spatial sharding it raises."""
+    h, w = x.shape[1:3]
+    oh, ow = size
+    if distributed.is_spatial():
+        raise NotImplementedError(
+            f"resize_nearest of an H band ({h} to {oh} rows): it takes "
+            "unsharded tensors")
+    if (oh, ow) == (h, w):
+        return x
+    return (x.index_select(1, _nearest_index(h, oh, x.device))
+            .index_select(2, _nearest_index(w, ow, x.device)))
